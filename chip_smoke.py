@@ -11,8 +11,11 @@ Phases, each timed on a line of its own:
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
    csrc/grid_kernels.cu``;
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
-   ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5), each held
-   against its plain PyTorch version run on the same CUDA tensors;
+   ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5), and
+   ``m4_grid`` at [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
+   zeros of both signs, all-NaN bins, an all-NaN series), each held
+   against its plain PyTorch version run on the same CUDA tensors (m4
+   bit for bit);
 4. main    — one shard of ``prom-counter`` data at high cardinality
    (``req_total``: 100 pods x 1,024 series, 260 one-minute samples,
    constant per-series phase, integer increments 0-9, a reset in 1% of
@@ -30,7 +33,24 @@ Phases, each timed on a line of its own:
    rows for the first 8 pods are held against a CPU store that ingests
    only those pods; one warm run of each query is profiled
    (torch.profiler); each kernel is then held against its plain version
-   on the inputs the main path gave it, and timed.
+   on the inputs the main path gave it, and timed;
+5. engine  — the same store through the query engine's entry point
+   (PromQL -> query_range_to_logical_plan -> SingleClusterPlanner ->
+   ExecPlan.execute), launch counters reset just before and read just
+   after the four queries' first runs:
+     E1 sum by (pod)(rate(req_total[5m])) over Q1's span -> the packed
+        kernel, equal bit for bit to the direct scan_grid_grouped answer;
+     E2 rate(req_total[5m]) over all 260 steps with DownsampleMapper(32)
+        -> rate_grid, then one m4_grid launch;
+     E3 sum by (pod)(irate(req_total[5m])) -> no grid kernel: the general
+        path (scan_batch, ops/windows, aggregators) on the card;
+     E4 stdvar by (pod)(rate(req_total[5m])) -> the packed kernel serves
+        the rate leaf, the general path's aggregator (the grid does not
+        reduce moments) reduces it;
+   each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
+   and selected positions equal), cold and warm wall ms; every result but
+   E2's downsampled one, and every aggregation, on the card; then m4_grid
+   against its plain version at E2's own [260, 102,400] input, timed.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -67,9 +87,17 @@ MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 REPS = 20                       # timed repetitions (median)
+ENGINE_REPS = 5                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
-SELECTION = ("last", "min", "max", "count")
+# E4's stdvar is sumsq/n - mean^2 over 1,024 f32 rates summed in no fixed
+# order (index_add_): the difference cancels ~12x here, and an f32 sum in
+# the worst order is off by up to 7e-5 of the variance
+RTOL_MOMENTS = 2e-4
+SELECTION = ("last", "min", "max", "count", "m4")
+M4_T = 103                      # phase 3's M4 shape: T % P != 0
+M4_PIXELS = (10, 50)            # W = 11, and W = 3 with empty tail bins
+E2_PIXELS = 32                  # the engine's ?downsample= (W = 9)
 
 
 def log(msg: str) -> None:
@@ -200,6 +228,12 @@ def grid_work(ts, vals, q, phase) -> tuple[int, int]:
     corr = 3 if q.op in ("rate", "increase") else 0
     ops = rows * ns * corr + q.nsteps * ns * _ops_per_output(q)
     return nbytes, ops
+
+
+def m4_work(nsteps: int, ns: int, pixels: int) -> tuple[int, int]:
+    """(bytes, ops) of one m4_grid call: the [T, S] f32 input read once,
+    the [P, 8, S] f32 planes written once, two compares per sample."""
+    return nsteps * ns * 4 + pixels * 8 * ns * 4, 2 * nsteps * ns
 
 
 def packed_work(packed, q, row0, use_phase) -> tuple[int, int]:
@@ -352,8 +386,49 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
             rows.append({"kernel": "rate_grid_packed", "case": name,
                          "ms": ms, "plain_ms": pms, "bound_ms": bms,
                          "max_abs_err": err})
+    # m4_grid: gaps, constant runs (ties), tied zeros of both signs
+    # (-0.0 first, then +0.0 first), all-NaN bins, an all-NaN series
+    S = MID_SERIES + 37
+    v = rng.normal(0, 10, (M4_T, S)).astype(np.float32)
+    v[rng.random((M4_T, S)) < 0.3] = np.nan
+    v[:, :S // 8] = 7.5
+    z = np.zeros((M4_T, 64), np.float32)
+    z[::2] = -0.0
+    v[:, S // 8:S // 8 + 64] = z
+    v[:, S // 8 + 64:S // 8 + 128] = -z
+    v[40:80, S // 4:S // 2] = np.nan
+    v[:, S // 2] = np.nan
+    vals = torch.as_tensor(v, device=device)
+    for pixels in M4_PIXELS:
+        err = check_m4(vals, pixels)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: grid.m4_grid(vals, pixels), reps, flush)
+        pms = cuda_ms(lambda: grid.m4_grid_ref(vals, pixels), reps, flush)
+        bms, by = bound_ms(*m4_work(M4_T, S, pixels))
+        name = f"m4_grid T={M4_T} S={S} P={pixels}"
+        log(f"{name}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
+            f"({by}) bit-equal ok")
+        rows.append({"kernel": "m4_grid", "case": name, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bms, "max_abs_err": err})
     report["kernel_sweep"] = rows
     return worst
+
+
+def check_m4(vals, pixels: int) -> float:
+    """m4_grid against its plain version on the same card tensor: the
+    same NaN cells, and every other cell the same 32 bits (so +0.0 and
+    -0.0 differ)."""
+    import torch
+    from filodb_tpu_torch.ops import grid
+    got = grid.m4_grid(vals, pixels)
+    want = grid.m4_grid_ref(vals, pixels)
+    torch.cuda.synchronize()
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()) or not torch.equal(
+            got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]):
+        raise AssertionError(f"m4_grid P={pixels}: planes differ from the "
+                             f"plain version")
+    return compare(got, want, "m4", 0.0)
 
 
 # ------------------------------------------------------------- phase 4
@@ -456,10 +531,9 @@ def run_query(shard, kind, func, span, looked):
 
 
 def check_query(name, kind, func, out, looked, ref_out, ref_looked,
-                nsteps):
-    """Finite values of the expected shape, and the first CHECK_PODS
-    pods' rows against the CPU store's answer."""
-    import numpy as np
+                nsteps, device):
+    """Finite values of the expected shape on the store's device, and
+    the first CHECK_PODS pods' rows against the CPU store's answer."""
     import torch
     _ids, _gids, pods, tags = looked
     _rids, _rgids, ref_pods, ref_tags = ref_looked
@@ -468,30 +542,30 @@ def check_query(name, kind, func, out, looked, ref_out, ref_looked,
             if out[key].shape != (len(pods), nsteps):
                 raise AssertionError(f"{name}: {key} shape "
                                      f"{out[key].shape}")
-        if not np.isfinite(out["sum"]).all():
+            if out[key].device != device:
+                raise AssertionError(f"{name}: {key} on {out[key].device}")
+        if not bool(torch.isfinite(out["sum"]).all()):
             raise AssertionError(f"{name}: non-finite group sums")
         n = min(CHECK_PODS, len(ref_pods))
         if pods[:n] != ref_pods[:n]:
             raise AssertionError(f"{name}: pod order differs")
-        if not np.array_equal(out["count"][:n], ref_out["count"][:n]):
+        if not torch.equal(out["count"][:n].cpu().double(),
+                           ref_out["count"][:n].double()):
             raise AssertionError(f"{name}: count differs from the CPU "
                                  f"store")
-        return compare(torch.as_tensor(out["sum"][:n]),
-                       torch.as_tensor(ref_out["sum"][:n]), "sum",
-                       RTOL_CPU)
+        return compare(out["sum"][:n], ref_out["sum"][:n], "sum", RTOL_CPU)
     _t, vals, _tops = out
-    if vals.shape != (len(tags), nsteps):
-        raise AssertionError(f"{name}: shape {vals.shape}")
+    if vals.shape != (len(tags), nsteps) or vals.device != device:
+        raise AssertionError(f"{name}: shape {vals.shape} on {vals.device}")
     keep = [i for i, t in enumerate(tags) if t["pod"] in ref_pods]
     key = [(tags[i]["pod"], tags[i]["instance"]) for i in keep]
     rkey = [(t["pod"], t["instance"]) for t in ref_tags]
     order = sorted(range(len(key)), key=lambda i: key[i])
     rorder = sorted(range(len(rkey)), key=lambda i: rkey[i])
-    got = vals[np.asarray(keep)[order]]
-    want = ref_out[1][np.asarray(rorder)]
+    got = vals[torch.as_tensor([keep[i] for i in order], device=vals.device)]
+    want = ref_out[1][torch.as_tensor(rorder)]
     from filodb_tpu_torch.memstore import devicestore
-    return compare(torch.as_tensor(got), torch.as_tensor(want),
-                   devicestore._GRID_OPS[func], RTOL_CPU)
+    return compare(got, want, devicestore._GRID_OPS[func], RTOL_CPU)
 
 
 def profile_queries(shard, looked) -> None:
@@ -567,7 +641,7 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             ref = run_query(ref_shard, kind, func, span,
                             ref_looked[metric])
             err = check_query(name, kind, func, out, looked[metric], ref,
-                              ref_looked[metric], span[1])
+                              ref_looked[metric], span[1], device)
             log(f"{name}: first run (block builds included) wall_ms "
                 f"{wall:.3f} events_ms {dev_ms:.3f} launches {launched} "
                 f"cpu-store check ok (max_abs_err {err:.3e})")
@@ -644,7 +718,250 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                    "max_abs_err": err}
             kern_rows.setdefault(kname, []).append(row)
     report["kernels_at_path_shapes"] = kern_rows
-    return {"launches": totals, "rows": kern_rows}
+    return {"launches": totals, "rows": kern_rows,
+            "stores": (_ms, shard, _rms, looked)}
+
+
+# ------------------------------------------------------------- phase 5
+
+def engine_queries():
+    """(name, PromQL, (first step, steps), ?downsample= pixels, the grid
+    kernel it must reach or None for the general path)."""
+    q1 = (T0 + 144 * STEP, 60)
+    # every step whose window lies inside the grid: the first window
+    # covers buckets 0..K-1
+    full = (T0 + (K - 1) * STEP, N_ROWS)
+    return [
+        ("E1", "sum by (pod)(rate(req_total[5m]))", q1, None,
+         "rate_grid_packed"),
+        ("E2", "rate(req_total[5m])", full, E2_PIXELS, "rate_grid"),
+        ("E3", "sum by (pod)(irate(req_total[5m]))", q1, None, None),
+        ("E4", "stdvar by (pod)(rate(req_total[5m]))", q1, None,
+         "rate_grid_packed"),
+    ]
+
+
+def run_engine(ms, query: str, span, pixels):
+    """One PromQL range query through the port's entry point: parse ->
+    plan -> (DownsampleMapper when ?downsample= is given) -> execute,
+    then every batch's values on the host (the API edge).  Returns the
+    result, the host values and the wall ms of all that."""
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.parallel.shardmap import ShardMapper
+    from filodb_tpu_torch.promql.parser import query_range_to_logical_plan
+    from filodb_tpu_torch.query.exec import ExecContext
+    from filodb_tpu_torch.query.model import QueryContext
+    from filodb_tpu_torch.query.transformers import DownsampleMapper
+
+    t0 = time.perf_counter()
+    start, nsteps = span
+    qctx = QueryContext(sample_limit=2**40)
+    plan = query_range_to_logical_plan(query, start, STEP,
+                                       start + (nsteps - 1) * STEP)
+    ep = SingleClusterPlanner("prom", ShardMapper(1)).materialize(plan, qctx)
+    if pixels:
+        ep.add_transformer(DownsampleMapper(pixels))
+    res = ep.execute(ExecContext(ms, qctx))
+    host = [b.np_values() for b in res.batches]
+    return res, host, (time.perf_counter() - t0) * 1e3
+
+
+def engine_rows(res, host) -> dict:
+    """{(pod, instance): row} of a result (instance None for groups)."""
+    return {(tags.get("pod"), tags.get("instance")): vals[i]
+            for b, vals in zip(res.batches, host)
+            for i, tags in enumerate(b.keys)}
+
+
+def check_engine(name, rows, ref_rows, pixels, rtol) -> float:
+    """The card's rows for the CPU store's series (first CHECK_PODS pods)
+    against the CPU store's engine answer: the same NaN positions (the
+    grouped counts' empty cells, M4's selected steps), finite values
+    within ``rtol``."""
+    import numpy as np
+    import torch
+    if not ref_rows or not set(ref_rows) <= set(rows):
+        raise AssertionError(f"{name}: the CPU store's series are not all "
+                             f"in the card's answer")
+    keys = sorted(ref_rows)
+    got = np.stack([rows[k] for k in keys]).astype(np.float64)
+    want = np.stack([ref_rows[k] for k in keys]).astype(np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{name}: NaN / selected positions differ from "
+                             f"the CPU store in "
+                             f"{int((np.isnan(got) != np.isnan(want)).sum())}"
+                             f" cells")
+    if pixels and (np.isfinite(got).sum(axis=1) > 4 * pixels).any():
+        raise AssertionError(f"{name}: more than 4 points per pixel bin")
+    return compare(torch.as_tensor(got), torch.as_tensor(want), "engine",
+                   rtol)
+
+
+class AggregatorDevices:
+    """Records the device of every aggregator's input values, partial
+    state and presented values while it is entered: where a query's
+    aggregation ran."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.query import aggregators
+        from filodb_tpu_torch.query.model import to_tensor
+        self.seen = set()
+        self._saved = []
+        for cls in (aggregators.MomentAggregator,
+                    aggregators.TopBottomKAggregator):
+            orig_map, orig_present = cls.map, cls.present
+
+            def map_(agg, batch, *a, _orig=orig_map):
+                self.seen.add(to_tensor(batch.values).device)
+                part = _orig(agg, batch, *a)
+                self.seen.update(v.device for v in part.state.values())
+                return part
+
+            def present(agg, part, _orig=orig_present):
+                self.seen.update(to_tensor(v).device
+                                 for v in part.state.values())
+                out = _orig(agg, part)
+                self.seen.add(out.values.device)
+                return out
+
+            self._saved.append((cls, orig_map, orig_present))
+            cls.map, cls.present = map_, present
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig_map, orig_present in self._saved:
+            cls.map, cls.present = orig_map, orig_present
+        return False
+
+
+def warm_engine(ms, query: str, span, pixels, reps: int):
+    """Median wall ms of ``reps`` warm runs, and the median of each
+    ExecContext stage (scan: lookup + grid or scan_batch; device_compute:
+    the grid seam's calls) in ms."""
+    walls, stages = [], {}
+    for _ in range(reps):
+        res, _host, wall = run_engine(ms, query, span, pixels)
+        walls.append(wall)
+        for k, v in res.stats.timings.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    return statistics.median(walls), {k: round(statistics.median(v), 3)
+                                      for k, v in stages.items()}
+
+
+def engine_phase(device, stores, reps: int, report: dict) -> dict:
+    """E1-E4 through parse -> plan -> execute on the main-path store,
+    each held against the CPU store's engine answer; E1 also against the
+    direct scan_grid_grouped answer, bit for bit."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+
+    ms, shard, rms, looked = stores
+    kernels = ("rate_grid", "rate_grid_packed", "m4_grid")
+
+    def counts():
+        return {k: getattr(grid, k).launches for k in kernels}
+
+    cold_runs = []
+    grid.reset_launch_counts()              # the engine path's run
+    for _name, query, span, pixels, _kern in engine_queries():
+        before = counts()
+        with AggregatorDevices() as agg_devices:
+            res, host, cold = run_engine(ms, query, span, pixels)
+        cold_runs.append((res, engine_rows(res, host), cold,
+                          {k: v - before[k] for k, v in counts().items()},
+                          agg_devices.seen))
+    totals = counts()
+    log(f"engine path launches {totals}")
+
+    rows_out = []
+    for (name, query, span, pixels, kern), \
+            (res, rows, cold, launched, agg_seen) in zip(engine_queries(),
+                                                         cold_runs):
+        want = {k: 0 for k in kernels}
+        if kern is not None:
+            want[kern] = launched[kern]
+            if launched[kern] < 1:
+                raise AssertionError(f"{name}: {kern} never launched "
+                                     f"({launched})")
+        if pixels:
+            want["m4_grid"] = 1
+        if launched != want:
+            raise AssertionError(f"{name}: launches {launched}, expected "
+                                 f"{want}")
+        # every result but the downsampled one (a host array after the
+        # host selection) stays on the card, and so does the aggregation
+        where = {getattr(b.values, "device", "host") for b in res.batches}
+        if not pixels and where != {device}:
+            raise AssertionError(f"{name}: the result is on {where}, not "
+                                 f"{device}")
+        if agg_seen - {device}:
+            raise AssertionError(f"{name}: aggregation ran on {agg_seen}")
+        where = ", ".join(sorted(str(w) for w in where))
+        for k, v in rows.items():
+            if v.shape != (span[1],):
+                raise AssertionError(f"{name}: row {k} shape {v.shape}")
+        rtol = RTOL_MOMENTS if query.startswith("stdvar") else RTOL_CPU
+        err = check_engine(name, rows,
+                           engine_rows(*run_engine(rms, query, span,
+                                                   pixels)[:2]), pixels, rtol)
+        if name == "E1":
+            direct = run_query(shard, "grouped", F.RATE, span,
+                               looked["req_total"])
+            dcount = direct["count"].cpu().numpy()
+            dsum = direct["sum"].cpu().numpy()
+            pods = looked["req_total"][2]
+            for (pod, _i), row in rows.items():
+                g = pods.index(pod)
+                exp = np.where(dcount[g] > 0, dsum[g], np.nan)
+                if not np.array_equal(row, exp, equal_nan=True):
+                    raise AssertionError(f"E1: pod {pod} differs from the "
+                                         f"direct scan_grid_grouped answer")
+            log("E1: equals the direct scan_grid_grouped answer bit for bit "
+                f"({len(rows)} pods)")
+        warm, stages = warm_engine(ms, query, span, pixels, reps)
+        log(f"{name} {query!r} steps={span[1]}"
+            f"{f' downsample={pixels}' if pixels else ''}: {len(rows)} "
+            f"series, result on {where}, aggregation on "
+            f"{sorted(str(d) for d in agg_seen) or 'none'}, launches "
+            f"{launched}, cold wall_ms "
+            f"{cold:.3f} (stages {res.stats.timings}), warm wall_ms (median "
+            f"of {reps}) {warm:.3f} (stage ms {stages}), cpu-store check "
+            f"ok (max_abs_err {err:.3e})")
+        row = {"query": name, "promql": query, "steps": span[1],
+               "pixels": pixels, "launches": launched, "cold_wall_ms": cold,
+               "cold_stage_seconds": res.stats.timings, "warm_wall_ms": warm,
+               "warm_stage_ms": stages, "cpu_check_err": err}
+        if pixels:
+            # the same query without ?downsample=: the difference is the
+            # DownsampleMapper (upload, m4_grid, readback, host selection)
+            row["warm_wall_ms_without_downsample"], _ = warm_engine(
+                ms, query, span, None, reps)
+            log(f"{name} without downsample: warm wall_ms "
+                f"{row['warm_wall_ms_without_downsample']:.3f}")
+        rows_out.append(row)
+    report["engine"] = rows_out
+
+    # m4_grid against its plain version at E2's own input: the grid's
+    # [S, T] rate answer, time-major on the card
+    name, query, span, pixels, _k = engine_queries()[1]
+    _tags, vals, _ = shard.scan_grid(looked["req_total"][0], F.RATE,
+                                     span[0], span[1], STEP, WINDOW)
+    x = vals.T.contiguous()
+    err = check_m4(x, pixels)
+    flush = make_flush(device)
+    ms_k = cuda_ms(lambda: grid.m4_grid(x, pixels), REPS, flush)
+    pms = cuda_ms(lambda: grid.m4_grid_ref(x, pixels), REPS, flush)
+    work = m4_work(x.shape[0], x.shape[1], pixels)
+    bms, by = bound_ms(*work)
+    log(f"{name} m4_grid [{x.shape[0]}, {x.shape[1]}] P={pixels}: ms "
+        f"{ms_k:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, {work[0]} "
+        f"bytes) bit-equal ok")
+    m4_row = {"query": name, "ms": ms_k, "plain_ms": pms, "bound_ms": bms,
+              "bound_by": by, "bytes": work[0], "max_abs_err": err}
+    report["m4_at_path_shape"] = m4_row
+    return {"launches": totals, "m4": m4_row}
 
 
 def main() -> int:
@@ -691,23 +1008,10 @@ def main() -> int:
             f"{sweep_err:.3e})")
     with Phase("main"):
         main = main_path(device, args.seed, REPS, report)
-
-    primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
-    replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
-                "rate_grid_packed": "filodb_tpu/ops/grid.py:1086"}
-    entries = []
-    for kname in ("rate_grid", "rate_grid_packed"):
-        rows = main["rows"][kname]
-        row = next(r for r in rows if r["query"] == primary[kname])
-        entries.append({
-            "name": kname, "route": "cuda",
-            "source": "filodb_tpu_torch/csrc/grid_kernels.cu",
-            "replaces": replaces[kname],
-            "launches": main["launches"][kname],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+    with Phase("engine"):
+        engine = engine_phase(device, main.pop("stores"), ENGINE_REPS,
+                              report)
+    entries = kernel_entries(main, engine)
     report["kernels"] = entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -720,6 +1024,35 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_entries(main: dict, engine: dict) -> list:
+    """The ``{"kernels": [...]}`` record: each kernel at the input of its
+    primary query (rate_grid at Q2, rate_grid_packed at Q1, m4_grid at
+    E2), with its launches on the path that runs it."""
+    primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
+    replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
+                "rate_grid_packed": "filodb_tpu/ops/grid.py:1086",
+                "m4_grid": "filodb_tpu/ops/grid.py:1694"}
+    path_rows = {k: next(r for r in main["rows"][k]
+                         if r["query"] == primary[k]) for k in primary}
+    path_rows["m4_grid"] = engine["m4"]
+    launches = {**main["launches"],
+                "m4_grid": engine["launches"]["m4_grid"]}
+    entries = []
+    for kname in ("rate_grid", "rate_grid_packed", "m4_grid"):
+        row = path_rows[kname]
+        errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "filodb_tpu_torch/csrc/grid_kernels.cu",
+            "replaces": replaces[kname],
+            "launches": launches[kname],
+            "max_abs_err": max(errs),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
+    return entries
 
 
 if __name__ == "__main__":

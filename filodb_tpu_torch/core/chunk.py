@@ -9,7 +9,7 @@ A ``ChunkSet`` is the frozen, compressed form of one partition's write buffer
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -147,3 +147,93 @@ def decode_chunkset(schema: Schema, cs: ChunkSet) -> tuple[np.ndarray, list]:
     cols = [decode_column(blob, col.ctype)
             for col, blob in zip(schema.data.columns[1:], cs.vectors[1:])]
     return ts, cols
+
+
+# --------------------------------------------------------------------------
+# Padded batches: the general query path's input
+# --------------------------------------------------------------------------
+
+TS_PAD = np.iinfo(np.int64).max  # padding timestamp: sorts after everything
+
+
+@dataclasses.dataclass
+class ChunkBatch:
+    """Padded dense SoA over a set of series: the unit the window
+    functions consume (``ops/windows.py``), staged on the host and
+    uploaded whole.
+
+    ``timestamps[s, r]`` is padded with TS_PAD and ``values`` with NaN past
+    ``row_counts[s]`` so searchsorted/window functions need no masks beyond
+    the value NaN convention.  ``hist`` columns become [S, R, B] matrices.
+
+    Arrays are READ-ONLY by convention: scan paths may hand out views of
+    shared decoded caches (partition read_range output), so consumers
+    must never mutate a batch in place.
+    """
+
+    timestamps: np.ndarray          # [S, R] int64
+    values: np.ndarray              # [S, R] float64 (the designated value column)
+    row_counts: np.ndarray          # [S] int32
+    hist: Optional[np.ndarray] = None       # [S, R, B] float64 when value col is hist
+    bucket_tops: Optional[np.ndarray] = None  # [B]
+
+    @property
+    def num_series(self) -> int:
+        return self.timestamps.shape[0]
+
+    @property
+    def max_rows(self) -> int:
+        return self.timestamps.shape[1]
+
+
+def pad_rows(max_rows: int, pad_to: Optional[int]) -> int:
+    """The padded row dimension R for a batch whose longest series has
+    ``max_rows`` rows: rounded up to ``pad_to``, then geometric buckets
+    above it, so the set of batch shapes stays logarithmic in the row
+    count."""
+    R = max_rows
+    if pad_to:
+        if R <= pad_to:
+            R = pad_to
+        else:
+            R = pad_to * (1 << int(np.ceil(np.log2(R / pad_to))))
+    return max(R, 1)
+
+
+def build_batch(series_ts: Sequence[np.ndarray], series_vals: Sequence,
+                pad_to: Optional[int] = None, hist: bool = False,
+                bucket_tops: Optional[np.ndarray] = None,
+                pad_series_to: Optional[int] = None) -> ChunkBatch:
+    """Stack ragged per-series arrays into a padded [S, R] batch.
+
+    R = max rows rounded up by :func:`pad_rows`; timestamps pad with
+    TS_PAD, values with NaN so windowed functions naturally exclude them.
+    """
+    S = len(series_ts)
+    counts = np.array([len(t) for t in series_ts], dtype=np.int32)
+    R = pad_rows(int(counts.max()) if S else 0, pad_to)
+    S_pad = max(S, pad_series_to) if pad_series_to else max(S, 1)
+    ts = np.full((S_pad, R), TS_PAD, dtype=np.int64)
+    for i, t in enumerate(series_ts):
+        ts[i, :len(t)] = t
+    if hist:
+        B = len(bucket_tops)
+        vals = np.full((S_pad, R, B), np.nan, dtype=np.float64)
+        for i, v in enumerate(series_vals):
+            vals[i, :len(v)] = v
+        return ChunkBatch(ts, np.full((S_pad, R), np.nan),
+                          counts_pad(counts, S_pad), hist=vals,
+                          bucket_tops=np.asarray(bucket_tops,
+                                                 dtype=np.float64))
+    vals = np.full((S_pad, R), np.nan, dtype=np.float64)
+    for i, v in enumerate(series_vals):
+        vals[i, :len(v)] = v
+    return ChunkBatch(ts, vals, counts_pad(counts, S_pad))
+
+
+def counts_pad(counts: np.ndarray, s_pad: int) -> np.ndarray:
+    if len(counts) == s_pad:
+        return counts
+    out = np.zeros(s_pad, dtype=np.int32)
+    out[:len(counts)] = counts
+    return out

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Optional, Sequence
 
 
 class Filter:
@@ -88,3 +89,11 @@ class ColumnFilter:
         return self.filter.matches(tags.get(self.column, ""))
 
 
+def equals_value(filters: Sequence[ColumnFilter], column: str) -> Optional[str]:
+    """The Equals value for ``column`` if one exists (used for shard-key
+    extraction during shard pruning, reference SingleClusterPlanner
+    shardsFromFilters)."""
+    for f in filters:
+        if f.column == column and isinstance(f.filter, Equals):
+            return f.filter.value
+    return None

@@ -13,6 +13,11 @@ from typing import Optional
 class StoreConfig:
     max_chunks_size: int = 400                # max rows per chunk
     groups_per_shard: int = 60
+    # padded batch shapes of the general query path (scan_batch): rows
+    # round up to batch_row_pad (then powers of two), series to a
+    # multiple of batch_series_pad
+    batch_row_pad: int = 64
+    batch_series_pad: int = 128
     # device-resident chunk store (reclaim-on-demand — the BlockManager
     # equivalent, reference: memory/BlockManager.scala:142)
     device_cache_bytes: int = 2 * 1024 * 1024 * 1024

@@ -1,4 +1,5 @@
-// Aligned-grid window kernels for Hopper (sm_90a), bound with ctypes.
+// Aligned-grid window kernels and the M4 selection kernel for Hopper
+// (sm_90a), bound with ctypes.  The M4 kernel's note stands above it.
 //
 // rate_grid_kernel replaces the TPU kernel rate_grid
 // (filodb_tpu/ops/grid.py:848-898, bodies _series_kernel,
@@ -317,9 +318,80 @@ __global__ void rate_grid_packed_kernel(const W* __restrict__ plane,
   lane_windows(src, nullptr, 0, ph, mode, P, out + lane, out_ld);
 }
 
+// M4 pixel-bin selection.  m4_grid_kernel replaces the TPU kernel m4_grid
+// (filodb_tpu/ops/grid.py:1692-1729, body _m4_kernel over _m4_planes).
+//
+// What it computes: time-major vals [T, S] split into P bins of
+// W = ceil(T/P) rows (the last bins may be short or empty); per (bin,
+// series) the min, max, first and last finite value and their bin-local
+// row indices, as out [P, 8, S] in the plane order vmin vmax vfirst vlast
+// imin imax ifirst ilast.  Ties on min/max go to the first occurrence; a
+// bin with no finite sample gives NaN values and -1 indices.  Selection
+// only, so the kernel and the plain version are bit-equal.
+//
+// What bounds it on the card: bytes.  It reads T*S*4 bytes once and
+// writes P*8*S*4, with a compare or two per sample; at the main path's
+// [T=260, S=102,400], P=32 that is 211 MB, about 0.063 ms at 3.35 TB/s.
+//
+// Design.  The TPU kernel pads each bin to a multiple of 8 rows and needs
+// S % 128 == 0 (one aligned VMEM tile per bin and lane block); here one
+// thread owns one (series, bin) pair and walks the bin's W rows with the
+// running selection in registers.  Consecutive threads take consecutive
+// series, so every row load and every plane store is coalesced; the bins
+// ride blockIdx.y (strided past 65,535).  Any S >= 1 and P >= 1 work.
+__global__ void m4_grid_kernel(const float* __restrict__ vals,
+                               float* __restrict__ out, int T, int S, int P,
+                               int W) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  for (int p = blockIdx.y; p < P; p += gridDim.y) {
+    const long r0 = static_cast<long>(p) * W;
+    const long r1 = r0 + W < T ? r0 + W : T;
+    float vmin = NAN, vmax = NAN, vfirst = NAN, vlast = NAN;
+    int imin = -1, imax = -1, ifirst = -1, ilast = -1;
+    for (long r = r0; r < r1; ++r) {
+      const float v = vals[r * S + s];
+      if (!isfinite(v)) continue;
+      const int i = static_cast<int>(r - r0);
+      if (ifirst < 0) {
+        ifirst = imin = imax = i;
+        vfirst = vmin = vmax = v;
+      } else {
+        if (v < vmin) {
+          vmin = v;
+          imin = i;
+        }
+        if (v > vmax) {
+          vmax = v;
+          imax = i;
+        }
+      }
+      ilast = i;
+      vlast = v;
+    }
+    float* o = out + static_cast<long>(p) * 8 * S + s;
+    o[0] = vmin;
+    o[S] = vmax;
+    o[2L * S] = vfirst;
+    o[3L * S] = vlast;
+    o[4L * S] = static_cast<float>(imin);
+    o[5L * S] = static_cast<float>(imax);
+    o[6L * S] = static_cast<float>(ifirst);
+    o[7L * S] = static_cast<float>(ilast);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+int m4_grid_launch(const void* vals, void* out, int T, int S, int P, int W,
+                   void* stream) {
+  const dim3 grid((S + kBlock - 1) / kBlock, P < 65535 ? P : 65535);
+  m4_grid_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<float*>(out), T, S, P, W);
+  return static_cast<int>(cudaGetLastError());
+}
 
 const char* grid_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));

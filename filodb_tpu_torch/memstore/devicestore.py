@@ -145,7 +145,7 @@ def _f32_matmul(a, b):
 
 def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
     """Device-side segment reduce of a grid kernel's ``[T, lanes]``
-    output: only ``[G, T]`` partials cross to the host.  ``garr`` maps
+    output into ``[G, T]`` partials, on the device.  ``garr`` maps
     lane -> group (``num_groups`` = the drop bucket for unrequested and
     padding lanes).  sum/avg/count at modest G are a one-hot matmul;
     beyond ``_ONEHOT_MAX_G`` an index_add."""
@@ -396,8 +396,9 @@ class DeviceGridCache:
                   nsteps: int, step_ms: int, window_ms: int,
                   fargs: tuple = ()):
         """Serve a _GRID_OPS window function on the query step grid from
-        device-resident blocks.  Returns ``(vals [S_req, T] numpy,
-        None)`` or None when the fast path cannot serve the query."""
+        device-resident blocks.  Returns ``(vals [S_req, T], None)`` with
+        ``vals`` a tensor on the store's device (nothing is read back), or
+        None when the fast path cannot serve the query."""
         if func not in _GRID_OPS or fargs:
             return None
         with self._lock:
@@ -417,7 +418,8 @@ class DeviceGridCache:
         """Fused ``agg by (g)(<grid window fn>(...))``: the kernel's
         ``[T, lanes]`` output is reduced to ``[G, T]`` on the device.
         Returns the mergeable partial state ({"sum","count"} /
-        {"count"} / {"min"} / {"max"}) as float64 numpy, or None."""
+        {"count"} / {"min"} / {"max"}) as ``[G, T]`` tensors on the
+        store's device, or None."""
         if func not in _GRID_OPS or fargs or op not in GROUPED_OPS:
             return None
         with self._lock:
@@ -440,24 +442,25 @@ class DeviceGridCache:
             out = grouped_program(
                 plan, torch.as_tensor(garr, device=self.device),
                 num_groups, op)
-        both = out.cpu().numpy().astype(np.float64)
+        both = out
         if op == "count":
             return {"count": both[1]}
         if op in ("sum", "avg"):
             return {"sum": both[0], "count": both[1]}
         return {op: both}
 
-    def _dispatch_series(self, plan: _GridPlan) -> np.ndarray:
+    def _dispatch_series(self, plan: _GridPlan) -> torch.Tensor:
         if plan.packed is not None:
             stepped = series_packed_program(plan)
             lanes_req = plan.packed_inv[plan.lane_idx]
         else:
             stepped = series_program(plan)
             lanes_req = plan.lane_idx
-        # only the requested lanes cross to the host
+        # the requested lanes, series-major: a transposed view of the
+        # time-major [T, S_req] selection
         idx = torch.as_tensor(lanes_req, dtype=torch.int64,
                               device=stepped.device)
-        return stepped.index_select(1, idx).T.cpu().numpy()
+        return stepped.index_select(1, idx).T
 
     def _prep_for(self, part_ids, fp=None):
         """Memoized resolution of one lookup result: validate every pid

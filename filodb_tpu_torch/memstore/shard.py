@@ -12,6 +12,8 @@ serves:
   writes chunks and dirty partkeys, then checkpoints (:884-974)
 - the device-grid scan surface ``scan_grid`` / ``scan_grid_grouped``,
   served from :class:`~filodb_tpu_torch.memstore.devicestore.DeviceGridCache`
+- ``scan_batch``: padded host batches for the general query path (every
+  query the grid does not serve)
 
 Single-writer discipline: ``ingest`` must be called from one thread per
 shard.  The shard's grid lives on ``device`` (CUDA unless the caller
@@ -27,6 +29,7 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
+from filodb_tpu_torch.core.chunk import ChunkBatch, build_batch
 from filodb_tpu_torch.core.filters import ColumnFilter
 from filodb_tpu_torch.core.record import (IngestRecord, decode_container,
                                           parse_partkey)
@@ -418,9 +421,9 @@ class TimeSeriesShard:
                   nsteps: int, step_ms: int, window_ms: int,
                   column_id: Optional[int] = None, fargs: tuple = ()):
         """Serve a windowed range function from the device-resident grid.
-        Returns ``(tags_list, vals [S, T], None)``, or None when the fast
-        path cannot serve this query ("not served here": the caller
-        scans another way)."""
+        Returns ``(tags_list, vals [S, T], None)`` with ``vals`` a tensor
+        on the store's device, or None when the fast path cannot serve
+        this query ("not served here": the caller scans another way)."""
         cache = self._grid_cache_for(part_ids, column_id)
         if cache is None:
             return None
@@ -443,8 +446,8 @@ class TimeSeriesShard:
                           op: str, column_id: Optional[int] = None,
                           fargs: tuple = ()):
         """Fused ``agg by (g)(fn(...))`` from the device grid: only
-        ``[G, T]`` partials come back.  Returns the mergeable state dict
-        or None."""
+        ``[G, T]`` partials come out.  Returns the mergeable state dict
+        (tensors on the store's device) or None."""
         cache = self._grid_cache_for(part_ids, column_id)
         if cache is None:
             return None
@@ -452,6 +455,68 @@ class TimeSeriesShard:
                                        step_ms, window_ms, group_ids,
                                        num_groups, op, fargs)
 
+    def scan_batch(self, part_ids: Sequence[int], start_time: int,
+                   end_time: int, column_id: Optional[int] = None
+                   ) -> tuple[list[dict], Optional[ChunkBatch]]:
+        """Materialize partitions into one padded host ChunkBatch + tag
+        dicts: the general query path's input, for every query the
+        device grid does not serve (reference: scanPartitions /
+        RawDataRangeVector iteration :1490, SelectRawPartitionsExec)."""
+        tags_list, ts_list, val_list = [], [], []
+        hist = None  # locked by the first partition: one value type per batch
+        bucket_tops = None
+        for pid in part_ids:
+            part = self.partitions.get(int(pid))
+            if part is None:
+                continue
+            cid = part.schema.data.value_column_id if column_id is None \
+                else column_id
+            is_hist = part.schema.data.columns[cid].ctype \
+                == ColumnType.HISTOGRAM
+            if hist is None:
+                hist = is_hist
+            elif is_hist != hist:
+                continue  # mixed schemas: callers scan one schema at a time
+            ts, vals = part.read_range(start_time, end_time, cid)
+            tags_list.append(part.tags)
+            ts_list.append(ts)
+            if is_hist:
+                buckets, rows = vals
+                if buckets is not None:
+                    tops = buckets.bucket_tops()
+                    if bucket_tops is None or len(tops) > len(bucket_tops):
+                        bucket_tops = tops
+                val_list.append(rows.astype(np.float64))
+            else:
+                val_list.append(vals)
+        if not tags_list:
+            return [], None
+        pad_series = _round_up(len(tags_list), self.config.batch_series_pad)
+        if hist:
+            if bucket_tops is None:
+                bucket_tops = np.empty(0, dtype=np.float64)
+            b = len(bucket_tops)
+            # narrower bucket schemes edge-pad: their top bucket already
+            # holds the total count
+            val_list = [v if v.shape[1] == b
+                        else np.zeros((0, b)) if v.size == 0
+                        else np.pad(v, ((0, 0), (0, b - v.shape[1])),
+                                    mode="edge")
+                        if v.shape[1] < b else v[:, :b] for v in val_list]
+            batch = build_batch(ts_list, val_list,
+                                pad_to=self.config.batch_row_pad, hist=True,
+                                bucket_tops=bucket_tops,
+                                pad_series_to=pad_series)
+        else:
+            batch = build_batch(ts_list, val_list,
+                                pad_to=self.config.batch_row_pad,
+                                pad_series_to=pad_series)
+        return tags_list, batch
+
     @property
     def num_partitions(self) -> int:
         return len(self.partitions)
+
+
+def _round_up(n: int, to: int) -> int:
+    return ((n + to - 1) // to) * to if to else n

@@ -1,1 +1,2 @@
-"""Device ops: the aligned-grid kernels and segment reductions."""
+"""Device ops: the grid kernels, window functions, instant functions
+and segment reductions."""

@@ -19,6 +19,9 @@ Two functions carry the path, each with a hand-written CUDA kernel
   (``codecs/xorgrid.py``) decoded inside the kernel -> ``[T, width]`` in
   packed lane order; :func:`rate_grid_packed_ref` is its plain version.
 
+A third, :func:`m4_grid` (plain version :func:`m4_grid_ref`), selects the
+M4 points of ``?downsample=`` over a time-major ``[T, S]`` result.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its kernel launches
 in ``<wrapper>.launches``.
@@ -594,6 +597,100 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
 rate_grid_packed.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# M4 visualization downsampling: per-pixel-bin min/max/first/last
+# selection (the M4 aggregation of Jugel et al., arXiv:2307.05389).  A
+# T-step series split into P pixel bins keeps <= 4 points per bin —
+# everything a width-P panel can render.  Pure SELECTION, no arithmetic:
+# the kernel and the plain version are bit-equal.
+# ---------------------------------------------------------------------------
+
+#: m4 plane order along output axis 1: values then LOCAL row indices
+M4_PLANES = ("vmin", "vmax", "vfirst", "vlast",
+             "imin", "imax", "ifirst", "ilast")
+
+
+def m4_bin_width(nsteps: int, pixels: int) -> int:
+    """Bin width W = ceil(T / P): bin p holds rows [p*W, (p+1)*W)."""
+    return -(-nsteps // pixels)
+
+
+def _m4_check(vals: torch.Tensor, pixels: int) -> None:
+    if vals.ndim != 2 or vals.shape[0] == 0 or vals.shape[1] == 0:
+        raise ValueError(f"m4_grid needs a non-empty [T, S] input, got "
+                         f"{tuple(vals.shape)}")
+    if pixels < 1:
+        raise ValueError(f"pixels must be >= 1, got {pixels}")
+
+
+def m4_grid_ref(vals: torch.Tensor, pixels: int) -> torch.Tensor:
+    """Plain version of :func:`m4_grid`: the same selection over the
+    batched ``[P, W, S]`` view (rows past T are NaN padding)."""
+    _m4_check(vals, pixels)
+    nsteps, ns = vals.shape
+    w = m4_bin_width(nsteps, pixels)
+    v = vals.to(torch.float32)
+    pad = torch.full((pixels * w - nsteps, ns), float("nan"),
+                     dtype=torch.float32, device=v.device)
+    v = torch.cat([v, pad]).reshape(pixels, w, ns)
+    idx = torch.arange(w, dtype=torch.int32,
+                       device=v.device)[None, :, None].expand_as(v)
+    fin = torch.isfinite(v)
+    inf = torch.full_like(v, float("inf"))
+    vmin = torch.where(fin, v, inf).amin(1)
+    vmax = torch.where(fin, v, -inf).amax(1)
+    big = torch.full_like(idx, _IBIG)
+    ifirst = torch.where(fin, idx, big).amin(1)
+    ilast = torch.where(fin, idx, -1).amax(1)
+    imin = torch.where(fin & (v == vmin[:, None]), idx, big).amin(1)
+    imax = torch.where(fin & (v == vmax[:, None]), idx, big).amin(1)
+    empty = ifirst == _IBIG
+
+    def at(i):
+        return v.gather(1, i.clamp(0, w - 1).to(torch.int64)[:, None])[:, 0]
+
+    nan = torch.tensor(float("nan"), device=v.device)
+    neg1 = torch.tensor(-1.0, device=v.device)
+    # values gathered at their indices: of tied +0.0 and -0.0 the first
+    # one's bits, as the kernel keeps them
+    planes = [torch.where(empty, nan, at(i))
+              for i in (imin, imax, ifirst, ilast)]
+    planes += [torch.where(empty, neg1, i.to(torch.float32))
+               for i in (imin, imax, ifirst, ilast)]
+    return torch.stack(planes, dim=1)
+
+
+def m4_grid(vals: torch.Tensor, pixels: int) -> torch.Tensor:
+    """M4 pixel-bin selection: time-major ``vals [T, S]`` f32 -> planes
+    ``[P, 8, S]`` in :data:`M4_PLANES` order.  Index planes are LOCAL to
+    the bin (global row = ``p * W + local``, ``W = ceil(T/P)``); NaN and
+    infinite steps are absent samples; bins with no finite sample come
+    back NaN / -1.  CPU tensors run :func:`m4_grid_ref`; CUDA tensors
+    launch the CUDA kernel or raise."""
+    if vals.device.type == "cpu":
+        return m4_grid_ref(vals, pixels)
+    if vals.device.type != "cuda":
+        raise ValueError(f"m4_grid runs on cpu or cuda, not {vals.device}")
+    _m4_check(vals, pixels)
+    nsteps, ns = vals.shape
+    dev = vals.device
+    _require(vals, "vals", torch.float32, (nsteps, ns), dev)
+    w = m4_bin_width(nsteps, pixels)
+    out = torch.empty((pixels, 8, ns), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.m4_grid_launch(
+            ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            *_int32_args(nsteps, ns, pixels, w), _stream())
+    m4_grid.launches += 1
+    _launch_check(rc, "m4_grid")
+    return out
+
+
+m4_grid.launches = 0
+
+
 def reset_launch_counts() -> None:
     rate_grid.launches = 0
     rate_grid_packed.launches = 0
+    m4_grid.launches = 0

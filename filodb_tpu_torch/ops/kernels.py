@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels (``csrc/grid_kernels.cu``).
+"""Build and bind the hand-written CUDA kernels (``csrc/grid_kernels.cu``:
+``rate_grid``, ``rate_grid_packed`` and ``m4_grid``).
 
 The source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into the
@@ -83,8 +84,11 @@ def library() -> ctypes.CDLL:
             #  stride, g, op, use_phase, dense, is_rate; stream)
             lib.rate_grid_packed_launch.argtypes = \
                 [ptr] * 3 + [i32] * 14 + [ptr]
+            # (vals, out; T, S, P, W; stream)
+            lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             lib.rate_grid_launch.restype = i32
             lib.rate_grid_packed_launch.restype = i32
+            lib.m4_grid_launch.restype = i32
             lib.grid_error_string.restype = ctypes.c_char_p
             lib.grid_error_string.argtypes = [i32]
             _lib = lib

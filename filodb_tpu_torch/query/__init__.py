@@ -1,1 +1,2 @@
-"""Query model pieces the device grid needs (range function ids)."""
+"""Query engine: logical plans, exec plans, transformers, aggregators
+(reference: query/src/main/scala/filodb/query/ + filodb.query.exec)."""

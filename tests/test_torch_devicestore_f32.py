@@ -61,7 +61,7 @@ def test_f32_packed_path_matches_jax(f32_residents, kind, span):
         got = tshard.scan_grid(tids, tf, steps0, nsteps, STEP * stride,
                                WINDOW)
         assert got is not None and want is not None, name
-        assert got[1].dtype == want[1].dtype == np.float32
+        assert got[1].dtype == torch.float32 and want[1].dtype == np.float32
         # sums and the rate chain to rtol 1e-6; selection bit-equal
         assert_close(got[1], want[1], name in SELECTION, 1e-6,
                       f"{kind} {span} {name}")
