@@ -13,9 +13,15 @@ Phases, each timed on a line of its own:
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5), and
    ``m4_grid`` at [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
-   zeros of both signs, all-NaN bins, an all-NaN series), each held
-   against its plain PyTorch version run on the same CUDA tensors (m4
-   bit for bit);
+   zeros of both signs, all-NaN bins, an all-NaN series); then the
+   grouped kernels at the mid shape: ``rate_grid_grouped`` in every
+   op/mode (gappy lanes, strides 1 and 2, 512-lane groups, the last one
+   all-NaN), ``rate_grid_grouped_packed`` over a p8 plane and a p16
+   plane of whole groups (phase and free ops, row0 = 3, stride 2),
+   ``hist_grid_grouped_packed`` at hb = 4, 16, 20 (row0 0 and 3, a dead
+   series, the free sum op); each held against its plain PyTorch version
+   run on the same CUDA tensors (m4 bit for bit, grouped counts equal,
+   sums rtol 2e-5);
 4. main    — one shard of ``prom-counter`` data at high cardinality
    (``req_total``: 100 pods x 1,024 series, 260 one-minute samples,
    constant per-series phase, integer increments 0-9, a reset in 1% of
@@ -50,7 +56,16 @@ Phases, each timed on a line of its own:
    each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
    and selected positions equal), cold and warm wall ms; every result but
    E2's downsampled one, and every aggregation, on the card; then m4_grid
-   against its plain version at E2's own [260, 102,400] input, timed.
+   against its plain version at E2's own [260, 102,400] input, timed;
+6. northstar — ``filodb_tpu_torch/northstar.py``'s four variants at the
+   benchmark's widths (bench.py's dense, compressed_resident,
+   histogram_quantile and gdelt_topk): data made on the card from the
+   seed, host packs (timed), every gate; the four queries once with the
+   launch counters reset just before and read just after (exactly one
+   rate_grid_grouped, one rate_grid_grouped_packed, one
+   hist_grid_grouped_packed and two rate_grid_packed launches); each new
+   kernel against its plain version at those widths and timed; each
+   query's device ms and samples/s.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -66,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -255,6 +271,41 @@ def packed_work(packed, q, row0, use_phase) -> tuple[int, int]:
     return nbytes, ops
 
 
+def grouped_work(vals, q, phase, nslots: int) -> tuple[int, int]:
+    """(bytes, ops) of one rate_grid_grouped call: rate_grid's inputs,
+    ``nslots`` (sum, count) rows of T f32 out instead of the [T, S]
+    plane, and two adds per (step, lane) for the group reduce."""
+    nbytes, ops = grid_work(None, vals, q, phase)
+    cells = q.nsteps * vals.shape[1]
+    return nbytes - cells * 4 + 2 * nslots * q.nsteps * 4, ops + 2 * cells
+
+
+def grouped_packed_work(packed, q, row0, use_phase,
+                        nslots: int) -> tuple[int, int]:
+    """(bytes, ops) of one rate_grid_grouped_packed or
+    hist_grid_grouped_packed call: rate_grid_packed's inputs, ``nslots``
+    (sum, count) rows of T f32 out, two adds per (step, lane)."""
+    from filodb_tpu_torch.ops import grid
+    nbytes, ops = packed_work(packed, q, row0, use_phase)
+    cells = q.nsteps * grid.packed_width(packed)
+    return nbytes - cells * 4 + 2 * nslots * q.nsteps * 4, ops + 2 * cells
+
+
+def compare_grouped(got, want, case: str) -> float:
+    """(sum, count) against the plain version's: counts equal, sums with
+    the same NaN cells and within RTOL_KERNEL.  Returns the largest
+    absolute difference of the sums."""
+    import torch
+    (gs, gc), (ws, wc) = got, want
+    if not torch.equal(gc, wc):
+        raise AssertionError(f"{case}: counts differ in "
+                             f"{int((gc != wc).sum())} cells")
+    try:
+        return compare(gs, ws, "grouped sum", RTOL_KERNEL)
+    except AssertionError as e:
+        raise AssertionError(f"{case}: {e}") from None
+
+
 # ------------------------------------------------------------- phase 3
 
 def _mid_planes(rng, B, S, gappy: bool):
@@ -411,6 +462,143 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
         rows.append({"kernel": "m4_grid", "case": name, "ms": ms,
                      "plain_ms": pms, "bound_ms": bms, "max_abs_err": err})
     report["kernel_sweep"] = rows
+    return worst
+
+
+def _counters_np(rng, rows, cols, small=False):
+    """Integer counters with a pinned f32 exponent: residuals in bits 7-14
+    (one 8-bit class) when ``small``, else in bits 7-22 (16-bit)."""
+    import numpy as np
+    if small:
+        start = 2 ** 23 + 2 ** 15 * rng.integers(0, 2 ** 7, cols)
+        inc = 128 * rng.integers(0, 2, (rows, cols))
+    else:
+        start = 2 ** 23 + 128 * rng.integers(0, 2 ** 15, cols)
+        inc = 128 * rng.integers(1, 8, (rows, cols))
+    return (start[None, :] + np.cumsum(inc, axis=0)).astype(np.float32)
+
+
+def two_plane_pack(rng, rows: int, width: int) -> dict:
+    """A p8 pack and a p16 pack of ``width`` lanes each, merged into one
+    dict: the grouped packed kernel runs one launch per plane and returns
+    the groups in plane order.  The p16 plane's first 5 lanes are dead."""
+    import numpy as np
+    from filodb_tpu_torch.codecs import xorgrid
+    v16 = _counters_np(rng, rows, width)
+    v16[:, :5] = np.nan
+    p8, p16 = (xorgrid.pack_vals(v, phase=rng.integers(1, STEP, width)
+                                 .astype(np.int32), min_width=w)
+               for v, w in ((_counters_np(rng, rows, width, True), 8),
+                            (v16, 16)))
+    for pk, key in ((p8, "p8"), (p16, "p16")):
+        if [k for k in ("p8", "p16", "raw")
+                if k in pk.planes and pk.planes[k].shape[1]] != [key]:
+            raise AssertionError(f"the {key} half did not pack as one {key} "
+                                 f"plane")
+    return {"p8": p8.planes["p8"], "m8": p8.planes["m8"],
+            "p16": p16.planes["p16"], "m16": p16.planes["m16"],
+            "inv": np.concatenate([p8.inv, p16.inv + width])}
+
+
+def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
+    """The grouped kernels at the mid shape, each against its plain
+    version on the same card tensors: rate_grid_grouped in every mode
+    (gappy lanes in ts and free mode, strides 1 and 2, a group of all-NaN
+    lanes), rate_grid_grouped_packed over a two-plane pack (phase and
+    free, row0 = 3, stride 2), hist_grid_grouped_packed at hb 4, 16 and
+    20 (row0 0 and 3, a dead series, the free sum op)."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.codecs import xorgrid
+    from filodb_tpu_torch.ops import grid
+
+    B, S, GL = 128, MID_SERIES, 512
+    rng = np.random.default_rng([seed, 5])
+    flush = make_flush(device)
+    worst = 0.0
+    rows = []
+
+    def run(kname, case, fn, ref, work):
+        nonlocal worst
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        err = compare_grouped(got, want, case)
+        worst = max(worst, err)
+        ms = cuda_ms(fn, reps, flush)
+        pms = cuda_ms(ref, reps, flush)
+        bms, by = bound_ms(*work)
+        log(f"{case}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
+            f"({by}) max_abs_err {err:.3e} ok")
+        rows.append({"kernel": kname, "case": case, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "max_abs_err": err})
+
+    # B2: the last GL lanes of _mid_planes are empty, a group of padding
+    planes = {g: _mid_planes(rng, B, S, g) for g in (False, True)}
+    for mode, dense, op in (
+            [("phase", True, o) for o in ("rate", "increase", "delta")]
+            + [("ts", d, o) for d in (True, False)
+               for o in ("rate", "increase", "delta")]
+            + [("free", d, o) for d in (True, False)
+               for o in ("sum", "count", "avg", "min", "max", "last")]):
+        ts_np, v_np, ph_np = planes[not dense]
+        ts = torch.as_tensor(ts_np, device=device)
+        vals = torch.as_tensor(v_np, device=device)
+        ph = torch.as_tensor(ph_np, device=device) \
+            if mode == "phase" else None
+        for stride in (1, 2):
+            q = grid.GridQuery(nsteps=(B - K) // stride + 1, kbuckets=K,
+                               gstep_ms=STEP, is_rate=(op == "rate"),
+                               op=op, dense=dense, stride=stride)
+            args = (ts, vals, K * STEP, q, GL)
+            case = (f"rate_grid_grouped {mode}-"
+                    f"{'dense' if dense else 'gappy'}-{op} stride={stride}")
+            run("rate_grid_grouped", case,
+                partial(grid.rate_grid_grouped, *args, phase=ph),
+                partial(grid.rate_grid_grouped_ref, *args, phase=ph),
+                grouped_work(vals, q, ph, S // GL))
+            if grid.rate_grid_grouped(*args, phase=ph)[1][-1].any():
+                raise AssertionError(f"{case}: the all-NaN group counted")
+    # B4 over a p8 plane and a p16 plane of 16 groups each
+    pk = xorgrid.packed_to_torch(two_plane_pack(rng, B, S // 2), device)
+    for use_phase, op in ([(True, o) for o in ("rate", "increase", "delta")]
+                          + [(False, o) for o in ("sum", "count", "avg",
+                                                  "min", "max", "last")]):
+        row0 = 3
+        q = grid.GridQuery(nsteps=(B - row0 - K) // 2 + 1, kbuckets=K,
+                           gstep_ms=STEP, is_rate=(op == "rate"), op=op,
+                           dense=True, stride=2)
+        args = (pk, 0, q, GL, row0, use_phase)
+        run("rate_grid_grouped_packed",
+            f"rate_grid_grouped_packed p8+p16 "
+            f"{'phase' if use_phase else 'free'}-{op}",
+            partial(grid.rate_grid_grouped_packed, *args),
+            partial(grid.rate_grid_grouped_packed_ref, *args),
+            grouped_packed_work(pk, q, row0, use_phase, S // GL))
+    # B5: 48 groups of 16 series x hb buckets, series 1 dead
+    for hb in (4, 16, 20):
+        per, ngroups = 16, 48
+        cols = ngroups * per * hb
+        v = _counters_np(rng, B, cols)
+        v[:, hb:2 * hb] = np.nan
+        phase = np.repeat(rng.integers(1, STEP, cols // hb), hb)
+        hp = xorgrid.pack_vals(v, phase=phase.astype(np.int32), min_width=16,
+                               stride=hb)
+        if hp is None or not (hp.inv == np.arange(cols)).all():
+            raise AssertionError(f"hb={hb}: not an identity stride pack")
+        hpk = xorgrid.packed_to_torch(hp, device)
+        for row0, use_phase, op in ((0, True, "rate"), (3, True, "rate"),
+                                    (3, False, "sum")):
+            q = grid.GridQuery(nsteps=B - row0 - K + 1, kbuckets=K,
+                               gstep_ms=STEP, is_rate=(op == "rate"),
+                               op=op, dense=True)
+            args = (hpk, 0, q, hb, per * hb, row0, use_phase)
+            run("hist_grid_grouped_packed",
+                f"hist_grid_grouped_packed hb={hb} row0={row0} "
+                f"{'phase' if use_phase else 'free'}-{op}",
+                partial(grid.hist_grid_grouped_packed, *args),
+                partial(grid.hist_grid_grouped_packed_ref, *args),
+                grouped_packed_work(hpk, q, row0, use_phase, ngroups * hb))
+    report["grouped_sweep"] = rows
     return worst
 
 
@@ -689,18 +877,16 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 args = (plan.packed, plan.steps0_rel, plan.q,
                         plan.packed_row0, plan.packed_use_phase)
                 kname = "rate_grid_packed"
-                fn = lambda a=args: grid.rate_grid_packed(*a)  # noqa: E731
-                ref = lambda a=args: grid.rate_grid_packed_ref(*a)  # noqa: E731
+                fn = partial(grid.rate_grid_packed, *args)
+                ref = partial(grid.rate_grid_packed_ref, *args)
                 work = packed_work(plan.packed, plan.q, plan.packed_row0,
                                    plan.packed_use_phase)
                 shape = f"packed {grid.packed_width(plan.packed)} lanes"
             else:
                 ts, vals, s0, q, ph = devicestore.series_inputs(plan)
                 kname = "rate_grid"
-                fn = lambda a=(ts, vals, s0, q, ph): grid.rate_grid(  # noqa: E731
-                    *a[:4], phase=a[4])
-                ref = lambda a=(ts, vals, s0, q, ph): grid.rate_grid_ref(  # noqa: E731
-                    *a[:4], phase=a[4])
+                fn = partial(grid.rate_grid, ts, vals, s0, q, phase=ph)
+                ref = partial(grid.rate_grid_ref, ts, vals, s0, q, phase=ph)
                 work = grid_work(ts, vals, q, ph)
                 shape = f"[{vals.shape[0]}, {vals.shape[1]}]"
             got = fn()
@@ -964,6 +1150,146 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
     return {"launches": totals, "m4": m4_row}
 
 
+# ------------------------------------------------------------- phase 6
+
+# the launches of each north-star query: one per class plane, and each
+# of these packs is one plane
+NORTHSTAR_LAUNCHES = {
+    "dense": {"rate_grid_grouped": 1},
+    "packed": {"rate_grid_grouped_packed": 1},
+    "hist": {"hist_grid_grouped_packed": 1},
+    "topk": {"rate_grid_packed": 2},
+}
+
+
+def check_northstar_output(name: str, out, case) -> str:
+    """Finite values of the expected shape on the card; returns a note."""
+    import torch
+    if name in ("dense", "packed"):
+        s, c = out
+        shape = (case.vals.shape[1] // case.group_lanes, case.q.nsteps)
+        if s.shape != shape or c.shape != shape or s.device != c.device:
+            raise AssertionError(f"{name}: shapes {s.shape} {c.shape}")
+        if not bool(torch.isfinite(s).all()):
+            raise AssertionError(f"{name}: non-finite group sums")
+        per = int(torch.isfinite(case.vals[0]).sum()) // shape[0]
+        if not bool((c == per).all()):
+            raise AssertionError(f"{name}: counts {int(c.min())}.."
+                                 f"{int(c.max())}, expected {per}")
+        return f"[{shape[0]}, {shape[1]}] sums finite, {per} series a group"
+    if name == "hist":
+        if out.shape != (case.groups, case.q.nsteps):
+            raise AssertionError(f"hist: shape {out.shape}")
+        fin = int(torch.isfinite(out).sum())
+        if fin == 0:
+            raise AssertionError("hist: no finite quantile")
+        return (f"[{out.shape[0]}, {out.shape[1]}] quantiles, {fin} finite "
+                f"(the gate held the rest's NaN pattern)")
+    vals, idx = out
+    if vals.shape != (case.ql.nsteps, case.k) or idx.shape != vals.shape:
+        raise AssertionError(f"topk: shapes {vals.shape} {idx.shape}")
+    if not bool(torch.isfinite(vals).all()) or \
+            not bool(((idx >= 0) & (idx < case.groups)).all()):
+        raise AssertionError("topk: exhausted ranks or slots out of range")
+    if not bool((vals[:, :-1] >= vals[:, 1:]).all()):
+        raise AssertionError("topk: ranks not in descending order")
+    return f"[{vals.shape[0]}, {vals.shape[1]}] ranks, slots in range"
+
+
+def northstar_phase(device, seed: int, reps: int, report: dict,
+                    widths=None) -> dict:
+    """The fused north-star path at the benchmark's widths (``widths``,
+    default ``northstar.BENCH``): the four variants' data, packs and
+    gates; their queries once with the launch counters reset just before
+    and read just after; each new kernel against its plain version and
+    timed; each query timed."""
+    import torch
+    from filodb_tpu_torch import northstar as ns
+    from filodb_tpu_torch.ops import grid
+
+    widths = widths or ns.BENCH
+    setups = {"dense": ns.setup_dense, "packed": ns.setup_packed,
+              "hist": ns.setup_hist, "topk": ns.setup_topk}
+    queries = {"dense": ns.query_dense, "packed": ns.query_packed,
+               "hist": ns.query_hist, "topk": ns.query_topk}
+    cases = {}
+    for name, setup in setups.items():
+        with Phase(f"northstar.setup_{name}"):
+            t0 = time.perf_counter()
+            cases[name] = case = setup(seed, device, widths)
+            torch.cuda.synchronize()
+            log(f"northstar {name}: data, packs and gates passed in "
+                f"{time.perf_counter() - t0:.3f} s (host pack_vals "
+                f"{getattr(case, 'pack_seconds', 0.0):.3f} s)")
+
+    rows = {}
+    with Phase("northstar.queries"):
+        grid.reset_launch_counts()          # the north-star path's run
+        for name, fn in queries.items():
+            before = grid.launch_counts()
+            out = fn(cases[name])
+            torch.cuda.synchronize()
+            launched = {k: v - before[k]
+                        for k, v in grid.launch_counts().items()
+                        if v != before[k]}
+            if launched != NORTHSTAR_LAUNCHES[name]:
+                raise AssertionError(f"northstar {name}: launches "
+                                     f"{launched}, expected "
+                                     f"{NORTHSTAR_LAUNCHES[name]}")
+            note = check_northstar_output(name, out, cases[name])
+            log(f"northstar {name}: launches {launched}, {note}")
+            rows[name] = {"launches": launched}
+        totals = grid.launch_counts()
+        log(f"northstar path launches {totals}")
+
+    flush = make_flush(device)
+    kern_rows = {}
+    with Phase("northstar.kernels"):
+        d, p, h = (cases[k] for k in ("dense", "packed", "hist"))
+        s0 = ns.steps0()
+        dense = (None, d.vals, s0, d.q, d.group_lanes)
+        packed = (p.planes, s0, p.q, p.group_lanes)
+        hist = (h.planes, s0, h.q, h.hb, h.group_lanes)
+        for kname, fn, ref, work in (
+                ("rate_grid_grouped",
+                 partial(grid.rate_grid_grouped, *dense, phase=d.phase),
+                 partial(grid.rate_grid_grouped_ref, *dense, phase=d.phase),
+                 grouped_work(d.vals, d.q, d.phase,
+                              d.vals.shape[1] // d.group_lanes)),
+                ("rate_grid_grouped_packed",
+                 partial(grid.rate_grid_grouped_packed, *packed),
+                 partial(grid.rate_grid_grouped_packed_ref, *packed),
+                 grouped_packed_work(p.planes, p.q, 0, True,
+                                     p.vals.shape[1] // p.group_lanes)),
+                ("hist_grid_grouped_packed",
+                 partial(grid.hist_grid_grouped_packed, *hist),
+                 partial(grid.hist_grid_grouped_packed_ref, *hist),
+                 grouped_packed_work(h.planes, h.q, 0, True,
+                                     h.groups * h.hb))):
+            err = compare_grouped(fn(), ref(), f"northstar {kname}")
+            ms = cuda_ms(fn, reps, flush)
+            pms = cuda_ms(ref, reps, flush)
+            bms, by = bound_ms(*work)
+            log(f"northstar {kname}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms "
+                f"{bms:.4f} ({by}, {work[0]} bytes) max_abs_err {err:.3e} "
+                f"ok")
+            kern_rows[kname] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                "bound_by": by, "bytes": work[0],
+                                "max_abs_err": err}
+    with Phase("northstar.query_times"):
+        for name, fn in queries.items():
+            case = cases[name]
+            qms = cuda_ms(partial(fn, case), reps, flush)
+            rate = case.samples / (qms * 1e-3)
+            log(f"northstar {name} samples/s {rate:.6g} ({case.samples} "
+                f"samples a query, device ms {qms:.4f})")
+            rows[name].update(query_ms=qms, samples=case.samples,
+                              samples_per_s=rate)
+    report["northstar"] = {"queries": rows, "kernels": kern_rows,
+                           "launches": totals}
+    return {"launches": totals, "rows": kern_rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1004,6 +1330,8 @@ def main() -> int:
         report["build_seconds"] = build_s
     with Phase("kernels"):
         sweep_err = kernel_sweep(device, REPS, args.seed, report)
+        sweep_err = max(sweep_err, grouped_sweep(device, REPS, args.seed,
+                                                 report))
         log(f"kernel sweep: every case within tolerance (max_abs_err "
             f"{sweep_err:.3e})")
     with Phase("main"):
@@ -1011,7 +1339,9 @@ def main() -> int:
     with Phase("engine"):
         engine = engine_phase(device, main.pop("stores"), ENGINE_REPS,
                               report)
-    entries = kernel_entries(main, engine)
+    with Phase("northstar"):
+        northstar = northstar_phase(device, args.seed, REPS, report)
+    entries = kernel_entries(main, engine, northstar, report)
     report["kernels"] = entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1026,29 +1356,38 @@ def main() -> int:
     return 0
 
 
-def kernel_entries(main: dict, engine: dict) -> list:
+def kernel_entries(main: dict, engine: dict, northstar: dict,
+                   report: dict) -> list:
     """The ``{"kernels": [...]}`` record: each kernel at the input of its
     primary query (rate_grid at Q2, rate_grid_packed at Q1, m4_grid at
-    E2), with its launches on the path that runs it."""
+    E2, the grouped kernels at the north-star widths), with its launches
+    on the path that runs it."""
     primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
     replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
                 "rate_grid_packed": "filodb_tpu/ops/grid.py:1086",
-                "m4_grid": "filodb_tpu/ops/grid.py:1694"}
+                "m4_grid": "filodb_tpu/ops/grid.py:1694",
+                "rate_grid_grouped": "filodb_tpu/ops/grid.py:906",
+                "rate_grid_grouped_packed": "filodb_tpu/ops/grid.py:1134",
+                "hist_grid_grouped_packed": "filodb_tpu/ops/grid.py:1270"}
     path_rows = {k: next(r for r in main["rows"][k]
                          if r["query"] == primary[k]) for k in primary}
     path_rows["m4_grid"] = engine["m4"]
+    path_rows.update(northstar["rows"])
     launches = {**main["launches"],
-                "m4_grid": engine["launches"]["m4_grid"]}
+                "m4_grid": engine["launches"]["m4_grid"],
+                **{k: northstar["launches"][k] for k in northstar["rows"]}}
+    sweep = report["kernel_sweep"] + report["grouped_sweep"]
     entries = []
-    for kname in ("rate_grid", "rate_grid_packed", "m4_grid"):
+    for kname in replaces:
         row = path_rows[kname]
         errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
+        errs += [r["max_abs_err"] for r in sweep if r["kernel"] == kname]
         entries.append({
             "name": kname, "route": "cuda",
             "source": "filodb_tpu_torch/csrc/grid_kernels.cu",
             "replaces": replaces[kname],
             "launches": launches[kname],
-            "max_abs_err": max(errs),
+            "max_abs_err": max(errs + [row["max_abs_err"]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None})

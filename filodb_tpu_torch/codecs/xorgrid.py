@@ -42,8 +42,8 @@ in-devicestore packer):
    never gathers.
 
 The decode side lives with the kernels: ``ops/grid.py``
-(``decode_packed_plane``, the packed kernel) and the multi-block decode
-in ``memstore/devicestore.py``.
+(``decode_packed_plane``, the packed kernels) and the multi-block decode
+in ``memstore/devicestore.py``; :func:`unpack_vals` is the numpy oracle.
 """
 
 from __future__ import annotations
@@ -267,6 +267,28 @@ def pack_vals(vals: np.ndarray, lane_block: int = LANE_BLOCK,
     if nbytes * 4 > B * L * itemsize * 3:              # must save >= 25%
         return None
     return PackedVals(planes, inv, nbytes)
+
+
+def unpack_vals(packed) -> np.ndarray:
+    """Bit-exact CPU decode of :func:`pack_vals` output (a
+    :class:`PackedVals` or its ``planes`` dict) back to the original
+    ``[B, L]`` plane: the oracle the kernels' decode is held to."""
+    planes = getattr(packed, "planes", packed)
+    raw = np.asarray(planes["raw"])
+    word = np.uint32 if raw.dtype.itemsize == 4 else np.uint64
+    parts = []
+    for w in (8, 16, 32):
+        p = planes.get(f"p{w}")
+        if p is None:
+            continue
+        z = np.asarray(planes[f"z{w}"]).astype(word)
+        parts.append(np.asarray(p).astype(word) << z[None, :])
+    if raw.shape[1]:
+        parts.append(np.ascontiguousarray(raw).view(word))
+    u = np.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
+    u = np.bitwise_xor.accumulate(u, axis=0)
+    u ^= np.ascontiguousarray(np.asarray(planes["first"])).view(word)[None, :]
+    return u.view(raw.dtype)[:, np.asarray(planes["inv"])]
 
 
 # torch has almost no operators on uint16/uint32: such planes ride as

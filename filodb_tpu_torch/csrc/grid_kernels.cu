@@ -1,5 +1,6 @@
-// Aligned-grid window kernels and the M4 selection kernel for Hopper
-// (sm_90a), bound with ctypes.  The M4 kernel's note stands above it.
+// Aligned-grid window kernels, their grouped forms and the M4 selection
+// kernel for Hopper (sm_90a), bound with ctypes.  The M4 kernel's note
+// stands above it.
 //
 // rate_grid_kernel replaces the TPU kernel rate_grid
 // (filodb_tpu/ops/grid.py:848-898, bodies _series_kernel,
@@ -33,11 +34,45 @@
 //
 // Both kernels share one __device__ window-op path (lane_windows), fed
 // by a row source: a decoded f32 plane, or an XOR-class packed plane
-// decoded on the fly.  The f32 arithmetic repeats the plain PyTorch
-// versions (filodb_tpu_torch/ops/grid.py) op for op; the library is built
-// with -fmad=false so no multiply-add is contracted.  Only the order of
-// the correction prefix sum may differ from the plain version on the
-// card (serial here, a parallel scan in torch.cumsum).
+// decoded on the fly, and handing each step's value to a sink: a store
+// to the [T, lanes] output here, the group reduce in the grouped kernels
+// below.  The f32 arithmetic repeats the plain PyTorch versions
+// (filodb_tpu_torch/ops/grid.py) op for op; the library is built with
+// -fmad=false so no multiply-add is contracted.  Only the order of the
+// correction prefix sum may differ from the plain version on the card
+// (serial here, a parallel scan in torch.cumsum).
+//
+// The grouped kernels.  rate_grid_grouped_kernel replaces the TPU kernel
+// rate_grid_grouped (filodb_tpu/ops/grid.py:904-957, bodies
+// _grouped_kernel{,_free,_phase}); grouped_packed_kernel replaces both
+// rate_grid_grouped_packed (:1130-1202, body _grouped_kernel_packed) with
+// one bucket per group (hb = 1) and hist_grid_grouped_packed (:1266-1339,
+// body _hist_grouped_kernel_packed) with hb buckets, column c of a group
+// reducing into bucket c % hb.  Each runs the window path above per lane
+// and reduces the group's lanes per step into (sum, count) rows, so only
+// [G*hb, T] partials reach device memory.  Phase mode sums every lane
+// live at row 0 (its value as it is, finite or not) and counts the live
+// lanes; free and ts modes sum and count the finite results.
+//
+// What bounds them: bytes, as above, less the [T, lanes] output: at the
+// north-star widths (59 rows of 1,024,000 lanes; 1,048,576 bucket
+// columns) 246 MB for rate_grid_grouped in phase mode, 133 MB for
+// rate_grid_grouped_packed and 143.5 MB for hist_grid_grouped_packed,
+// 0.04-0.07 ms at 3.35 TB/s.
+//
+// Design.  The TPU kernels carry 8 groups per output tile and reduce
+// buckets with a banded 0/1 matmul on the MXU; both are TPU layout
+// choices.  Here one CTA owns one group: its threads take the group's
+// lanes blockDim at a time (a thread past the group's end walks the last
+// lane again and contributes nothing, so every thread reaches every
+// shuffle and barrier), and a sink reduces the lanes' values at every
+// step in a fixed order, with no atomics, so a run's answer never
+// depends on the schedule.  One bucket (WarpSumSink): warp shuffles, each
+// warp adding into its own shared row of partials, so warps never wait
+// for each other, and the warps' rows added in warp order at the end.
+// hb buckets (BucketSink, any hb): a shared row of the lanes' values a
+// step, which thread j adds to bucket j's running sum in lane order, one
+// barrier a step.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -176,11 +211,149 @@ __device__ float phase_rate(float v1, float delta, float phase,
   return delta * end_sc + start_num * scale;
 }
 
-// The shared window-op path: every output step of one lane.
-template <class Src>
+// Sink of the per-lane kernels: step t's value to out[t * ld].
+struct StoreSink {
+  float* out;
+  long ld;
+  __device__ void operator()(int t, float v, bool) { out[t * ld] = v; }
+};
+
+// The grouped kernels' sinks.  Each CTA owns one group and takes its lanes
+// blockDim at a time (a pass); begin() opens a pass, the sink is called
+// at every step of every lane, and finish() writes the group's (sum,
+// count) rows, slot j's step t at sum[j * T + t].  Both keep their
+// running sums in shared memory, zeroed by make() (BucketSink in the
+// zeroed output rows when they do not fit), and add in a fixed order,
+// with no atomics.
+
+// One bucket a group (hb = 1).  Each warp reduces its 32 lanes by
+// shuffles and its lane 0 adds the result to the warp's own row of
+// partials [T] (sum, then count), so warps never wait for each other;
+// finish() adds the warps' rows in warp order.  Shared: 2 * T floats a
+// warp.
+struct WarpSumSink {
+  float* part;
+  int T;
+  bool active;
+
+  __device__ static int warp() { return static_cast<int>(threadIdx.x) >> 5; }
+
+  __device__ static WarpSumSink make(float* sh, int T, int, float*, float*,
+                                     bool) {
+    const int n = 2 * T * static_cast<int>(blockDim.x >> 5);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sh[i] = 0.f;
+    __syncthreads();
+    return WarpSumSink{sh + warp() * 2 * T, T, false};
+  }
+
+  __device__ void begin(int first_col, int group_lanes) {
+    active = first_col + static_cast<int>(threadIdx.x) < group_lanes;
+  }
+
+  __device__ void operator()(int t, float v, bool ok) {
+    ok = ok && active;
+    float x = ok ? v : 0.f;
+    float c = ok ? 1.f : 0.f;
+    for (int off = 16; off > 0; off >>= 1) {
+      x += __shfl_down_sync(0xffffffffu, x, off);
+      c += __shfl_down_sync(0xffffffffu, c, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      part[t] = part[t] + x;
+      part[T + t] = part[T + t] + c;
+    }
+  }
+
+  __device__ void finish(float* sum, float* cnt) {
+    __syncthreads();
+    const float* rows = part - warp() * 2 * T;
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float s = 0.f, n = 0.f;
+      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        s = s + rows[w * 2 * T + t];
+        n = n + rows[w * 2 * T + T + t];
+      }
+      sum[t] = s;
+      cnt[t] = n;
+    }
+  }
+};
+
+// hb buckets a group, column c of the group into bucket c % hb (any hb).
+// At each step the CTA's lanes write their values to a shared row, and
+// thread j adds bucket j's lanes to its running sum in lane order, across
+// passes too: bucket j's sum is the plain left-to-right sum of its
+// series, which a reference can repeat bit for bit.  The row is
+// double-buffered by step parity, so one barrier a step suffices.  The
+// running sums [2][hb][T] sit in shared memory when they fit, else in
+// the zeroed output rows.  Shared: 4 * blockDim floats, + 2 * hb * T.
+struct BucketSink {
+  float* row;
+  float* acc_s;
+  float* acc_c;
+  int T, hb;
+  bool in_shared;
+  int first;       // group column of this pass's thread 0
+  int nvalid;      // threads of this pass that own a lane
+  bool active;
+  int k;           // calls so far: the row's parity
+
+  __device__ static BucketSink make(float* sh, int T, int hb, float* sum,
+                                    float* cnt, bool acc_shared) {
+    float* acc = sh + 4 * static_cast<int>(blockDim.x);
+    if (acc_shared) {
+      for (int i = threadIdx.x; i < 2 * hb * T; i += blockDim.x) acc[i] = 0.f;
+      __syncthreads();
+      return BucketSink{sh, acc, acc + hb * T, T, hb, true, 0, 0, false, 0};
+    }
+    return BucketSink{sh, sum, cnt, T, hb, false, 0, 0, false, 0};
+  }
+
+  __device__ void begin(int first_col, int group_lanes) {
+    first = first_col;
+    nvalid = min(static_cast<int>(blockDim.x), group_lanes - first_col);
+    active = static_cast<int>(threadIdx.x) < nvalid;
+  }
+
+  __device__ void operator()(int t, float v, bool ok) {
+    ok = ok && active;
+    const int nb = blockDim.x;
+    float* bv = row + (k & 1) * 2 * nb;
+    float* bc = bv + nb;
+    ++k;
+    const int tid = threadIdx.x;
+    bv[tid] = ok ? v : 0.f;
+    bc[tid] = ok ? 1.f : 0.f;
+    __syncthreads();
+    if (tid < hb) {
+      float s = acc_s[tid * T + t], n = acc_c[tid * T + t];
+      // from the first row slot whose group column lies in bucket tid
+      for (int i = (tid - first % hb + hb) % hb; i < nvalid; i += hb) {
+        s = s + bv[i];
+        n = n + bc[i];
+      }
+      acc_s[tid * T + t] = s;
+      acc_c[tid * T + t] = n;
+    }
+  }
+
+  __device__ void finish(float* sum, float* cnt) {
+    if (!in_shared) return;
+    __syncthreads();
+    for (int i = threadIdx.x; i < hb * T; i += blockDim.x) {
+      sum[i] = acc_s[i];
+      cnt[i] = acc_c[i];
+    }
+  }
+};
+
+// The shared window-op path: every output step of one lane, handed to
+// sink(t, value, ok) where ok says whether the group reduce takes the
+// value: the lane's row-0 liveness in phase mode, finiteness otherwise.
+template <class Src, class Sink>
 __device__ void lane_windows(Src src, const int* ts, long ts_ld,
                              float phase, int mode, const Params& P,
-                             float* out, long out_ld) {
+                             Sink& sink) {
   const int K = P.K;
   if (mode == PHASE) {
     const bool correct = P.op != DELTA;
@@ -192,7 +365,7 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
       a.advance_to(base + 1, correct, false);
       b.advance_to(base + K, correct, false);
       float o = phase_rate(a.val, b.val - a.val, phase, P);
-      out[t * out_ld] = live ? o : NAN;
+      sink(t, live ? o : NAN, live);
     }
     return;
   }
@@ -231,7 +404,8 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
           }
         }
       }
-      out[t * out_ld] = extrapolate(nf, t1, t2, v1, v2, t, P);
+      const float o = extrapolate(nf, t1, t2, v1, v2, t, P);
+      sink(t, o, isfinite(o));
     }
     return;
   }
@@ -284,7 +458,7 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
       else if (P.op == MIN || P.op == MAX) o = isfinite(acc) ? acc : NAN;
       else o = cnt > 0.f ? acc : NAN;
     }
-    out[t * out_ld] = o;
+    sink(t, o, isfinite(o));
   }
 }
 
@@ -297,8 +471,19 @@ __global__ void rate_grid_kernel(const float* __restrict__ vals,
   if (lane >= ns) return;
   DenseSrc src{vals + lane, ns};
   const float ph = (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
-  lane_windows(src, ts ? ts + lane : nullptr, ns, ph, mode, P, out + lane,
-               ns);
+  StoreSink sink{out + lane, ns};
+  lane_windows(src, ts ? ts + lane : nullptr, ns, ph, mode, P, sink);
+}
+
+// One lane of a packed plane, positioned at the query's first row: the
+// XOR prefix starts at block row 0, the query reads from row0.
+template <typename W>
+__device__ PackedSrc<W> packed_lane(const W* plane, const int* meta, int n,
+                                    int lane, int row0) {
+  PackedSrc<W> src{plane + lane, n, static_cast<uint32_t>(meta[lane]),
+                   static_cast<uint32_t>(meta[n + lane]), 0u};
+  for (int r = 0; r < row0; ++r) src.next();
+  return src;
 }
 
 template <typename W>
@@ -309,13 +494,120 @@ __global__ void rate_grid_packed_kernel(const W* __restrict__ plane,
                                         int mode) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  PackedSrc<W> src{plane + lane, n, static_cast<uint32_t>(meta[lane]),
-                   static_cast<uint32_t>(meta[n + lane]), 0u};
-  // the XOR prefix starts at block row 0; the query reads from row0
-  for (int r = 0; r < row0; ++r) src.next();
+  PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
   const float ph =
       (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
-  lane_windows(src, nullptr, 0, ph, mode, P, out + lane, out_ld);
+  StoreSink sink{out + lane, out_ld};
+  lane_windows(src, nullptr, 0, ph, mode, P, sink);
+}
+
+// One CTA per group of group_lanes contiguous lanes of vals [nb, ns]; the
+// group's (sum, count) rows at sum/cnt + blockIdx.x * T.  A thread past
+// the group's end walks its last lane again and contributes nothing.
+__global__ void rate_grid_grouped_kernel(const float* __restrict__ vals,
+                                         const int* __restrict__ ts,
+                                         const int* __restrict__ phase,
+                                         float* __restrict__ sum,
+                                         float* __restrict__ cnt, int ns,
+                                         int group_lanes, Params P,
+                                         int mode) {
+  extern __shared__ float sh[];
+  const long g0 = static_cast<long>(blockIdx.x) * group_lanes;
+  const long rows = static_cast<long>(blockIdx.x) * P.T;
+  WarpSumSink sink = WarpSumSink::make(sh, P.T, 1, nullptr, nullptr, true);
+  for (int c0 = 0; c0 < group_lanes; c0 += blockDim.x) {
+    sink.begin(c0, group_lanes);
+    const long lane = g0 + min(c0 + static_cast<int>(threadIdx.x),
+                               group_lanes - 1);
+    DenseSrc src{vals + lane, ns};
+    const float ph =
+        (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
+    lane_windows(src, ts ? ts + lane : nullptr, ns, ph, mode, P, sink);
+  }
+  sink.finish(sum + rows, cnt + rows);
+}
+
+// One CTA per group of group_lanes contiguous lanes of one class plane;
+// the group's hb (sum, count) rows at sum/cnt + blockIdx.x * hb * T.
+template <typename W, class Sink>
+__global__ void grouped_packed_kernel(const W* __restrict__ plane,
+                                      const int* __restrict__ meta,
+                                      float* __restrict__ sum,
+                                      float* __restrict__ cnt, int n,
+                                      int group_lanes, int hb, int row0,
+                                      Params P, int mode, int acc_shared) {
+  extern __shared__ float sh[];
+  const int g0 = blockIdx.x * group_lanes;
+  const long rows = static_cast<long>(blockIdx.x) * hb * P.T;
+  Sink sink = Sink::make(sh, P.T, hb, sum + rows, cnt + rows, acc_shared);
+  for (int c0 = 0; c0 < group_lanes; c0 += blockDim.x) {
+    sink.begin(c0, group_lanes);
+    const int lane = g0 + min(c0 + static_cast<int>(threadIdx.x),
+                              group_lanes - 1);
+    PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
+    const float ph =
+        (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
+    lane_windows(src, nullptr, 0, ph, mode, P, sink);
+  }
+  sink.finish(sum + rows, cnt + rows);
+}
+
+// A grouped launch's shape: threads a CTA (a warp multiple) and dynamic
+// shared bytes.  hb = 1: up to 8 warps, fewer while their partial rows
+// would pass 48 KB (one warp holds T <= 6,144 in it, and past that the
+// kernel is allowed more).  hb > 1: up to 256 threads and at least hb
+// (thread j sums bucket j), the running sums in shared memory when the
+// total stays within 48 KB.
+struct GroupShape {
+  int threads;
+  size_t shared;
+  bool acc_shared;
+};
+
+constexpr size_t kShared48 = 48 * 1024;
+
+GroupShape group_shape(int group_lanes, int hb, int T) {
+  if (hb == 1) {
+    int warps = (group_lanes + 31) / 32;
+    if (warps > 8) warps = 8;
+    while (warps > 1 && warps * 2 * T * sizeof(float) > kShared48) --warps;
+    return {32 * warps, warps * 2 * T * sizeof(float), true};
+  }
+  int threads = group_lanes < 256 ? group_lanes : 256;
+  if (hb > threads) threads = hb;
+  threads = (threads + 31) / 32 * 32;
+  const size_t row = 4 * threads * sizeof(float);
+  const size_t acc = 2 * static_cast<size_t>(hb) * T * sizeof(float);
+  if (row + acc <= kShared48) return {threads, row + acc, true};
+  return {threads, row, false};
+}
+
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+  if (bytes <= kShared48) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename W>
+int grouped_packed_run(const W* plane, const int* meta, float* sum,
+                       float* cnt, int n, int group_lanes, int hb, int row0,
+                       const Params& P, int mode, cudaStream_t s) {
+  const GroupShape g = group_shape(group_lanes, hb, P.T);
+  const int grid = n / group_lanes;
+  if (hb == 1) {
+    auto* kern = grouped_packed_kernel<W, WarpSumSink>;
+    const cudaError_t rc = allow_shared(kern, g.shared);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    kern<<<grid, g.threads, g.shared, s>>>(plane, meta, sum, cnt, n,
+                                            group_lanes, 1, row0, P, mode, 1);
+  } else {  // within 48 KB by construction
+    grouped_packed_kernel<W, BucketSink><<<grid, g.threads, g.shared, s>>>(
+        plane, meta, sum, cnt, n, group_lanes, hb, row0, P, mode,
+        g.acc_shared);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // M4 pixel-bin selection.  m4_grid_kernel replaces the TPU kernel m4_grid
@@ -442,6 +734,57 @@ int rate_grid_packed_launch(const void* plane, const void* meta, void* out,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// sum and cnt: [ns / group_lanes, T] f32.
+int rate_grid_grouped_launch(const void* vals, const void* ts,
+                             const void* phase, void* sum, void* cnt,
+                             int nb, int ns, int group_lanes, int T, int K,
+                             int stride, int g, int steps0, int op, int mode,
+                             int dense, int is_rate, void* stream) {
+  (void)nb;
+  Params P{T, K, stride, g, steps0, op, dense, is_rate};
+  const GroupShape gs = group_shape(group_lanes, 1, T);
+  const cudaError_t rc = allow_shared(rate_grid_grouped_kernel, gs.shared);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rate_grid_grouped_kernel<<<ns / group_lanes, gs.threads, gs.shared,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(ts),
+      static_cast<const int*>(phase), static_cast<float*>(sum),
+      static_cast<float*>(cnt), ns, group_lanes, P, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One class plane's groups: sum and cnt point at zeroed [G_all * hb, T]
+// f32, this plane's first group at slot0 (a group index).
+int grouped_packed_launch(const void* plane, const void* meta, void* sum,
+                          void* cnt, int kind, int nb, int n,
+                          int group_lanes, int hb, int slot0, int row0,
+                          int T, int K, int stride, int g, int op,
+                          int use_phase, int dense, int is_rate,
+                          void* stream) {
+  (void)nb;
+  Params P{T, K, stride, g, 0, op, dense, is_rate};
+  const int mode = use_phase ? PHASE : FREE;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* m = static_cast<const int*>(meta);
+  const long off = static_cast<long>(slot0) * hb * T;
+  float* so = static_cast<float*>(sum) + off;
+  float* co = static_cast<float*>(cnt) + off;
+  switch (kind) {
+    case 0:
+      return grouped_packed_run(static_cast<const uint8_t*>(plane), m, so, co,
+                                n, group_lanes, hb, row0, P, mode, s);
+    case 1:
+      return grouped_packed_run(static_cast<const uint16_t*>(plane), m, so,
+                                co, n, group_lanes, hb, row0, P, mode, s);
+    case 2:
+    case 3:
+      return grouped_packed_run(static_cast<const uint32_t*>(plane), m, so,
+                                co, n, group_lanes, hb, row0, P, mode, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -75,7 +75,6 @@ _GRID_OPS = {
 GROUPED_OPS = frozenset(("sum", "avg", "count", "min", "max"))
 
 _ONEHOT_MAX_G = 2048  # one-hot matmul reduce beyond this costs too much memory
-_MATMUL_FLAG_LOCK = threading.Lock()
 
 
 def resolve_device(device) -> torch.device:
@@ -125,24 +124,6 @@ def _seg_ts_device(seg):
     return rows * seg["g"] + seg["base"] + seg["phase"][None, :]
 
 
-def _f32_matmul(a, b):
-    """``a @ b`` with full f32 products whatever the process's matmul
-    setting: TF32 keeps 10 mantissa bits, and the fused group sums would
-    drift from the per-series path by ~0.1% (the JAX package documents
-    ~0.4% for bf16 inputs, filodb_tpu/memstore/devicestore.py:216-218).
-    The switch is process-wide, so it is set for this call only, under a
-    lock so that concurrent queries never restore each other's value,
-    and the caller's value is put back."""
-    flags = torch.backends.cuda.matmul
-    with _MATMUL_FLAG_LOCK:
-        prev = flags.allow_tf32
-        flags.allow_tf32 = False
-        try:
-            return a @ b
-        finally:
-            flags.allow_tf32 = prev
-
-
 def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
     """Device-side segment reduce of a grid kernel's ``[T, lanes]``
     output into ``[G, T]`` partials, on the device.  ``garr`` maps
@@ -158,7 +139,7 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
             onehot = (garr[:, None] == torch.arange(
                 G, dtype=garr.dtype, device=garr.device)[None, :]
                 ).to(v.dtype)                    # [lanes, G]
-            outs = [_f32_matmul(onehot.T, p) for p in planes]
+            outs = [segops.f32_matmul(onehot.T, p) for p in planes]
         else:
             idx = garr.to(torch.int64)
             outs = [torch.zeros((G + 1, v.shape[1]), dtype=v.dtype,

@@ -17,10 +17,13 @@ NaN.
 
 from __future__ import annotations
 
+import threading
 from typing import Hashable, Sequence
 
 import numpy as np
 import torch
+
+_MATMUL_FLAG_LOCK = threading.Lock()
 
 
 def group_ids(keys: Sequence[Hashable]) -> tuple[np.ndarray, list]:
@@ -34,6 +37,24 @@ def group_ids(keys: Sequence[Hashable]) -> tuple[np.ndarray, list]:
     for i, k in enumerate(keys):
         ids[i] = index.setdefault(k, len(index))
     return ids, list(index.keys())
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with full f32 products whatever the process's matmul
+    setting: TF32 keeps 10 mantissa bits, and the fused group sums would
+    drift from the per-series path by ~0.1% (the JAX package documents
+    ~0.4% for bf16 inputs, filodb_tpu/memstore/devicestore.py:216-218).
+    The switch is process-wide, so it is set for this call only, under a
+    lock so that concurrent queries never restore each other's value,
+    and the caller's value is put back."""
+    flags = torch.backends.cuda.matmul
+    with _MATMUL_FLAG_LOCK:
+        prev = flags.allow_tf32
+        flags.allow_tf32 = False
+        try:
+            return a @ b
+        finally:
+            flags.allow_tf32 = prev
 
 
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor,

@@ -9,18 +9,26 @@ window ``t`` covers exactly rows ``[t*stride, t*stride + K - 1]`` — no
 search, no gather (reference: query/exec/rangefn/RangeFunction.scala
 addChunks + the Prometheus extrapolated rate, RateFunctions.scala:37-80).
 
-Two functions carry the path, each with a hand-written CUDA kernel
-(``csrc/grid_kernels.cu``) and a plain PyTorch version beside it:
+Each function below has a hand-written CUDA kernel
+(``csrc/grid_kernels.cu``) and a plain PyTorch version beside it
+(``<name>_ref``):
 
 - :func:`rate_grid` — decoded planes (``vals`` plus, per mode, a ts
   plane or a per-lane phase row) -> ``[T, S]``;
-  :func:`rate_grid_ref` is its plain version.
 - :func:`rate_grid_packed` — XOR-class packed planes
   (``codecs/xorgrid.py``) decoded inside the kernel -> ``[T, width]`` in
-  packed lane order; :func:`rate_grid_packed_ref` is its plain version.
+  packed lane order;
+- :func:`rate_grid_grouped`, :func:`rate_grid_grouped_packed` and
+  :func:`hist_grid_grouped_packed` — the same window ops fused with a
+  per-group (per-bucket) sum and count -> ``(sum, count)`` ``[G, T]``
+  (``[G*hb, T]``): the north-star path (``filodb_tpu_torch/
+  northstar.py``);
+- :func:`m4_grid` — the M4 points of ``?downsample=`` over a time-major
+  ``[T, S]`` result.
 
-A third, :func:`m4_grid` (plain version :func:`m4_grid_ref`), selects the
-M4 points of ``?downsample=`` over a time-major ``[T, S]`` result.
+:func:`hist_quantile_grid_packed` and :func:`event_topk_grid_packed`
+compose them with plain torch (the le-interpolation; a filter, a group
+reduce and a ranking).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its kernel launches
@@ -42,7 +50,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from filodb_tpu_torch.ops import kernels
+from filodb_tpu_torch.ops import aggregate, histogram_ops, kernels
 
 _IBIG = 2**30
 
@@ -447,21 +455,144 @@ def _packed_check(packed: dict, q: GridQuery, row0: int,
                 f"[{row0}, {row0 + _rows_needed(q)})")
 
 
+def _packed_plane_outputs(packed: dict, q: GridQuery, row0: int,
+                         use_phase: bool):
+    """Per class plane, in packed order: the decoded rows ``[row0, row0 +
+    rows_needed)`` through the phase or free op chain -> ``(out [T, n],
+    ok)``, where ``ok`` says which cells a group reduce takes: row 0's
+    liveness ``[1, n]`` in phase mode, ``isfinite(out)`` otherwise."""
+    need = _rows_needed(q)
+    for p, m, _kind in _packed_planes(packed):
+        vals = decode_packed_plane(p, m)[row0:row0 + need]
+        if use_phase:
+            yield _phase_block(m[2:3], vals, q), torch.isfinite(vals[0:1])
+        else:
+            out = _agg_block(vals, q)
+            yield out, torch.isfinite(out)
+
+
 def rate_grid_packed_ref(packed: dict, steps0: int, q: GridQuery,
                          row0: int = 0, use_phase: bool = False):
     """Plain version of :func:`rate_grid_packed`: decode every class
     plane, take rows ``[row0, row0 + rows_needed)``, run the phase or
     free op chain -> ``[T, packed_width]`` f32 in packed lane order."""
     _packed_check(packed, q, row0, use_phase)
-    need = _rows_needed(q)
-    outs = []
-    for p, m, _kind in _packed_planes(packed):
-        vals = decode_packed_plane(p, m)[row0:row0 + need]
-        if use_phase:
-            outs.append(_phase_block(m[2:3], vals, q))
-        else:
-            outs.append(_agg_block(vals, q))
+    outs = [out for out, _ok in
+            _packed_plane_outputs(packed, q, row0, use_phase)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Grouped forms: the window op plus a per-group sum and count, fused
+# ---------------------------------------------------------------------------
+
+def _group_reduce(out: torch.Tensor, ok: torch.Tensor, group_lanes: int,
+                  hb: int = 1):
+    """``out [T, n]`` and its take-mask ``ok`` (``[T, n]`` or ``[1, n]``)
+    -> ``(sum, count)`` ``[n // group_lanes * hb, T]``: group g is
+    columns ``[g*group_lanes, (g+1)*group_lanes)``, and its column c
+    reduces into slot ``g*hb + c % hb``.  A taken cell adds its value as
+    it is (a live lane's NaN poisons its group's sum, as on the TPU).
+    With buckets (hb > 1) each bucket's series are added left to right,
+    in lane order, as the kernel adds them: the histogram quantile over
+    these sums is ill-conditioned where two bucket sums nearly tie, and
+    a sum in another order would move it there."""
+    nsteps, n = out.shape
+    ok = ok.expand(nsteps, n)
+    shape = (nsteps, n // group_lanes, group_lanes // hb, hb)
+    v = torch.where(ok, out, torch.zeros_like(out)).reshape(shape)
+    c = ok.to(out.dtype).reshape(shape).sum(2)
+    if hb == 1:
+        s = v.sum(2)
+    else:
+        s = torch.zeros_like(v[:, :, 0])
+        for i in range(shape[2]):
+            s = s + v[:, :, i]
+    return (s.permute(1, 2, 0).reshape(-1, nsteps),
+            c.permute(1, 2, 0).reshape(-1, nsteps))
+
+
+def _grouped_check(vals, q: GridQuery, group_lanes: int) -> None:
+    _check_op(q)
+    nb, ns = vals.shape
+    if group_lanes < 1 or ns == 0 or ns % group_lanes != 0:
+        raise ValueError(f"series count {ns} must be a non-zero multiple of "
+                         f"group_lanes={group_lanes} (pad groups with NaN "
+                         f"columns)")
+    if nb < _rows_needed(q):
+        raise ValueError(f"grid has {nb} rows; need (nsteps-1)*stride+K = "
+                         f"{_rows_needed(q)}")
+
+
+def rate_grid_grouped_ref(ts, vals, steps0: int, q: GridQuery,
+                          group_lanes: int = 1024, phase=None):
+    """Plain version of :func:`rate_grid_grouped`: :func:`rate_grid_ref`,
+    then each group's sum and count over its contiguous lanes."""
+    _grouped_check(vals, q, group_lanes)
+    out = rate_grid_ref(ts, vals, steps0, q, phase=phase)
+    ok = torch.isfinite(vals[0:1]) if _phase_mode(q, phase) \
+        else torch.isfinite(out)
+    return _group_reduce(out, ok, group_lanes)
+
+
+def _grouped_packed_check(packed: dict, q: GridQuery, row0: int,
+                          use_phase: bool, group_lanes: int,
+                          hb: int = 1) -> list:
+    """The group-aligned pack contract; returns the class planes."""
+    if hb < 1 or group_lanes < 1 or group_lanes % hb != 0:
+        raise ValueError(f"group_lanes {group_lanes} not a multiple of the "
+                         f"bucket count {hb}")
+    _packed_check(packed, q, row0, use_phase)
+    inv = packed.get("inv")
+    if inv is not None and packed_width(packed) != inv.shape[0]:
+        # a zero pad lane decodes to a constant finite 0.0 series: with no
+        # group map to drop it, it would count as a live series in its
+        # group (+1 count, skewed avg) — reject rather than corrupt
+        raise ValueError(
+            f"pack carries {packed_width(packed) - inv.shape[0]} "
+            f"alignment-pad lanes; the fused grouped kernels have no group "
+            f"map to drop them — use rate_grid_packed + a segment reduce, "
+            f"or a min_width single-class pack")
+    planes = _packed_planes(packed)
+    if not planes:
+        raise ValueError("pack has no class planes")
+    for p, _m, _kind in planes:
+        if p.shape[1] % group_lanes != 0:
+            raise ValueError(
+                f"packed plane width {p.shape[1]} must be a whole number of "
+                f"{group_lanes}-lane groups — use the group-aligned pack "
+                f"layout")
+    return planes
+
+
+def _grouped_packed_ref(packed: dict, q: GridQuery, row0: int,
+                        use_phase: bool, group_lanes: int, hb: int):
+    _grouped_packed_check(packed, q, row0, use_phase, group_lanes, hb)
+    sums, cnts = [], []
+    for out, ok in _packed_plane_outputs(packed, q, row0, use_phase):
+        s, c = _group_reduce(out, ok, group_lanes, hb)
+        sums.append(s)
+        cnts.append(c)
+    if len(sums) == 1:
+        return sums[0], cnts[0]
+    return torch.cat(sums), torch.cat(cnts)
+
+
+def rate_grid_grouped_packed_ref(packed: dict, steps0: int, q: GridQuery,
+                                 group_lanes: int = 1024, row0: int = 0,
+                                 use_phase: bool = True):
+    """Plain version of :func:`rate_grid_grouped_packed`: each plane's
+    decoded window op, then each group's sum and count."""
+    return _grouped_packed_ref(packed, q, row0, use_phase, group_lanes, 1)
+
+
+def hist_grid_grouped_packed_ref(packed: dict, steps0: int, q: GridQuery,
+                                 hb: int, group_lanes: int = 1024,
+                                 row0: int = 0, use_phase: bool = True):
+    """Plain version of :func:`hist_grid_grouped_packed`: each plane's
+    decoded window op per bucket column, then each group's per-bucket
+    sum and count."""
+    return _grouped_packed_ref(packed, q, row0, use_phase, group_lanes, hb)
 
 
 # ---------------------------------------------------------------------------
@@ -502,24 +633,16 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
-    """Per-series windowed function over an aligned grid:
-    ``vals [B, S]`` -> ``[T, S]``.
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return t.device
 
-    ``phase`` ([S] int32 within-bucket scrape offsets in (0, gstep])
-    selects the uniform-phase mode for phase-eligible queries; then and
-    for TS_FREE ops ``ts`` may be None.  CPU tensors run
-    :func:`rate_grid_ref`; CUDA tensors launch the CUDA kernel
-    (f32 values, int32 ts/phase) or raise."""
-    if vals.device.type == "cpu":
-        return rate_grid_ref(ts, vals, steps0, q, phase=phase)
-    _check_op(q)
-    if vals.device.type != "cuda":
-        raise ValueError(f"rate_grid runs on cpu or cuda, not {vals.device}")
+
+def _dense_pointers(ts, vals, q: GridQuery, phase) -> tuple:
+    """Check a decoded-plane kernel's inputs on the card: (mode, ts
+    pointer, phase pointer), the planes the mode does not read None."""
     nb, ns = vals.shape
-    if nb < _rows_needed(q):
-        raise ValueError(f"grid has {nb} rows; need (nsteps-1)*stride+K = "
-                         f"{_rows_needed(q)}")
     dev = vals.device
     _require(vals, "vals", torch.float32, (nb, ns), dev)
     mode = _mode_for(q, phase)
@@ -533,14 +656,48 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
         phase = phase.reshape(-1)
         _require(phase, "phase", torch.int32, (ns,), dev)
         ph_ptr = phase.data_ptr()
+    return mode, ctypes.c_void_p(ts_ptr), ctypes.c_void_p(ph_ptr)
+
+
+_PLANE_DTYPES = (torch.uint8, torch.int16, torch.int32, torch.float32)
+
+
+def _plane_pointers(p, m, kind: int, dev) -> tuple:
+    """Check one class plane and its meta tile on the card: their
+    pointers."""
+    nb, n = p.shape
+    _require(p, f"plane {_PLANES[kind][0]}", _PLANE_DTYPES[kind], (nb, n),
+             dev)
+    _require(m, f"meta {_PLANES[kind][1]}", torch.int32, (8, n), dev)
+    return ctypes.c_void_p(p.data_ptr()), ctypes.c_void_p(m.data_ptr())
+
+
+def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
+    """Per-series windowed function over an aligned grid:
+    ``vals [B, S]`` -> ``[T, S]``.
+
+    ``phase`` ([S] int32 within-bucket scrape offsets in (0, gstep])
+    selects the uniform-phase mode for phase-eligible queries; then and
+    for TS_FREE ops ``ts`` may be None.  CPU tensors run
+    :func:`rate_grid_ref`; CUDA tensors launch the CUDA kernel
+    (f32 values, int32 ts/phase) or raise."""
+    if vals.device.type == "cpu":
+        return rate_grid_ref(ts, vals, steps0, q, phase=phase)
+    _check_op(q)
+    dev = _cuda_device(vals, "rate_grid")
+    nb, ns = vals.shape
+    if nb < _rows_needed(q):
+        raise ValueError(f"grid has {nb} rows; need (nsteps-1)*stride+K = "
+                         f"{_rows_needed(q)}")
+    mode, ts_ptr, ph_ptr = _dense_pointers(ts, vals, q, phase)
     out = torch.empty((q.nsteps, ns), dtype=torch.float32, device=dev)
     if ns == 0:
         return out
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.rate_grid_launch(
-            ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(ts_ptr),
-            ctypes.c_void_p(ph_ptr), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+            ctypes.c_void_p(out.data_ptr()),
             *_int32_args(nb, ns, q.nsteps, q.kbuckets, q.stride,
                          q.gstep_ms, steps0, _OP_CODE[q.op],
                          _MODE_CODE[mode], q.dense, q.is_rate),
@@ -565,25 +722,20 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
     planes = _packed_planes(packed)
     if not planes:
         raise ValueError("pack has no class planes")
-    dev = planes[0][0].device
-    if dev.type == "cpu":
+    if planes[0][0].device.type == "cpu":
         return rate_grid_packed_ref(packed, steps0, q, row0, use_phase)
-    if dev.type != "cuda":
-        raise ValueError(f"rate_grid_packed runs on cpu or cuda, not {dev}")
+    dev = _cuda_device(planes[0][0], "rate_grid_packed")
     _packed_check(packed, q, row0, use_phase)
     width = packed_width(packed)
-    dtypes = (torch.uint8, torch.int16, torch.int32, torch.float32)
     out = torch.empty((q.nsteps, width), dtype=torch.float32, device=dev)
     lib = kernels.library()
     col = 0
     for p, m, kind in planes:
         nb, n = p.shape
-        _require(p, f"plane {_PLANES[kind][0]}", dtypes[kind], (nb, n), dev)
-        _require(m, f"meta {_PLANES[kind][1]}", torch.int32, (8, n), dev)
+        pp, mp = _plane_pointers(p, m, kind, dev)
         with torch.cuda.device(dev):
             rc = lib.rate_grid_packed_launch(
-                ctypes.c_void_p(p.data_ptr()), ctypes.c_void_p(m.data_ptr()),
-                ctypes.c_void_p(out.data_ptr()),
+                pp, mp, ctypes.c_void_p(out.data_ptr()),
                 *_int32_args(kind, nb, n, width, col, row0, q.nsteps,
                              q.kbuckets, q.stride, q.gstep_ms,
                              _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
@@ -595,6 +747,254 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
 
 
 rate_grid_packed.launches = 0
+
+
+def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
+                      group_lanes: int = 1024, phase=None):
+    """Fused ``sum by (group)(fn(...))``: ``vals [B, S]`` -> ``(sum,
+    count)`` ``[G, T]`` f32, ``G = S / group_lanes``.
+
+    Series are pre-sorted by group and padded with NaN columns so that
+    group g occupies columns ``[g*group_lanes, (g+1)*group_lanes)``; a
+    group of padding comes back with count 0.  Free and ts modes sum and
+    count the finite results; phase mode (``phase`` as in
+    :func:`rate_grid`) sums every lane live at row 0 and counts the live
+    lanes.  Any G >= 1: the TPU's rule that G be a multiple of 8 is its
+    output tile's, and does not apply here.  CPU tensors run
+    :func:`rate_grid_grouped_ref`; CUDA tensors launch the CUDA kernel
+    once or raise."""
+    if vals.device.type == "cpu":
+        return rate_grid_grouped_ref(ts, vals, steps0, q, group_lanes,
+                                     phase=phase)
+    dev = _cuda_device(vals, "rate_grid_grouped")
+    _grouped_check(vals, q, group_lanes)
+    nb, ns = vals.shape
+    mode, ts_ptr, ph_ptr = _dense_pointers(ts, vals, q, phase)
+    shape = (ns // group_lanes, q.nsteps)
+    s = torch.empty(shape, dtype=torch.float32, device=dev)
+    c = torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.rate_grid_grouped_launch(
+            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+            ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()),
+            *_int32_args(nb, ns, group_lanes, q.nsteps, q.kbuckets,
+                         q.stride, q.gstep_ms, steps0, _OP_CODE[q.op],
+                         _MODE_CODE[mode], q.dense, q.is_rate),
+            _stream())
+    rate_grid_grouped.launches += 1
+    _launch_check(rc, "rate_grid_grouped")
+    return s, c
+
+
+rate_grid_grouped.launches = 0
+
+# thread j of a grouped CTA sums bucket j: at most a CTA's threads
+MAX_HIST_BUCKETS = 1024
+
+
+def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
+                           use_phase: bool, group_lanes: int, hb: int):
+    """Launch the grouped packed kernel once per class plane (counted on
+    ``wrapper``): ``(sum, count)`` ``[G*hb, T]``, groups in plane
+    order."""
+    planes = _grouped_packed_check(packed, q, row0, use_phase, group_lanes,
+                                   hb)
+    dev = _cuda_device(planes[0][0], wrapper.__name__)
+    if hb > MAX_HIST_BUCKETS:
+        raise ValueError(f"{hb} buckets; the kernel takes at most "
+                         f"{MAX_HIST_BUCKETS}")
+    shape = (packed_width(packed) // group_lanes * hb, q.nsteps)
+    # zeroed: the bucket kernel keeps its running sums here when they do
+    # not fit in shared memory
+    s = torch.zeros(shape, dtype=torch.float32, device=dev)
+    c = torch.zeros(shape, dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    slot0 = 0
+    for p, m, kind in planes:
+        nb, n = p.shape
+        pp, mp = _plane_pointers(p, m, kind, dev)
+        with torch.cuda.device(dev):
+            rc = lib.grouped_packed_launch(
+                pp, mp, ctypes.c_void_p(s.data_ptr()),
+                ctypes.c_void_p(c.data_ptr()),
+                *_int32_args(kind, nb, n, group_lanes, hb, slot0, row0,
+                             q.nsteps, q.kbuckets, q.stride, q.gstep_ms,
+                             _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
+                _stream())
+        wrapper.launches += 1
+        _launch_check(rc, wrapper.__name__)
+        slot0 += n // group_lanes
+    return s, c
+
+
+def rate_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
+                             group_lanes: int = 1024, row0: int = 0,
+                             use_phase: bool = True):
+    """Fully fused ``sum by (group)(fn(...))`` over packed residents:
+    class planes -> ``(sum, count)`` ``[G, T]``, decode + window + group
+    reduce in one kernel launch per class plane.
+
+    Requires the GROUP-ALIGNED pack contract: every class plane's width
+    is a whole number of ``group_lanes``-lane groups, and the pack
+    carries no alignment-pad lanes (a ``min_width`` single-class pack
+    keeps a uniform workload's lane, and so group, order).  Groups come
+    back in packed-plane order.  Any group count: the TPU's rule that
+    each plane hold a multiple of 8 groups is its output tile's.  CPU
+    tensors run :func:`rate_grid_grouped_packed_ref`."""
+    planes = _packed_planes(packed)
+    if planes and planes[0][0].device.type == "cpu":
+        return rate_grid_grouped_packed_ref(packed, steps0, q, group_lanes,
+                                            row0, use_phase)
+    return _grouped_packed_launch(rate_grid_grouped_packed, packed, q, row0,
+                                  use_phase, group_lanes, 1)
+
+
+rate_grid_grouped_packed.launches = 0
+
+
+def hist_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
+                             hb: int, group_lanes: int = 1024,
+                             row0: int = 0, use_phase: bool = True):
+    """Fully fused ``sum by (g)(fn(latency_bucket[w]))`` over packed
+    HISTOGRAM residents: bucket planes -> ``(sum, count)`` ``[G*hb, T]``;
+    slot ``g*hb + j`` is group g's cumulative bucket j, reduced from the
+    group's columns c with ``c % hb == j`` (the stride pack's layout:
+    column ``s*hb + j`` is series s's bucket j).
+
+    Requires the hist group-aligned contract: ``group_lanes % hb == 0``,
+    no alignment-pad lanes, whole groups per class plane (a
+    ``pack_vals(stride=hb, min_width=...)`` identity pack), and at most
+    :data:`MAX_HIST_BUCKETS` buckets on the card.  CPU tensors run
+    :func:`hist_grid_grouped_packed_ref`."""
+    planes = _packed_planes(packed)
+    if planes and planes[0][0].device.type == "cpu":
+        return hist_grid_grouped_packed_ref(packed, steps0, q, hb,
+                                            group_lanes, row0, use_phase)
+    return _grouped_packed_launch(hist_grid_grouped_packed, packed, q, row0,
+                                  use_phase, group_lanes, hb)
+
+
+hist_grid_grouped_packed.launches = 0
+
+
+def hist_quantile_grid_packed(packed: dict, steps0: int, tops, q: GridQuery,
+                              phi: float, hb: int, group_lanes: int = 1024,
+                              row0: int = 0, use_phase: bool = True):
+    """Fused ``histogram_quantile(phi, sum by (g)(fn(...)))``:
+    :func:`hist_grid_grouped_packed`, then the le-interpolation over the
+    ``[G, T, hb]`` bucket sums (``tops``: the ``[hb]`` cumulative bucket
+    upper bounds) -> ``[G, T]``; a step where no series of the group is
+    counted in the top bucket is NaN."""
+    s, c = hist_grid_grouped_packed(packed, steps0, q, hb, group_lanes,
+                                    row0, use_phase)
+    nsteps = s.shape[1]
+    ngroups = s.shape[0] // hb
+    hist_sum = s.reshape(ngroups, hb, nsteps).permute(0, 2, 1)
+    out = histogram_ops.hist_quantile(tops, hist_sum, phi)
+    nlive = c.reshape(ngroups, hb, nsteps)[:, hb - 1, :]
+    return torch.where(nlive > 0, out, torch.full_like(out, float("nan")))
+
+
+# ---------------------------------------------------------------------------
+# Generic columnar event scan -> filter -> topK (the GDELT shape): the
+# value column's window op (rate_grid_packed), an optional predicate on a
+# second column scanned the same way, a group reduce and a ranking
+# ---------------------------------------------------------------------------
+
+_FILTER_OPS = {
+    "gt": torch.gt, "ge": torch.ge, "lt": torch.lt, "le": torch.le,
+    "eq": torch.eq, "ne": torch.ne,
+}
+
+# one-hot group reduce beyond this many groups costs too much memory (the
+# [lanes, G] operand): index_add_ past it
+TOPK_ONEHOT_MAX_G = 2048
+
+
+def event_topk_grid_packed(packed: dict, steps0: int, q: GridQuery, k: int,
+                           garr, num_groups: int,
+                           filt_packed: Optional[dict] = None,
+                           filt_op: str = "gt", filt_thresh: float = 0.0,
+                           filt_q: Optional[GridQuery] = None,
+                           filt_pos=None, row0: int = 0,
+                           largest: bool = True, group_width: int = 0):
+    """``topk(k, sum by (g)(fn(value_col[w])))`` with an optional scan
+    filter on a second column, over packed columnar residents.
+
+    - ``packed``: the value column's class planes (packed order).
+    - ``garr``: ``[packed_width]`` int lane -> group slot in PACKED order
+      (``num_groups`` drops a lane).  Or ``group_width`` (and ``garr``
+      None) when group g is the contiguous packed lanes ``[g*W, (g+1)*W)``:
+      the reduce is then a reshape-sum.  A ``garr`` reduces by a one-hot
+      f32 matmul up to :data:`TOPK_ONEHOT_MAX_G` groups and by
+      ``index_add_`` past it.
+    - ``filt_packed``/``filt_op``/``filt_thresh``: keep only lanes whose
+      filter-column window value (``filt_q``, default ``q``) satisfies
+      ``filt_op(v, thresh)`` (gt/ge/lt/le/eq/ne); ``filt_pos`` maps the
+      value pack's lane order into the filter pack's when the two
+      columns packed with different layouts.
+    - returns ``(vals [T, k], idx [T, k] int32)``: per step the top-k
+      group sums (``largest=False``: the smallest) and their group
+      slots, ties to the lower slot; exhausted ranks are NaN / -1.
+
+    The window ops run on :func:`rate_grid_packed` (its kernel on CUDA
+    tensors); the rest is plain torch on the planes' device."""
+    if filt_op not in _FILTER_OPS:
+        raise ValueError(f"unknown filter op {filt_op!r} "
+                         f"(have {sorted(_FILTER_OPS)})")
+    if group_width and garr is not None:
+        raise ValueError("pass garr OR group_width, not both")
+    if not 1 <= k <= num_groups:
+        raise ValueError(f"k={k} must be in [1, num_groups={num_groups}]")
+    stepped = rate_grid_packed(packed, steps0, q, row0=row0)   # [T, n]
+    if filt_packed is not None:
+        fstep = rate_grid_packed(filt_packed, steps0,
+                                 filt_q if filt_q is not None else q,
+                                 row0=row0)
+        if filt_pos is not None:
+            fstep = fstep[:, torch.as_tensor(filt_pos, device=fstep.device)
+                          .to(torch.int64)]
+        thresh = torch.tensor(filt_thresh, dtype=fstep.dtype,
+                              device=fstep.device)
+        keep = _FILTER_OPS[filt_op](fstep, thresh)
+        stepped = torch.where(keep, stepped, torch.full_like(stepped,
+                                                             float("nan")))
+    fin = torch.isfinite(stepped)
+    vz = torch.where(fin, stepped, torch.zeros_like(stepped))
+    finf = fin.to(stepped.dtype)
+    nsteps, n = stepped.shape
+    if group_width:
+        if n != num_groups * group_width:
+            raise ValueError(f"packed width {n} != num_groups {num_groups} "
+                             f"x group_width {group_width}")
+        sums = vz.reshape(nsteps, num_groups, group_width).sum(2).T
+        cnts = finf.reshape(nsteps, num_groups, group_width).sum(2).T
+    else:
+        g = torch.as_tensor(garr, device=stepped.device).to(torch.int64)
+        if num_groups + 1 <= TOPK_ONEHOT_MAX_G:
+            onehot = (g[:, None] == torch.arange(
+                num_groups, device=g.device)[None, :]).to(stepped.dtype)
+            sums = aggregate.f32_matmul(onehot.T, vz.T)       # [G, T]
+            cnts = aggregate.f32_matmul(onehot.T, finf.T)
+        else:
+            sums = aggregate.segment_sum(vz.T, g, num_groups + 1)[:num_groups]
+            cnts = aggregate.segment_sum(finf.T, g,
+                                         num_groups + 1)[:num_groups]
+    sentinel = float("-inf") if largest else float("inf")
+    ranked = torch.where(cnts > 0, sums,
+                         torch.full_like(sums, sentinel)).T   # [T, G]
+    if not largest:
+        ranked = -ranked
+    # a stable descending sort ranks ties to the lower slot, as
+    # jax.lax.top_k does (torch.topk promises no order on ties)
+    vals, idx = torch.sort(ranked, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    live = torch.isfinite(vals)
+    if not largest:
+        vals = -vals
+    return (torch.where(live, vals, torch.full_like(vals, float("nan"))),
+            torch.where(live, idx, -1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +1090,17 @@ def m4_grid(vals: torch.Tensor, pixels: int) -> torch.Tensor:
 m4_grid.launches = 0
 
 
+# every kernel wrapper, each counting its launches in ``.launches``
+KERNEL_WRAPPERS = (rate_grid, rate_grid_packed, rate_grid_grouped,
+                   rate_grid_grouped_packed, hist_grid_grouped_packed,
+                   m4_grid)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
 def reset_launch_counts() -> None:
-    rate_grid.launches = 0
-    rate_grid_packed.launches = 0
-    m4_grid.launches = 0
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

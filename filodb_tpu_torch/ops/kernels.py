@@ -1,5 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``csrc/grid_kernels.cu``:
-``rate_grid``, ``rate_grid_packed`` and ``m4_grid``).
+``rate_grid``, ``rate_grid_packed``, ``rate_grid_grouped``, the grouped
+packed kernel behind ``rate_grid_grouped_packed`` and
+``hist_grid_grouped_packed``, and ``m4_grid``).
 
 The source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into the
@@ -84,11 +86,20 @@ def library() -> ctypes.CDLL:
             #  stride, g, op, use_phase, dense, is_rate; stream)
             lib.rate_grid_packed_launch.argtypes = \
                 [ptr] * 3 + [i32] * 14 + [ptr]
+            # (vals, ts, phase, sum, cnt; nb, ns, group_lanes, T, K,
+            #  stride, g, steps0, op, mode, dense, is_rate; stream)
+            lib.rate_grid_grouped_launch.argtypes = \
+                [ptr] * 5 + [i32] * 12 + [ptr]
+            # (plane, meta, sum, cnt; kind, nb, n, group_lanes, hb, slot0,
+            #  row0, T, K, stride, g, op, use_phase, dense, is_rate; stream)
+            lib.grouped_packed_launch.argtypes = \
+                [ptr] * 4 + [i32] * 15 + [ptr]
             # (vals, out; T, S, P, W; stream)
             lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
-            lib.rate_grid_launch.restype = i32
-            lib.rate_grid_packed_launch.restype = i32
-            lib.m4_grid_launch.restype = i32
+            for fn in (lib.rate_grid_launch, lib.rate_grid_packed_launch,
+                       lib.rate_grid_grouped_launch,
+                       lib.grouped_packed_launch, lib.m4_grid_launch):
+                fn.restype = i32
             lib.grid_error_string.restype = ctypes.c_char_p
             lib.grid_error_string.argtypes = [i32]
             _lib = lib
