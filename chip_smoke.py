@@ -11,8 +11,12 @@ Phases, each timed on a line of its own:
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
    csrc/grid_kernels.cu``;
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
-   ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5), and
-   ``m4_grid`` at [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
+   ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
+   of the TPU kernels, each in every mode the TPU kernel serves it, at
+   strides 1 and 2 (``rate_grid_packed`` over the 14 ops that read no
+   timestamps), plus quantile at K=32 with phi 0.9, 0.5 and 1.5 and
+   irate at K=1024 over a 1,100-row plane; ``m4_grid`` at
+   [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
    zeros of both signs, all-NaN bins, an all-NaN series); then the
    grouped kernels at the mid shape: ``rate_grid_grouped`` in every
    op/mode (gappy lanes, strides 1 and 2, 512-lane groups, the last one
@@ -21,38 +25,46 @@ Phases, each timed on a line of its own:
    ``hist_grid_grouped_packed`` at hb = 4, 16, 20 (row0 0 and 3, a dead
    series, the free sum op); each held against its plain PyTorch version
    run on the same CUDA tensors (m4 bit for bit, grouped counts equal,
-   sums rtol 2e-5);
+   sums rtol 2e-5), and each grouped kernel refusing the second op set;
 4. main    — one shard of ``prom-counter`` data at high cardinality
    (``req_total``: 100 pods x 1,024 series, 260 one-minute samples,
    constant per-series phase, integer increments 0-9, a reset in 1% of
-   series; ``jit_total``: 8,192 series with +-30 s per-sample jitter),
-   ingested through ``ingest_container``, then four queries through
-   ``scan_grid``/``scan_grid_grouped``:
+   series; ``jit_total``: 8,192 series with +-30 s per-sample jitter and
+   5% missed scrapes), ingested through ``ingest_container``, then
+   queries through ``scan_grid``/``scan_grid_grouped``:
      Q1 sum by (pod)(rate(req_total[5m])), 1 h inside block 1 (fully
         covered, packed) -> packed kernel, phase mode;
      Q2 the same over a span crossing blocks 0-1 -> XOR decode + rate_grid
         kernel, phase mode;
      Q3 sum_over_time, max_over_time and the instant selector over
         req_total -> packed kernel, free mode;
-     Q4 sum by (pod)(rate(jit_total[5m])) -> rate_grid kernel, ts mode.
+     Q4 sum by (pod)(rate(jit_total[5m])) -> rate_grid kernel, ts mode;
+     Q5 the 13 functions of the second op set over Q1's span: the 8 that
+        read no timestamps -> packed kernel, irate, idelta, deriv,
+        predict_linear and timestamp -> rate_grid over the decoded planes
+        and the rebuilt uniform-phase ts plane;
+     Q6 stddev_over_time, deriv and timestamp over jit_total (gappy
+        lanes) -> rate_grid; the 7 dense-only functions answer None there.
    Launch counters show each query went through its kernel; each query's
    rows for the first 8 pods are held against a CPU store that ingests
-   only those pods; one warm run of each query is profiled
+   only those pods (rtol 1e-5; deriv, idelta and zscore, which cross 0,
+   of each series' largest answer); one warm run of Q1-Q4 is profiled
    (torch.profiler); each kernel is then held against its plain version
    on the inputs the main path gave it, and timed;
 5. engine  — the same store through the query engine's entry point
    (PromQL -> query_range_to_logical_plan -> SingleClusterPlanner ->
    ExecPlan.execute), launch counters reset just before and read just
-   after the four queries' first runs:
+   after the six queries' first runs:
      E1 sum by (pod)(rate(req_total[5m])) over Q1's span -> the packed
         kernel, equal bit for bit to the direct scan_grid_grouped answer;
      E2 rate(req_total[5m]) over all 260 steps with DownsampleMapper(32)
         -> rate_grid, then one m4_grid launch;
-     E3 sum by (pod)(irate(req_total[5m])) -> no grid kernel: the general
-        path (scan_batch, ops/windows, aggregators) on the card;
-     E4 stdvar by (pod)(rate(req_total[5m])) -> the packed kernel serves
-        the rate leaf, the general path's aggregator (the grid does not
-        reduce moments) reduces it;
+     E3 sum by (pod)(irate(req_total[5m])) -> rate_grid (the grid's
+        second op set), no general path;
+     E4 stdvar by (pod)(rate(req_total[5m])) -> the packed kernel, then
+        the fused "moments" group reduce on the card;
+     E5 quantile_over_time(0.9, req_total[5m]) -> the packed kernel;
+     E6 predict_linear(req_total[5m], 600) -> rate_grid;
    each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
    and selected positions equal), cold and warm wall ms; every result but
    E2's downsampled one, and every aggregation, on the card; then m4_grid
@@ -98,6 +110,7 @@ N_ROWS = 260
 POD_SERIES = 1024
 REQ_PODS = 100
 JIT_PODS = 8
+JIT_MISSED = 0.05               # jit_total's share of missed scrapes
 CHECK_PODS = 8
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -106,11 +119,11 @@ REPS = 20                       # timed repetitions (median)
 ENGINE_REPS = 5                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
-# E4's stdvar is sumsq/n - mean^2 over 1,024 f32 rates summed in no fixed
-# order (index_add_): the difference cancels ~12x here, and an f32 sum in
-# the worst order is off by up to 7e-5 of the variance
+# E4's stdvar is sumsq/n - mean^2 over 1,024 f32 rates summed on the card
+# in the one-hot matmul's order: the difference cancels ~12x here, and an
+# f32 sum in the worst order is off by up to 7e-5 of the variance
 RTOL_MOMENTS = 2e-4
-SELECTION = ("last", "min", "max", "count", "m4")
+SELECTION = ("last", "min", "max", "count", "m4", "changes", "resets")
 M4_T = 103                      # phase 3's M4 shape: T % P != 0
 M4_PIXELS = (10, 50)            # W = 11, and W = 3 with empty tail bins
 E2_PIXELS = 32                  # the engine's ?downsample= (W = 9)
@@ -148,9 +161,11 @@ def nvidia_smi() -> str:
 
 # ------------------------------------------------------------- comparison
 
-def compare(got, want, op: str, rtol: float) -> float:
-    """Raise unless ``got`` matches ``want``: the same NaN/finite mask,
-    selection ops bit-equal, the rest within ``rtol``.  Returns the
+def compare(got, want, op: str, rtol: float, series_dim=None) -> float:
+    """Raise unless ``got`` matches ``want``: the same NaN, +Inf and -Inf
+    cells, selection ops bit-equal, the rest within ``rtol`` of each
+    value, or with ``series_dim`` (the axis a series runs along) of the
+    largest value of its series, for answers that cross 0.  Returns the
     largest absolute difference over finite cells."""
     import torch
     if got.shape != want.shape:
@@ -162,17 +177,24 @@ def compare(got, want, op: str, rtol: float) -> float:
     if not torch.equal(torch.isfinite(g), fin):
         n = int((torch.isfinite(g) != fin).sum())
         raise AssertionError(f"{op}: finite masks differ in {n} cells")
-    if not torch.equal(torch.isnan(g), torch.isnan(w)):
-        raise AssertionError(f"{op}: NaN masks differ")
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(mask(g), mask(w)):
+            raise AssertionError(f"{op}: {mask.__name__} masks differ")
     if not fin.any():
-        raise AssertionError(f"{op}: no finite output to compare")
+        if torch.isnan(w).all():
+            raise AssertionError(f"{op}: no finite output to compare")
+        return 0.0                       # +-Inf everywhere, cells equal
     diff = (g[fin] - w[fin]).abs()
     err = float(diff.max())
+    scale = w.abs()
+    if series_dim is not None:
+        scale = torch.where(fin, scale, torch.zeros_like(scale)).amax(
+            dim=series_dim, keepdim=True).expand_as(w)
     if op in SELECTION:
         if err != 0.0:
             raise AssertionError(f"{op}: selection op differs by {err}")
-    elif not bool((diff <= rtol * w[fin].abs()).all()):
-        rel = float((diff / w[fin].abs().clamp_min(1e-30)).max())
+    elif not bool((diff <= rtol * scale[fin]).all()):
+        rel = float((diff / scale[fin].clamp_min(1e-30)).max())
         raise AssertionError(f"{op}: rel err {rel:.3e} > rtol {rtol}")
     return err
 
@@ -222,27 +244,62 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 
 def _ops_per_output(q) -> int:
     """Scalar ops per output cell: the extrapolation (~25 in ts mode),
-    the collapsed phase formula (~12), or K accumulations."""
+    the collapsed phase formula (~12), the instant pair (6), the
+    timestamp (3), K steps of a regression (10 each), of the moments (6
+    each), of Holt-Winters (10 each), the sorting network's
+    compare-exchanges (2 ops each; mad sorts twice), or K
+    accumulations."""
+    from filodb_tpu_torch.ops import grid
+    K = q.kbuckets
     if q.op in ("rate", "increase", "delta"):
         return 25
+    if q.op in ("irate", "idelta"):
+        return 6
+    if q.op == "timestamp":
+        return 3
+    if q.op in ("deriv", "predict_linear"):
+        return 10 * K + 15
+    if q.op in ("stddev", "stdvar", "zscore"):
+        return 6 * K + 10
+    if q.op == "holt_winters":
+        return 10 * K
+    if q.op in ("quantile", "mad"):
+        sorts = 2 if q.op == "mad" else 1
+        return sorts * 2 * len(grid.batcher_pairs(K)) + 2 * K + 4
     return 2 * q.kbuckets
+
+
+def _rows_read(q) -> tuple[int, int]:
+    """(value rows, ts rows) of the covered span that the windows read:
+    every row, but for the K-free dense ops (the instant pair reads each
+    window's last two rows, timestamp one value row and one ts row)."""
+    from filodb_tpu_torch.ops import grid
+    rows = grid._rows_needed(q)
+    if q.dense and q.op in ("irate", "idelta", "timestamp"):
+        last = {t * q.stride + q.kbuckets - 1 for t in range(q.nsteps)}
+        if q.op == "timestamp":
+            first = {t * q.stride for t in range(q.nsteps)}
+            return len(first), len(last)
+        pair = last | {r - 1 for r in last}
+        return len(pair), len(pair)
+    return rows, rows
 
 
 def grid_work(ts, vals, q, phase) -> tuple[int, int]:
     """(bytes, ops) one rate_grid call must move and do: the rows the
-    query's windows cover ((T-1)*stride + K), the ts plane's same rows or
+    query's windows read (:func:`_rows_read`), the ts plane's rows or
     the [S] phase row, and the [T, S] output."""
     from filodb_tpu_torch.ops import grid
     ns = vals.shape[1]
-    rows = grid._rows_needed(q)
-    nbytes = rows * ns * 4 + q.nsteps * ns * 4
+    vrows, trows = _rows_read(q)
+    nbytes = vrows * ns * 4 + q.nsteps * ns * 4
     mode = grid._mode_for(q, phase)
     if mode == "ts":
-        nbytes += rows * ns * 4
+        nbytes += trows * ns * 4
     elif mode == "phase":
         nbytes += ns * 4
     corr = 3 if q.op in ("rate", "increase") else 0
-    ops = rows * ns * corr + q.nsteps * ns * _ops_per_output(q)
+    ops = vrows * ns * corr + q.nsteps * ns * _ops_per_output(q)
     return nbytes, ops
 
 
@@ -348,6 +405,38 @@ def _to_p32(pk: dict) -> dict:
     return out
 
 
+# the rate_grid sweep's (mode, dense, op) cases: the first nine ops, then
+# the second op set in each mode the TPU kernel serves it
+FIRST_OPS_CASES = (
+    [("phase", True, o) for o in ("rate", "increase", "delta")]
+    + [("ts", d, o) for d in (True, False)
+       for o in ("rate", "increase", "delta")]
+    + [("free", d, o) for d in (True, False)
+       for o in ("sum", "count", "avg", "min", "max", "last")])
+TS_SECOND_OPS = ("irate", "idelta", "deriv", "predict_linear", "timestamp")
+FREE_SECOND_OPS = ("changes", "resets", "stddev", "stdvar", "zscore",
+                   "quantile", "mad", "holt_winters")
+MOMENT_OPS = ("stddev", "stdvar", "zscore")
+SECOND_OPS_CASES = (
+    [("ts", True, o) for o in TS_SECOND_OPS]
+    + [("ts", False, o) for o in ("deriv", "predict_linear", "timestamp")]
+    + [("free", True, o) for o in FREE_SECOND_OPS]
+    + [("free", False, o) for o in MOMENT_OPS])
+# the functions' scalar arguments in the sweeps (farg, farg2)
+FARGS = {"predict_linear": (600.0, 0.0), "quantile": (0.9, 0.0),
+         "holt_winters": (0.3, 0.6)}
+# answers that cross 0 are held to their series' largest answer
+CROSSING = ("deriv", "zscore", "idelta")
+
+
+def sweep_query(op, dense, stride, nsteps, k=K):
+    from filodb_tpu_torch.ops import grid
+    farg, farg2 = FARGS.get(op, (0.0, 0.0))
+    return grid.GridQuery(nsteps=nsteps, kbuckets=k, gstep_ms=STEP,
+                          is_rate=(op == "rate"), op=op, dense=dense,
+                          stride=stride, farg=farg, farg2=farg2)
+
+
 def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
     import numpy as np
     import torch
@@ -360,39 +449,54 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
     worst = 0.0
     rows = []
     planes = {g: _mid_planes(rng, B, S, g) for g in (False, True)}
-    for mode, dense, op in (
-            [("phase", True, o) for o in ("rate", "increase", "delta")]
-            + [("ts", d, o) for d in (True, False)
-               for o in ("rate", "increase", "delta")]
-            + [("free", d, o) for d in (True, False)
-               for o in ("sum", "count", "avg", "min", "max", "last")]):
+
+    def run_grid(name, ts, vals, q, ph=None):
+        nonlocal worst
+        steps0 = q.kbuckets * STEP
+        got = grid.rate_grid(ts, vals, steps0, q, phase=ph)
+        want = grid.rate_grid_ref(ts, vals, steps0, q, phase=ph)
+        torch.cuda.synchronize()
+        err = compare(got, want, q.op, RTOL_KERNEL,
+                      0 if q.op in CROSSING else None)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: grid.rate_grid(ts, vals, steps0, q, phase=ph),
+                     reps, flush)
+        pms = cuda_ms(lambda: grid.rate_grid_ref(ts, vals, steps0, q,
+                                                 phase=ph), reps, flush)
+        bms, by = bound_ms(*grid_work(ts, vals, q, ph))
+        log(f"{name}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms "
+            f"{bms:.4f} ({by}) max_abs_err {err:.3e} ok")
+        rows.append({"kernel": "rate_grid", "case": name, "op": q.op,
+                     "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "max_abs_err": err})
+
+    for mode, dense, op in FIRST_OPS_CASES + SECOND_OPS_CASES:
         ts_np, v_np, ph_np = planes[not dense]
         ts = torch.as_tensor(ts_np, device=device)
         vals = torch.as_tensor(v_np, device=device)
         ph = torch.as_tensor(ph_np, device=device) \
             if mode == "phase" else None
         for stride in (1, 2):
-            q = grid.GridQuery(nsteps=(B - K) // stride + 1, kbuckets=K,
-                               gstep_ms=STEP, is_rate=(op == "rate"),
-                               op=op, dense=dense, stride=stride)
-            steps0 = K * STEP
-            got = grid.rate_grid(ts, vals, steps0, q, phase=ph)
-            want = grid.rate_grid_ref(ts, vals, steps0, q, phase=ph)
-            torch.cuda.synchronize()
-            err = compare(got, want, op, RTOL_KERNEL)
-            worst = max(worst, err)
-            ms = cuda_ms(lambda: grid.rate_grid(ts, vals, steps0, q,
-                                                phase=ph), reps, flush)
-            pms = cuda_ms(lambda: grid.rate_grid_ref(ts, vals, steps0, q,
-                                                     phase=ph), reps, flush)
-            bms, by = bound_ms(*grid_work(ts, vals, q, ph))
-            name = (f"rate_grid {mode}-{'dense' if dense else 'gappy'}-"
-                    f"{op} stride={stride}")
-            log(f"{name}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms "
-                f"{bms:.4f} ({by}) max_abs_err {err:.3e} ok")
-            rows.append({"kernel": "rate_grid", "case": name, "ms": ms,
-                         "plain_ms": pms, "bound_ms": bms,
-                         "max_abs_err": err})
+            q = sweep_query(op, dense, stride, (B - K) // stride + 1)
+            run_grid(f"rate_grid {mode}-{'dense' if dense else 'gappy'}-"
+                     f"{op} stride={stride}", ts, vals, q, ph)
+    # the sort ops at their largest window, with phi inside and outside
+    # [0, 1]; the instant pair at the K-free cap over a tall plane
+    ts = torch.as_tensor(planes[False][0], device=device)
+    vals = torch.as_tensor(planes[False][1], device=device)
+    for phi in (0.9, 0.5, 1.5):
+        q = sweep_query("quantile", True, 1, B - grid.SORT_OPS_MAX_K + 1,
+                        k=grid.SORT_OPS_MAX_K)._replace(farg=phi)
+        run_grid(f"rate_grid free-dense-quantile K=32 phi={phi}", ts, vals,
+                 q)
+    tall = 1100
+    ts_np, v_np, _ph = _mid_planes(rng, tall, S, False)
+    ts = torch.as_tensor(ts_np, device=device)
+    vals = torch.as_tensor(v_np, device=device)
+    kmax = grid.MAX_DENSE_K
+    run_grid(f"rate_grid ts-dense-irate K={kmax}", ts, vals,
+             sweep_query("irate", True, 1, tall - kmax + 1, k=kmax))
+    del ts, vals
     # packed: counters with an empty tail (p16), constants (p8),
     # incompressible noise (raw, or p32 after _to_p32)
     v = planes[False][1].copy()
@@ -411,17 +515,18 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
                 [(True, True, o) for o in ("rate", "increase", "delta")]
                 + [(False, d, o) for d in (True, False)
                    for o in ("sum", "count", "avg", "min", "max",
-                             "last")]):
+                             "last")]
+                + [(False, True, o) for o in FREE_SECOND_OPS]
+                + [(False, False, o) for o in MOMENT_OPS]):
             row0 = 3
-            q = grid.GridQuery(nsteps=(B - row0 - K) // 2 + 1, kbuckets=K,
-                               gstep_ms=STEP, is_rate=(op == "rate"),
-                               op=op, dense=dense, stride=2)
+            q = sweep_query(op, dense, 2, (B - row0 - K) // 2 + 1)
             got = grid.rate_grid_packed(packed, 0, q, row0=row0,
                                         use_phase=use_phase)
             want = grid.rate_grid_packed_ref(packed, 0, q, row0=row0,
                                              use_phase=use_phase)
             torch.cuda.synchronize()
-            err = compare(got, want, op, RTOL_KERNEL)
+            err = compare(got, want, op, RTOL_KERNEL,
+                          0 if op in CROSSING else None)
             worst = max(worst, err)
             ms = cuda_ms(lambda: grid.rate_grid_packed(
                 packed, 0, q, row0=row0, use_phase=use_phase), reps, flush)
@@ -435,8 +540,8 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
                 f"{pms:.4f} bound_ms {bms:.4f} ({by}) max_abs_err "
                 f"{err:.3e} ok")
             rows.append({"kernel": "rate_grid_packed", "case": name,
-                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                         "max_abs_err": err})
+                         "op": op, "ms": ms, "plain_ms": pms,
+                         "bound_ms": bms, "max_abs_err": err})
     # m4_grid: gaps, constant runs (ties), tied zeros of both signs
     # (-0.0 first, then +0.0 first), all-NaN bins, an all-NaN series
     S = MID_SERIES + 37
@@ -598,6 +703,21 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
                 partial(grid.hist_grid_grouped_packed, *args),
                 partial(grid.hist_grid_grouped_packed_ref, *args),
                 grouped_packed_work(hpk, q, row0, use_phase, ngroups * hb))
+    # the grouped kernels keep the first nine ops and refuse the rest
+    for op in TS_SECOND_OPS + FREE_SECOND_OPS:
+        q = sweep_query(op, True, 1, B - K + 1)
+        for call in (partial(grid.rate_grid_grouped, None, vals, 0, q, GL),
+                     partial(grid.rate_grid_grouped_packed, pk, 0, q, GL,
+                             0, False),
+                     partial(grid.hist_grid_grouped_packed, hpk, 0, q, 4,
+                             64, 0, False)):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"a grouped kernel accepted op {op}")
+    log(f"grouped kernels refuse the second op set "
+        f"({len(TS_SECOND_OPS + FREE_SECOND_OPS)} ops)")
     report["grouped_sweep"] = rows
     return worst
 
@@ -636,14 +756,17 @@ def pod_containers(schema, metric: str, pod: int, seed: int,
     at = rng.integers(1, N_ROWS, POD_SERIES)
     for s in reset:
         vals[s, at[s]:] -= vals[s, at[s] - 1]
+    keep = np.ones((POD_SERIES, N_ROWS), bool)
     if jitter:
         ts = (T0 + rows[None, :] * STEP + 30_000
               + rng.integers(-29_999, 30_000, (POD_SERIES, N_ROWS)))
+        keep[:, 1:] = rng.random((POD_SERIES, N_ROWS - 1)) >= JIT_MISSED
     else:
         ts = T0 + rows[None, :] * STEP + phase[:, None]
     b = RecordBuilder(schema)
     for s in range(POD_SERIES):
-        b.add_series(ts[s], [vals[s].astype(np.float64)],
+        k = keep[s]
+        b.add_series(ts[s][k], [vals[s][k].astype(np.float64)],
                      {"__name__": metric, "pod": f"pod-{pod:03d}",
                       "instance": f"i-{s:04d}", "_ws_": "demo",
                       "_ns_": "app"})
@@ -683,26 +806,53 @@ def lookup(shard, metric: str):
     return res.part_ids, [gix[t["pod"]] for t in tags], pods, tags
 
 
+# the range functions of the grid's second op set: (function name,
+# function arguments, reads timestamps)
+SECOND_FUNCS = (
+    ("IRATE", (), True), ("IDELTA", (), True), ("DERIV", (), True),
+    ("PREDICT_LINEAR", (600.0,), True), ("TIMESTAMP", (), True),
+    ("CHANGES", (), False), ("RESETS", (), False),
+    ("STDDEV_OVER_TIME", (), False), ("STDVAR_OVER_TIME", (), False),
+    ("Z_SCORE", (), False), ("QUANTILE_OVER_TIME", (0.9,), False),
+    ("MAD_OVER_TIME", (), False), ("HOLT_WINTERS", (0.3, 0.6), False))
+DENSE_ONLY_FUNCS = ("IRATE", "IDELTA", "CHANGES", "RESETS",
+                    "QUANTILE_OVER_TIME", "MAD_OVER_TIME", "HOLT_WINTERS")
+PROFILED = ("Q1", "Q2", "Q3", "Q4")
+
+
 def queries():
+    """(name, metric, kind, function, span, kernel, function args)."""
     from filodb_tpu_torch.query.logical import RangeFunctionId as F
     # Q1: 1 h inside block 1 (buckets 140..203); Q2: buckets 96..144,
     # across blocks 0-1
     q1 = (T0 + 144 * STEP, 60)
     q2 = (T0 + 100 * STEP, 45)
-    return [
-        ("Q1", "req_total", "grouped", F.RATE, q1, "rate_grid_packed"),
-        ("Q2", "req_total", "grouped", F.RATE, q2, "rate_grid"),
+    out = [
+        ("Q1", "req_total", "grouped", F.RATE, q1, "rate_grid_packed", ()),
+        ("Q2", "req_total", "grouped", F.RATE, q2, "rate_grid", ()),
         ("Q3:sum_over_time", "req_total", "series", F.SUM_OVER_TIME, q1,
-         "rate_grid_packed"),
+         "rate_grid_packed", ()),
         ("Q3:max_over_time", "req_total", "series", F.MAX_OVER_TIME, q1,
-         "rate_grid_packed"),
+         "rate_grid_packed", ()),
         ("Q3:instant", "req_total", "series", None, q1,
-         "rate_grid_packed"),
-        ("Q4", "jit_total", "grouped", F.RATE, q2, "rate_grid"),
+         "rate_grid_packed", ()),
     ]
+    # Q5: the second op set over Q1's span (a packed block; the uniform-
+    # phase ts plane is rebuilt for the functions that read it).  It runs
+    # before Q4 gives jit_total's series lanes (and rebuilds the blocks).
+    for fname, fargs, reads_ts in SECOND_FUNCS:
+        out.append((f"Q5:{fname.lower()}", "req_total", "series",
+                    getattr(F, fname), q1,
+                    "rate_grid" if reads_ts else "rate_grid_packed", fargs))
+    out.append(("Q4", "jit_total", "grouped", F.RATE, q2, "rate_grid", ()))
+    # Q6: the functions that need no dense contract over gappy lanes
+    for fname in ("STDDEV_OVER_TIME", "DERIV", "TIMESTAMP"):
+        out.append((f"Q6:{fname.lower()}", "jit_total", "series",
+                    getattr(F, fname), q2, "rate_grid", ()))
+    return out
 
 
-def run_query(shard, kind, func, span, looked):
+def run_query(shard, kind, func, span, looked, fargs=(), served=True):
     """One query through the shard's grid seam; ``looked`` is the
     metric's :func:`lookup` (the part of planning that resolves series
     and groups, done once per metric)."""
@@ -710,11 +860,14 @@ def run_query(shard, kind, func, span, looked):
     steps0, nsteps = span
     if kind == "grouped":
         out = shard.scan_grid_grouped(ids, func, steps0, nsteps, STEP,
-                                      WINDOW, gids, len(pods), "sum")
+                                      WINDOW, gids, len(pods), "sum",
+                                      fargs=fargs)
     else:
-        out = shard.scan_grid(ids, func, steps0, nsteps, STEP, WINDOW)
-    if out is None:
-        raise AssertionError(f"{func}: the grid did not serve")
+        out = shard.scan_grid(ids, func, steps0, nsteps, STEP, WINDOW,
+                              fargs=fargs)
+    if (out is not None) != served:
+        raise AssertionError(f"{func}: the grid "
+                             f"{'did not serve' if served else 'served'}")
     return out
 
 
@@ -753,7 +906,8 @@ def check_query(name, kind, func, out, looked, ref_out, ref_looked,
     got = vals[torch.as_tensor([keep[i] for i in order], device=vals.device)]
     want = ref_out[1][torch.as_tensor(rorder)]
     from filodb_tpu_torch.memstore import devicestore
-    return compare(got, want, devicestore._GRID_OPS[func], RTOL_CPU)
+    op = devicestore._GRID_OPS[func]
+    return compare(got, want, op, RTOL_CPU, 1 if op in CROSSING else None)
 
 
 def profile_queries(shard, looked) -> None:
@@ -761,10 +915,12 @@ def profile_queries(shard, looked) -> None:
     time by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for name, metric, kind, func, span, _k in queries():
+    for name, metric, kind, func, span, _k, fargs in queries():
+        if name.split(":")[0] not in PROFILED:
+            continue
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run_query(shard, kind, func, span, looked[metric])
+            run_query(shard, kind, func, span, looked[metric], fargs)
             torch.cuda.synchronize()
         log(f"profile {name}:")
         log(prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -797,16 +953,17 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
 
     plans = {}
     qrows = []
+    qlaunch = {}
     with Phase("main.queries"):
         grid.reset_launch_counts()            # the main path's run
-        for name, metric, kind, func, span, kern in queries():
+        for name, metric, kind, func, span, kern, fargs in queries():
             before = (grid.rate_grid.launches,
                       grid.rate_grid_packed.launches)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             a.record()
-            out = run_query(shard, kind, func, span, looked[metric])
+            out = run_query(shard, kind, func, span, looked[metric], fargs)
             b.record()
             b.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
@@ -827,7 +984,7 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 raise AssertionError("Q2 read no packed block: the torch "
                                      "XOR decode did not run")
             ref = run_query(ref_shard, kind, func, span,
-                            ref_looked[metric])
+                            ref_looked[metric], fargs)
             err = check_query(name, kind, func, out, looked[metric], ref,
                               ref_looked[metric], span[1], device)
             log(f"{name}: first run (block builds included) wall_ms "
@@ -836,6 +993,7 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             qrows.append({"query": name, "kernel": kern,
                           "cold_wall_ms": wall, "cold_events_ms": dev_ms,
                           "launches": launched, "cpu_check_err": err})
+            qlaunch[name] = launched
         totals = {"rate_grid": grid.rate_grid.launches,
                   "rate_grid_packed": grid.rate_grid_packed.launches}
         for k, n in totals.items():
@@ -843,16 +1001,26 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 raise AssertionError(f"{k} never launched on the main "
                                      f"path")
         log(f"main path launches {totals}")
+    with Phase("main.dense_only_on_gappy_lanes"):
+        from filodb_tpu_torch.query.logical import RangeFunctionId as F
+        q2 = next(q for q in queries() if q[0] == "Q2")[4]
+        for fname, fargs, _ts in SECOND_FUNCS:
+            if fname in DENSE_ONLY_FUNCS:
+                for sh, lk in ((shard, looked), (ref_shard, ref_looked)):
+                    run_query(sh, "series", getattr(F, fname), q2,
+                              lk["jit_total"], fargs, served=False)
+        log(f"jit_total (gappy lanes): {len(DENSE_ONLY_FUNCS)} dense-only "
+            f"functions not served by either store")
     with Phase("main.warm_queries"):
-        for row, (name, metric, kind, func, span, _k) in zip(qrows,
-                                                             queries()):
+        for row, (name, metric, kind, func, span, _k, fargs) in zip(
+                qrows, queries()):
             walls, evs = [], []
             for _ in range(reps):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 t0 = time.perf_counter()
                 a.record()
-                run_query(shard, kind, func, span, looked[metric])
+                run_query(shard, kind, func, span, looked[metric], fargs)
                 b.record()
                 b.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
@@ -892,16 +1060,18 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             got = fn()
             want = ref()
             torch.cuda.synchronize()
-            err = compare(got, want, plan.q.op, RTOL_KERNEL)
+            err = compare(got, want, plan.q.op, RTOL_KERNEL,
+                          0 if plan.q.op in CROSSING else None)
             ms = cuda_ms(fn, reps, flush)
             pms = cuda_ms(ref, reps, flush)
             bms, by = bound_ms(*work)
             log(f"{name} {kname} {shape} op={plan.q.op} T={plan.q.nsteps}"
                 f": ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
                 f"({by}, {work[0]} bytes) max_abs_err {err:.3e} ok")
-            row = {"query": name, "ms": ms, "plain_ms": pms,
-                   "bound_ms": bms, "bound_by": by, "bytes": work[0],
-                   "max_abs_err": err}
+            row = {"query": name, "op": plan.q.op, "ms": ms,
+                   "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                   "bytes": work[0], "max_abs_err": err,
+                   "launches": qlaunch[name][kname]}
             kern_rows.setdefault(kname, []).append(row)
     report["kernels_at_path_shapes"] = kern_rows
     return {"launches": totals, "rows": kern_rows,
@@ -921,9 +1091,13 @@ def engine_queries():
         ("E1", "sum by (pod)(rate(req_total[5m]))", q1, None,
          "rate_grid_packed"),
         ("E2", "rate(req_total[5m])", full, E2_PIXELS, "rate_grid"),
-        ("E3", "sum by (pod)(irate(req_total[5m]))", q1, None, None),
+        ("E3", "sum by (pod)(irate(req_total[5m]))", q1, None,
+         "rate_grid"),
         ("E4", "stdvar by (pod)(rate(req_total[5m]))", q1, None,
          "rate_grid_packed"),
+        ("E5", "quantile_over_time(0.9, req_total[5m])", q1, None,
+         "rate_grid_packed"),
+        ("E6", "predict_linear(req_total[5m], 600)", q1, None, "rate_grid"),
     ]
 
 
@@ -983,6 +1157,28 @@ def check_engine(name, rows, ref_rows, pixels, rtol) -> float:
                    rtol)
 
 
+class GroupReduces:
+    """Records the op of every on-device group reduce of the grid
+    (``devicestore._grouped_reduce_impl``) while it is entered."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.memstore import devicestore
+        self.ops = []
+        self._orig = orig = devicestore._grouped_reduce_impl
+
+        def reduce(stepped, garr, num_groups, op):
+            self.ops.append(op)
+            return orig(stepped, garr, num_groups, op)
+
+        devicestore._grouped_reduce_impl = reduce
+        return self
+
+    def __exit__(self, *exc):
+        from filodb_tpu_torch.memstore import devicestore
+        devicestore._grouped_reduce_impl = self._orig
+        return False
+
+
 class AggregatorDevices:
     """Records the device of every aggregator's input values, partial
     state and presented values while it is entered: where a query's
@@ -1035,7 +1231,7 @@ def warm_engine(ms, query: str, span, pixels, reps: int):
 
 
 def engine_phase(device, stores, reps: int, report: dict) -> dict:
-    """E1-E4 through parse -> plan -> execute on the main-path store,
+    """E1-E6 through parse -> plan -> execute on the main-path store,
     each held against the CPU store's engine answer; E1 also against the
     direct scan_grid_grouped answer, bit for bit."""
     import numpy as np
@@ -1053,18 +1249,18 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
     grid.reset_launch_counts()              # the engine path's run
     for _name, query, span, pixels, _kern in engine_queries():
         before = counts()
-        with AggregatorDevices() as agg_devices:
+        with AggregatorDevices() as agg_devices, GroupReduces() as reduces:
             res, host, cold = run_engine(ms, query, span, pixels)
         cold_runs.append((res, engine_rows(res, host), cold,
                           {k: v - before[k] for k, v in counts().items()},
-                          agg_devices.seen))
+                          agg_devices.seen, reduces.ops))
     totals = counts()
     log(f"engine path launches {totals}")
 
     rows_out = []
     for (name, query, span, pixels, kern), \
-            (res, rows, cold, launched, agg_seen) in zip(engine_queries(),
-                                                         cold_runs):
+            (res, rows, cold, launched, agg_seen, reduce_ops) in zip(
+                engine_queries(), cold_runs):
         want = {k: 0 for k in kernels}
         if kern is not None:
             want[kern] = launched[kern]
@@ -1076,6 +1272,9 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
         if launched != want:
             raise AssertionError(f"{name}: launches {launched}, expected "
                                  f"{want}")
+        if query.startswith("stdvar") and reduce_ops != ["moments"]:
+            raise AssertionError(f"{name}: group reduces {reduce_ops}, "
+                                 f"expected the fused moments reduce")
         # every result but the downsampled one (a host array after the
         # host selection) stays on the card, and so does the aggregation
         where = {getattr(b.values, "device", "host") for b in res.batches}
@@ -1110,13 +1309,15 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
         log(f"{name} {query!r} steps={span[1]}"
             f"{f' downsample={pixels}' if pixels else ''}: {len(rows)} "
             f"series, result on {where}, aggregation on "
-            f"{sorted(str(d) for d in agg_seen) or 'none'}, launches "
-            f"{launched}, cold wall_ms "
+            f"{sorted(str(d) for d in agg_seen) or 'none'}, device group "
+            f"reduces {reduce_ops or 'none'}, launches {launched}, cold "
+            f"wall_ms "
             f"{cold:.3f} (stages {res.stats.timings}), warm wall_ms (median "
             f"of {reps}) {warm:.3f} (stage ms {stages}), cpu-store check "
             f"ok (max_abs_err {err:.3e})")
         row = {"query": name, "promql": query, "steps": span[1],
-               "pixels": pixels, "launches": launched, "cold_wall_ms": cold,
+               "pixels": pixels, "launches": launched,
+               "group_reduces": reduce_ops, "cold_wall_ms": cold,
                "cold_stage_seconds": res.stats.timings, "warm_wall_ms": warm,
                "warm_stage_ms": stages, "cpu_check_err": err}
         if pixels:

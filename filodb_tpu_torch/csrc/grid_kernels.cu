@@ -6,7 +6,10 @@
 // (filodb_tpu/ops/grid.py:848-898, bodies _series_kernel,
 // _series_kernel_free, _series_kernel_phase).  rate_grid_packed_kernel
 // replaces rate_grid_packed (filodb_tpu/ops/grid.py:1086-1127, body
-// _series_kernel_packed with the in-VMEM decode _decode_packed).
+// _series_kernel_packed with the in-VMEM decode _decode_packed).  Both
+// compute all 22 ops of the TPU kernels' window dispatch (_rate_block,
+// :734-766): the nine of lane_windows below, and the thirteen of
+// lane_windows_ext (rate_grid_ext_kernel, rate_grid_packed_ext_kernel).
 //
 // What bounds them on the card: bytes.  Each reads its input planes once
 // and writes a [T, lanes] f32 output, a handful of flops per sample, so
@@ -17,6 +20,10 @@
 //   rate_grid_packed:       (row0+R)*n*word bytes per class plane (the XOR
 //                           prefix starts at block row 0) + 2*n*4 meta
 //                           (3*n*4 in phase mode) + T*n*4 bytes
+// The K-free dense ops read fewer rows: irate and idelta each window's
+// last two (value and ts), timestamp one value row and one ts row.  Only
+// the sort ops at K = 32 (a sorting network of 191 compare-exchanges)
+// are bound by operations.
 //
 // Design.  The TPU kernels turn the per-lane sequential parts (counter-
 // correction prefix, forward fill, prefix-XOR decode) into log-step roll
@@ -81,14 +88,21 @@
 namespace {
 
 enum Op { SUM = 0, COUNT = 1, AVG = 2, MIN = 3, MAX = 4, LAST = 5,
-          RATE = 6, INCREASE = 7, DELTA = 8 };
+          RATE = 6, INCREASE = 7, DELTA = 8, IRATE = 9, IDELTA = 10,
+          CHANGES = 11, RESETS = 12, STDDEV = 13, STDVAR = 14, ZSCORE = 15,
+          DERIV = 16, PREDICT_LINEAR = 17, TIMESTAMP = 18, QUANTILE = 19,
+          MAD = 20, HOLT_WINTERS = 21 };
 enum Mode { FREE = 0, PHASE = 1, TS = 2 };
 
 constexpr int kBlock = 128;
 constexpr int kIBig = 1 << 30;
+constexpr int kSortMaxK = 32;      // quantile/mad window cap (SORT_OPS_MAX_K)
 
 struct Params {
   int T, K, stride, g, steps0, op, dense, is_rate;
+  float farg, farg2;   // predict_linear's horizon; holt_winters' factors
+  int rank_lo, rank_hi;        // quantile/mad interpolation ranks
+  float w_lo, w_hi, fill;      // their weights; rank_lo < 0: fill
 };
 
 // One lane of a decoded f32 plane, read row by row.
@@ -162,12 +176,16 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : (b > a ? b : a);
 }
 
+// Window t's end, epoch-relative int32 ms (wrapping as int32 does).
+__device__ __forceinline__ int window_end(int t, const Params& P) {
+  return static_cast<int>(static_cast<unsigned>(P.steps0)
+      + static_cast<unsigned>(t) * static_cast<unsigned>(P.g * P.stride));
+}
+
 // Prometheus extrapolatedRate (RateFunctions.scala:37-80) for window t.
 __device__ float extrapolate(float nf, int t1, int t2, float v1, float v2,
                              int t, const Params& P) {
-  unsigned hi_u = static_cast<unsigned>(P.steps0)
-      + static_cast<unsigned>(t) * static_cast<unsigned>(P.g * P.stride);
-  float hi = static_cast<float>(static_cast<int>(hi_u));
+  float hi = static_cast<float>(window_end(t, P));
   float window = static_cast<float>(P.K * P.g);
   float lo = hi - window;
   float t1f = static_cast<float>(t1);
@@ -462,6 +480,217 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
   }
 }
 
+// The second op set: the window functions beyond the nine above, each
+// family its own instantiation of lane_windows_ext, so that the nine ops'
+// code (lane_windows, shared with the grouped kernels) compiles as it did
+// and no family's registers or sort array weigh on another's.  Each
+// repeats its plain version in filodb_tpu_torch/ops/grid.py op for op.
+//   F_PAIR    irate, idelta (ts, dense): the window's last two rows.
+//   F_LINREG  deriv, predict_linear (ts): least squares over the window.
+//   F_STAMP   timestamp (ts): the last finite row's ts before window end.
+//   F_CHANGES changes, resets (free, dense): consecutive-row pairs.
+//   F_MOMENTS stddev, stdvar, zscore (free): window moments.
+// The moments and the regression's y are taken relative to the window's
+// first finite value: a counter near 1e6 moving a few a step then keeps
+// its f32 answer within a few ulps (the TPU kernel's lane-wide centre
+// loses 1e-4 of a variance there, and 1e-3 of a zscore or a slope).
+//   F_SORT    quantile, mad (free, dense, K <= 32): a sorted window.
+//   F_HOLT    holt_winters (free, dense): double exponential smoothing.
+enum Family { F_BASE = 0, F_PAIR, F_LINREG, F_STAMP, F_CHANGES, F_MOMENTS,
+              F_SORT, F_HOLT };
+
+inline int family_of(int op) {
+  switch (op) {
+    case IRATE: case IDELTA: return F_PAIR;
+    case DERIV: case PREDICT_LINEAR: return F_LINREG;
+    case TIMESTAMP: return F_STAMP;
+    case CHANGES: case RESETS: return F_CHANGES;
+    case STDDEV: case STDVAR: case ZSCORE: return F_MOMENTS;
+    case QUANTILE: case MAD: return F_SORT;
+    case HOLT_WINTERS: return F_HOLT;
+    default: return F_BASE;
+  }
+}
+
+inline bool reads_ts(int fam) {
+  return fam == F_PAIR || fam == F_LINREG || fam == F_STAMP;
+}
+
+// Insertion sort of s[0..K): any correct sort gives the plain version's
+// sorting network's values.
+__device__ void sort_window(float* s, int K) {
+  for (int i = 1; i < K; ++i) {
+    const float v = s[i];
+    int j = i - 1;
+    while (j >= 0 && s[j] > v) {
+      s[j + 1] = s[j];
+      --j;
+    }
+    s[j + 1] = v;
+  }
+}
+
+// Linear interpolation at the host's fixed ranks (grid.py
+// _interp_weights).
+__device__ __forceinline__ float interp_sorted(const float* s,
+                                               const Params& P) {
+  if (P.rank_lo < 0) return P.fill;
+  if (P.rank_lo == P.rank_hi) return s[P.rank_lo];
+  return s[P.rank_lo] * P.w_lo + s[P.rank_hi] * P.w_hi;
+}
+
+template <int Fam, class Src, class Sink>
+__device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
+                                 const Params& P, Sink& sink) {
+  const int K = P.K;
+  Cursor<Src> a(src), b(src);
+  for (int t = 0; t < P.T; ++t) {
+    const int base = t * P.stride;
+    float o = NAN;
+    if constexpr (Fam == F_PAIR) {
+      if (K >= 2) {
+        a.advance_to(base + K - 1, false, false);   // row base+K-2
+        b.advance_to(base + K, false, false);       // row base+K-1
+        const float v1 = a.raw, v2 = b.raw;
+        const int t1 = ts[(base + K - 2) * ts_ld];
+        const int t2 = ts[(base + K - 1) * ts_ld];
+        float delta = v2 - v1;
+        if (P.op == IRATE && v2 < v1) delta = v2;   // adjacent-pair reset
+        const float dts = static_cast<float>(t2 - t1) / 1000.0f;
+        if (isfinite(v2) && dts > 0.f)
+          o = (P.op == IDELTA) ? delta : delta / dts;
+      }
+    } else if constexpr (Fam == F_STAMP) {
+      const unsigned hi = static_cast<unsigned>(window_end(t, P));
+      int sel = kIBig;
+      if (P.dense) {
+        a.advance_to(base + 1, false, false);       // liveness: row base
+        if (isfinite(a.raw)) sel = ts[(base + K - 1) * ts_ld];
+      } else {
+        a.advance_to(base, false, false);
+        Cursor<Src> c = a;
+        for (int d = 0; d < K; ++d) {                // last finite wins
+          c.step(false, false);
+          if (isfinite(c.raw)) sel = ts[(base + d) * ts_ld];
+        }
+      }
+      if (sel != kIBig)
+        o = static_cast<float>(static_cast<int>(
+                static_cast<unsigned>(sel) - hi)) / 1000.0f;
+    } else if constexpr (Fam == F_LINREG) {
+      const float hi = static_cast<float>(window_end(t, P));
+      const float shift = static_cast<float>(
+          static_cast<double>(K * P.g) / 1000.0 / 2.0);
+      a.advance_to(base, false, false);
+      Cursor<Src> c = a;
+      float n = 0.f, sx = 0.f, sy = 0.f, sxx = 0.f, sxy = 0.f, y0 = NAN;
+      for (int d = 0; d < K; ++d) {
+        c.step(false, false);
+        if (!isfinite(c.raw)) continue;
+        if (n == 0.f) y0 = c.raw;           // y from the first finite value
+        const float x = (static_cast<float>(ts[(base + d) * ts_ld]) - hi)
+            / 1000.0f + shift;
+        const float y = c.raw - y0;
+        n = n + 1.f;
+        sx = sx + x;
+        sy = sy + y;
+        sxx = sxx + x * x;
+        sxy = sxy + x * y;
+      }
+      const float nsafe = fmaxf(n, 1.f);
+      const float cov = sxy - sx * sy / nsafe;
+      const float var = sxx - sx * sx / nsafe;
+      const float slope = cov / (var == 0.f ? 1.f : var);
+      if (n >= 2.f && var > 0.f) {
+        if (P.op == DERIV) {
+          o = slope;
+        } else {
+          const float intercept = sy / nsafe - slope * (sx / nsafe - shift);
+          o = (intercept + slope * P.farg) + y0;
+        }
+      }
+    } else if constexpr (Fam == F_CHANGES) {
+      a.advance_to(base, false, false);
+      Cursor<Src> c = a;
+      c.step(false, false);
+      float prev = c.raw;
+      const bool live = isfinite(prev);
+      float cnt = 0.f;
+      for (int d = 1; d < K; ++d) {
+        c.step(false, false);
+        const float cur = c.raw;
+        const bool hit = (P.op == CHANGES) ? (cur != prev) : (cur < prev);
+        cnt = cnt + (hit ? 1.f : 0.f);
+        prev = cur;
+      }
+      if (live) o = cnt;
+    } else if constexpr (Fam == F_MOMENTS) {
+      a.advance_to(base, false, false);
+      Cursor<Src> c = a;
+      float s1 = 0.f, s2 = 0.f, n = 0.f, c0 = NAN, lastv = NAN;
+      for (int d = 0; d < K; ++d) {
+        c.step(false, false);
+        const float v = c.raw;
+        if (!isfinite(v)) continue;
+        if (n == 0.f) c0 = v;               // x from the first finite value
+        const float xd = v - c0;
+        s1 = s1 + xd;
+        s2 = s2 + xd * xd;
+        n = n + 1.f;
+        lastv = v;
+      }
+      const float nsafe = fmaxf(n, 1.f);
+      const float mean_x = s1 / nsafe;
+      const float var = max_nan(s2 / nsafe - mean_x * mean_x, 0.f);
+      if (P.op == ZSCORE) {
+        const float sd = sqrtf(var);
+        const float z = ((lastv - c0) - mean_x) / (sd == 0.f ? 1.f : sd);
+        if (n >= 2.f && sd > 0.f) o = z;
+      } else if (n > 0.f) {
+        o = (P.op == STDDEV) ? sqrtf(var) : var;
+      }
+    } else if constexpr (Fam == F_SORT) {
+      a.advance_to(base, false, false);
+      Cursor<Src> c = a;
+      float s[kSortMaxK];
+      for (int d = 0; d < K; ++d) {
+        c.step(false, false);
+        s[d] = c.raw;
+      }
+      const bool live = isfinite(s[0]);
+      sort_window(s, K);
+      float q = interp_sorted(s, P);
+      if (P.op == MAD) {                  // the median of |x - median|
+        for (int d = 0; d < K; ++d) s[d] = fabsf(s[d] - q);
+        sort_window(s, K);
+        q = interp_sorted(s, P);
+      }
+      if (live) o = q;
+    } else if constexpr (Fam == F_HOLT) {
+      if (K >= 2) {
+        a.advance_to(base, false, false);
+        Cursor<Src> c = a;
+        c.step(false, false);
+        float lvl = c.raw;
+        const bool live = isfinite(lvl);
+        const float sf = P.farg, tf = P.farg2;
+        const float osf = 1.f - sf, otf = 1.f - tf;
+        float trend = 0.f;
+        for (int i = 1; i < K; ++i) {
+          c.step(false, false);
+          const float y = c.raw;
+          const float b_eff = (i == 1) ? y - lvl : trend;
+          const float xn = sf * y + osf * (lvl + b_eff);
+          trend = tf * (xn - lvl) + otf * b_eff;
+          lvl = xn;
+        }
+        if (live) o = lvl;
+      }
+    }
+    sink(t, o, isfinite(o));
+  }
+}
+
 __global__ void rate_grid_kernel(const float* __restrict__ vals,
                                  const int* __restrict__ ts,
                                  const int* __restrict__ phase,
@@ -473,6 +702,18 @@ __global__ void rate_grid_kernel(const float* __restrict__ vals,
   const float ph = (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
   StoreSink sink{out + lane, ns};
   lane_windows(src, ts ? ts + lane : nullptr, ns, ph, mode, P, sink);
+}
+
+template <int Fam>
+__global__ void rate_grid_ext_kernel(const float* __restrict__ vals,
+                                     const int* __restrict__ ts,
+                                     float* __restrict__ out, int ns,
+                                     Params P) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= ns) return;
+  DenseSrc src{vals + lane, ns};
+  StoreSink sink{out + lane, ns};
+  lane_windows_ext<Fam>(src, ts ? ts + lane : nullptr, ns, P, sink);
 }
 
 // One lane of a packed plane, positioned at the query's first row: the
@@ -499,6 +740,52 @@ __global__ void rate_grid_packed_kernel(const W* __restrict__ plane,
       (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
   StoreSink sink{out + lane, out_ld};
   lane_windows(src, nullptr, 0, ph, mode, P, sink);
+}
+
+template <typename W, int Fam>
+__global__ void rate_grid_packed_ext_kernel(const W* __restrict__ plane,
+                                            const int* __restrict__ meta,
+                                            float* __restrict__ out, int n,
+                                            int out_ld, int row0, Params P) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
+  StoreSink sink{out + lane, out_ld};
+  lane_windows_ext<Fam>(src, nullptr, 0, P, sink);
+}
+
+// One class plane through the packed kernel of the op's family (the
+// free families only: a packed plane has no ts).
+template <typename W>
+cudaError_t packed_run(const W* plane, const int* meta, float* out, int n,
+                       int out_ld, int row0, const Params& P, int mode,
+                       cudaStream_t s) {
+  const int grid = (n + kBlock - 1) / kBlock;
+  switch (family_of(P.op)) {
+    case F_BASE:
+      rate_grid_packed_kernel<W><<<grid, kBlock, 0, s>>>(
+          plane, meta, out, n, out_ld, row0, P, mode);
+      break;
+    case F_CHANGES:
+      rate_grid_packed_ext_kernel<W, F_CHANGES><<<grid, kBlock, 0, s>>>(
+          plane, meta, out, n, out_ld, row0, P);
+      break;
+    case F_MOMENTS:
+      rate_grid_packed_ext_kernel<W, F_MOMENTS><<<grid, kBlock, 0, s>>>(
+          plane, meta, out, n, out_ld, row0, P);
+      break;
+    case F_SORT:
+      rate_grid_packed_ext_kernel<W, F_SORT><<<grid, kBlock, 0, s>>>(
+          plane, meta, out, n, out_ld, row0, P);
+      break;
+    case F_HOLT:
+      rate_grid_packed_ext_kernel<W, F_HOLT><<<grid, kBlock, 0, s>>>(
+          plane, meta, out, n, out_ld, row0, P);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // One CTA per group of group_lanes contiguous lanes of vals [nb, ns]; the
@@ -689,16 +976,64 @@ const char* grid_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
 
+// Function arguments of the second op set: predict_linear's horizon
+// (farg), holt_winters' factors (farg, farg2), and quantile/mad's
+// interpolation ranks, weights and out-of-range fill.
+#define FN_ARGS float farg, float farg2, int rank_lo, int rank_hi, \
+    float w_lo, float w_hi, float fill
+
+static bool args_ok(int op, int K) {
+  return op >= SUM && op <= HOLT_WINTERS
+      && (family_of(op) != F_SORT || (K >= 1 && K <= kSortMaxK));
+}
+
 int rate_grid_launch(const void* vals, const void* ts, const void* phase,
                      void* out, int nb, int ns, int T, int K, int stride,
                      int g, int steps0, int op, int mode, int dense,
-                     int is_rate, void* stream) {
+                     int is_rate, FN_ARGS, void* stream) {
+  if (!args_ok(op, K)) return static_cast<int>(cudaErrorInvalidValue);
   (void)nb;
-  Params P{T, K, stride, g, steps0, op, dense, is_rate};
+  Params P{T, K, stride, g, steps0, op, dense, is_rate, farg, farg2,
+           rank_lo, rank_hi, w_lo, w_hi, fill};
   const int grid = (ns + kBlock - 1) / kBlock;
-  rate_grid_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vals), static_cast<const int*>(ts),
-      static_cast<const int*>(phase), static_cast<float*>(out), ns, P, mode);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vals);
+  const int* t = static_cast<const int*>(ts);
+  float* o = static_cast<float*>(out);
+  const int fam = family_of(op);
+  if (reads_ts(fam) && t == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (fam) {
+    case F_BASE:
+      rate_grid_kernel<<<grid, kBlock, 0, s>>>(
+          v, t, static_cast<const int*>(phase), o, ns, P, mode);
+      break;
+    case F_PAIR:
+      rate_grid_ext_kernel<F_PAIR><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      break;
+    case F_LINREG:
+      rate_grid_ext_kernel<F_LINREG><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      break;
+    case F_STAMP:
+      rate_grid_ext_kernel<F_STAMP><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      break;
+    case F_CHANGES:
+      rate_grid_ext_kernel<F_CHANGES><<<grid, kBlock, 0, s>>>(v, t, o, ns,
+                                                              P);
+      break;
+    case F_MOMENTS:
+      rate_grid_ext_kernel<F_MOMENTS><<<grid, kBlock, 0, s>>>(v, t, o, ns,
+                                                              P);
+      break;
+    case F_SORT:
+      rate_grid_ext_kernel<F_SORT><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      break;
+    case F_HOLT:
+      rate_grid_ext_kernel<F_HOLT><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -706,34 +1041,35 @@ int rate_grid_packed_launch(const void* plane, const void* meta, void* out,
                             int kind, int nb, int n, int out_ld, int col,
                             int row0, int T, int K, int stride, int g,
                             int op, int use_phase, int dense, int is_rate,
-                            void* stream) {
+                            FN_ARGS, void* stream) {
   (void)nb;
-  Params P{T, K, stride, g, 0, op, dense, is_rate};
+  if (!args_ok(op, K) || reads_ts(family_of(op)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P{T, K, stride, g, 0, op, dense, is_rate, farg, farg2, rank_lo,
+           rank_hi, w_lo, w_hi, fill};
   const int mode = use_phase ? PHASE : FREE;
-  const int grid = (n + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* m = static_cast<const int*>(meta);
   float* o = static_cast<float*>(out) + col;
+  cudaError_t rc;
   switch (kind) {
     case 0:
-      rate_grid_packed_kernel<uint8_t><<<grid, kBlock, 0, s>>>(
-          static_cast<const uint8_t*>(plane), m, o, n, out_ld, row0, P, mode);
+      rc = packed_run(static_cast<const uint8_t*>(plane), m, o, n, out_ld,
+                      row0, P, mode, s);
       break;
     case 1:
-      rate_grid_packed_kernel<uint16_t><<<grid, kBlock, 0, s>>>(
-          static_cast<const uint16_t*>(plane), m, o, n, out_ld, row0, P,
-          mode);
+      rc = packed_run(static_cast<const uint16_t*>(plane), m, o, n, out_ld,
+                      row0, P, mode, s);
       break;
     case 2:
     case 3:
-      rate_grid_packed_kernel<uint32_t><<<grid, kBlock, 0, s>>>(
-          static_cast<const uint32_t*>(plane), m, o, n, out_ld, row0, P,
-          mode);
+      rc = packed_run(static_cast<const uint32_t*>(plane), m, o, n, out_ld,
+                      row0, P, mode, s);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      rc = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc);
 }
 
 // sum and cnt: [ns / group_lanes, T] f32.
@@ -743,6 +1079,7 @@ int rate_grid_grouped_launch(const void* vals, const void* ts,
                              int stride, int g, int steps0, int op, int mode,
                              int dense, int is_rate, void* stream) {
   (void)nb;
+  if (op < SUM || op > DELTA) return static_cast<int>(cudaErrorInvalidValue);
   Params P{T, K, stride, g, steps0, op, dense, is_rate};
   const GroupShape gs = group_shape(group_lanes, 1, T);
   const cudaError_t rc = allow_shared(rate_grid_grouped_kernel, gs.shared);
@@ -764,6 +1101,7 @@ int grouped_packed_launch(const void* plane, const void* meta, void* sum,
                           int use_phase, int dense, int is_rate,
                           void* stream) {
   (void)nb;
+  if (op < SUM || op > DELTA) return static_cast<int>(cudaErrorInvalidValue);
   Params P{T, K, stride, g, 0, op, dense, is_rate};
   const int mode = use_phase ? PHASE : FREE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

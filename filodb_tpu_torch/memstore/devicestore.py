@@ -59,20 +59,39 @@ BLOCK_BUCKETS = 128
 _LANE_PAD = 128
 _I32_SPAN = 2**31 - 2
 
-# range functions the grid serves here, mapped to the kernel op
+# range functions the grid serves, mapped to the kernel op
 # (ops/grid.py GridQuery.op); None = the bare instant selector's
 # staleness lookback (last sample in the window).  Every other range
 # function gets None from scan_rate / scan_rate_grouped.
 _GRID_OPS = {
-    F.RATE: "rate", F.INCREASE: "increase", F.DELTA: "delta",
+    F.RATE: "rate", F.INCREASE: "increase",
     F.SUM_OVER_TIME: "sum", F.COUNT_OVER_TIME: "count",
     F.AVG_OVER_TIME: "avg", F.MIN_OVER_TIME: "min",
     F.MAX_OVER_TIME: "max", F.LAST_OVER_TIME: "last",
+    F.STDDEV_OVER_TIME: "stddev", F.STDVAR_OVER_TIME: "stdvar",
+    F.CHANGES: "changes", F.RESETS: "resets",
+    F.IRATE: "irate", F.IDELTA: "idelta",
+    F.DERIV: "deriv", F.PREDICT_LINEAR: "predict_linear",
+    F.Z_SCORE: "zscore",
+    F.QUANTILE_OVER_TIME: "quantile", F.MAD_OVER_TIME: "mad",
+    F.DELTA: "delta", F.TIMESTAMP: "timestamp",
+    F.HOLT_WINTERS: "holt_winters",
     None: "last",
 }
 
-# cross-series aggregates the grouped programs reduce on the device
-GROUPED_OPS = frozenset(("sum", "avg", "count", "min", "max"))
+# timestamp() comes out of the kernel as seconds relative to each
+# window's end; scan_rate re-bases it to absolute seconds in f64, and the
+# grouped reduce does not take it (a sum of absolute timestamps would
+# need a count-scaled re-base)
+_REBASE_OPS = {"timestamp"}
+
+# grid ops taking scalar function arguments: op -> arity
+# (GridQuery.farg / farg2)
+_ARG_OPS = {"predict_linear": 1, "quantile": 1, "holt_winters": 2}
+
+# cross-series aggregates the grouped programs reduce on the device;
+# "moments" is stddev/stdvar's (sum, count, sum of squares)
+GROUPED_OPS = frozenset(("sum", "avg", "count", "min", "max", "moments"))
 
 _ONEHOT_MAX_G = 2048  # one-hot matmul reduce beyond this costs too much memory
 
@@ -132,9 +151,12 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
     beyond ``_ONEHOT_MAX_G`` an index_add."""
     v = stepped.T                                # [lanes, T]
     G = num_groups
-    if op in ("sum", "avg", "count"):
+    if op in ("sum", "avg", "count", "moments"):
         fin = torch.isfinite(v)
-        planes = [torch.where(fin, v, torch.zeros_like(v)), fin.to(v.dtype)]
+        vz = torch.where(fin, v, torch.zeros_like(v))
+        planes = [vz, fin.to(v.dtype)]
+        if op == "moments":                      # stddev/stdvar partials
+            planes.append(vz * vz)
         if G + 1 <= _ONEHOT_MAX_G:
             onehot = (garr[:, None] == torch.arange(
                 G, dtype=garr.dtype, device=garr.device)[None, :]
@@ -379,12 +401,15 @@ class DeviceGridCache:
         """Serve a _GRID_OPS window function on the query step grid from
         device-resident blocks.  Returns ``(vals [S_req, T], None)`` with
         ``vals`` a tensor on the store's device (nothing is read back), or
-        None when the fast path cannot serve the query."""
-        if func not in _GRID_OPS or fargs:
+        None when the fast path cannot serve the query.  ``timestamp``
+        comes back as absolute seconds in f64."""
+        if func not in _GRID_OPS:
             return None
+        if len(fargs) != _ARG_OPS.get(_GRID_OPS[func], 0):
+            return None        # unexpected / missing function argument
         with self._lock:
             plan = self._plan_locked(part_ids, func, steps0, nsteps,
-                                     step_ms, window_ms)
+                                     step_ms, window_ms, fargs)
         if plan is None:
             return None
         # dispatch + readback outside the lock: the plan holds live
@@ -399,13 +424,17 @@ class DeviceGridCache:
         """Fused ``agg by (g)(<grid window fn>(...))``: the kernel's
         ``[T, lanes]`` output is reduced to ``[G, T]`` on the device.
         Returns the mergeable partial state ({"sum","count"} /
-        {"count"} / {"min"} / {"max"}) as ``[G, T]`` tensors on the
-        store's device, or None."""
-        if func not in _GRID_OPS or fargs or op not in GROUPED_OPS:
+        {"count"} / {"min"} / {"max"} / {"sum","count","sumsq"}) as
+        ``[G, T]`` tensors on the store's device, or None."""
+        if func not in _GRID_OPS or op not in GROUPED_OPS:
             return None
+        if _GRID_OPS[func] in _REBASE_OPS:
+            return None        # re-based ops skip the fused reduce
+        if len(fargs) != _ARG_OPS.get(_GRID_OPS[func], 0):
+            return None        # unexpected / missing function argument
         with self._lock:
             plan = self._plan_locked(part_ids, func, steps0, nsteps,
-                                     step_ms, window_ms)
+                                     step_ms, window_ms, fargs)
             if plan is None:
                 return None
             garr = np.full(plan.ncols, num_groups, dtype=np.int32)
@@ -428,6 +457,8 @@ class DeviceGridCache:
             return {"count": both[1]}
         if op in ("sum", "avg"):
             return {"sum": both[0], "count": both[1]}
+        if op == "moments":
+            return {"sum": both[0], "count": both[1], "sumsq": both[2]}
         return {op: both}
 
     def _dispatch_series(self, plan: _GridPlan) -> torch.Tensor:
@@ -441,7 +472,22 @@ class DeviceGridCache:
         # time-major [T, S_req] selection
         idx = torch.as_tensor(lanes_req, dtype=torch.int64,
                               device=stepped.device)
-        return stepped.index_select(1, idx).T
+        out = stepped.index_select(1, idx).T
+        if plan.q.op in _REBASE_OPS:
+            # absolute window-end seconds, re-based in f64 on the
+            # requested lanes only (the kernel emits window-relative
+            # seconds so that f32 stays exact)
+            q = plan.q
+            steps = torch.arange(q.nsteps, dtype=torch.int64,
+                                 device=out.device)
+            abs_ms = self.epoch0 + plan.steps0_rel \
+                + steps * (q.gstep_ms * q.stride)
+            out = out.to(torch.float64)
+            abs_s = abs_ms.to(torch.float64) / torch.tensor(
+                1000.0, dtype=torch.float64, device=out.device)
+            out = out + torch.where(torch.isfinite(out), abs_s[None, :],
+                                    torch.zeros_like(out))
+        return out
 
     def _prep_for(self, part_ids, fp=None):
         """Memoized resolution of one lookup result: validate every pid
@@ -481,7 +527,7 @@ class DeviceGridCache:
         return prep
 
     def _plan_locked(self, part_ids, func, steps0, nsteps, step_ms,
-                     window_ms):
+                     window_ms, fargs=()):
         """Eligibility checks, block assembly and the dense-contract and
         uniform-phase proofs.  Returns a :class:`_GridPlan` (no device
         dispatch happens here) or None."""
@@ -513,7 +559,7 @@ class DeviceGridCache:
         if self._bigk_deny.get(deny_key) == \
                 (self.version, shard.ingest_epoch):
             return None
-        pkey = (func, steps0, nsteps, step_ms, window_ms, ids_fp,
+        pkey = (func, steps0, nsteps, step_ms, window_ms, fargs, ids_fp,
                 self.version, shard.ingest_epoch, shard.removal_epoch)
         cached = self._plan_memo.get(pkey)
         if cached is not None:
@@ -609,7 +655,9 @@ class DeviceGridCache:
             self.dense_hits += 1
         q = GridQuery(nsteps=nsteps, kbuckets=K, gstep_ms=g,
                       is_rate=(func == F.RATE), op=op, dense=dense,
-                      stride=stride_r)
+                      stride=stride_r,
+                      farg=float(fargs[0]) if fargs else 0.0,
+                      farg2=float(fargs[1]) if len(fargs) > 1 else 0.0)
         phase_dev = None
         if ph_ok and phase_eligible(q):
             phase_dev = self._phase_device(ph_req, req, ncols,

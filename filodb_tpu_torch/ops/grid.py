@@ -46,6 +46,7 @@ Layout contract (enforced by the caller / device store):
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -63,12 +64,21 @@ class GridQuery(NamedTuple):
                                        increase with counter correction)
       "sum" / "count" / "avg" / "min" / "max" — the *_over_time family
       "last"  — last_over_time and the instant selector's lookback
+      "stddev" / "stdvar" / "zscore" — window moments
+      "changes" / "resets" — consecutive-row pair counts (dense only)
+      "irate" / "idelta" — the window's last two samples (dense only)
+      "deriv" / "predict_linear" — least-squares slope / forecast
+      "timestamp" — the last sample's time, seconds before window end
+      "quantile" / "mad" — order statistics (dense only, K <= 32)
+      "holt_winters" — double exponential smoothing (dense only)
 
     ``dense`` asserts the dense-lane contract: over the used rows every
     lane is finite in ALL rows or in NONE.  The caller must prove it;
     setting it on data that breaks it gives wrong results, not an error.
     ``stride``: query step = stride * gstep, window t covers rows
-    ``[t*stride, t*stride + K - 1]``.
+    ``[t*stride, t*stride + K - 1]``.  ``farg`` / ``farg2``: the
+    function's scalar arguments (predict_linear's horizon in seconds,
+    quantile's phi, holt_winters' smoothing and trend factors).
     """
 
     nsteps: int       # T output steps
@@ -95,9 +105,12 @@ K_FREE_DENSE_OPS = frozenset(("rate", "increase", "last", "count",
 DENSE_ONLY_OPS = frozenset(("changes", "resets", "irate", "idelta",
                             "quantile", "mad", "holt_winters"))
 
-# the ops this package's kernels compute
-SERVED_OPS = frozenset(("rate", "increase", "delta", "sum", "count",
-                        "avg", "min", "max", "last"))
+# the ops of rate_grid and rate_grid_packed (every op of the TPU kernels)
+SERVED_OPS = TS_FREE_OPS | PHASE_OPS | frozenset(
+    ("irate", "idelta", "deriv", "predict_linear", "timestamp"))
+# the ops of the grouped kernels (rate_grid_grouped & co)
+GROUPED_KERNEL_OPS = frozenset(("rate", "increase", "delta", "sum",
+                                "count", "avg", "min", "max", "last"))
 
 MAX_K_BUCKETS = 64       # K cap of the ops that walk every window row
 MAX_DENSE_K = 1024       # K cap of the K-free ops under the dense contract
@@ -283,15 +296,269 @@ def _phase_block(phase_row, vals, q: GridQuery):
     return torch.where(live_row, out, torch.full_like(out, float("nan")))
 
 
+def _dense_required(q: GridQuery) -> None:
+    if not q.dense:
+        raise ValueError(f"grid op {q.op} requires the dense contract")
+
+
+def _nan_tile(vals, q: GridQuery) -> torch.Tensor:
+    return torch.full((q.nsteps, vals.shape[1]), float("nan"),
+                      dtype=vals.dtype, device=vals.device)
+
+
+def _instant_pair_block(ts, vals, q: GridQuery):
+    """irate/idelta under the dense contract: the window's last two
+    samples are its last two rows (reference: IRateFunction).  The
+    counter correction between adjacent samples collapses to the pair:
+    on a reset the increase is ``v2``."""
+    _dense_required(q)
+    K = q.kbuckets
+    if K < 2:
+        return _nan_tile(vals, q)
+    v2, v1 = _win(vals, K - 1, q), _win(vals, K - 2, q)
+    t2, t1 = _win(ts, K - 1, q), _win(ts, K - 2, q)
+    live = torch.isfinite(v2)
+    delta = v2 - v1
+    if q.op == "irate":
+        delta = torch.where(v2 < v1, v2, delta)
+    dt_s = (t2 - t1).to(vals.dtype) / _scalar(1000.0, vals)
+    ok = live & (dt_s > 0)
+    out = delta if q.op == "idelta" else delta / dt_s
+    return torch.where(ok, out, _scalar(float("nan"), vals))
+
+
+def _changes_block(vals, q: GridQuery):
+    """changes/resets under the dense contract: the consecutive-row
+    pairs inside the window (reference: changes_over_time /
+    resets_over_time)."""
+    live = torch.isfinite(_win(vals, 0, q))
+    c = torch.zeros_like(_win(vals, 0, q))
+    prev = _win(vals, 0, q)
+    for d in range(1, q.kbuckets):
+        cur = _win(vals, d, q)
+        hit = (cur != prev) if q.op == "changes" else (cur < prev)
+        c = c + hit.to(vals.dtype)
+        prev = cur
+    return torch.where(live, c, _scalar(float("nan"), vals))
+
+
+def _window_first(vals, fin, q: GridQuery):
+    """Each window's first finite value ``[T, L]`` (NaN where none)."""
+    c = _nan_tile(vals, q)
+    for d in range(q.kbuckets - 1, -1, -1):  # reverse: first finite wins
+        c = torch.where(_win(fin, d, q), _win(vals, d, q), c)
+    return c
+
+
+def _masked_moments(vals, fin, q: GridQuery):
+    """Per-window ``(n, c, mean_x, var)`` of the finite values, each
+    taken relative to the window's first finite value ``c``.  The
+    anchor keeps ``s2/n - mean^2`` from cancelling where a lane sits far
+    from 0 (a counter near 1e6 moving by a few a step): the f32 answer
+    stays within a few ulps of the variance, where a lane-wide centre
+    leaves 1e-4 of it and more."""
+    c = _window_first(vals, fin, q)
+    zero = torch.zeros_like(c)
+    s1, s2, n = zero, zero, zero
+    for d in range(q.kbuckets):
+        fd = _win(fin, d, q)
+        xd = torch.where(fd, _win(vals, d, q) - c, zero)
+        s1 = s1 + xd
+        s2 = s2 + xd * xd
+        n = n + fd.to(vals.dtype)
+    nsafe = torch.clamp(n, min=1.0)
+    mean_x = s1 / nsafe
+    var = torch.clamp(s2 / nsafe - mean_x * mean_x, min=0.0)
+    return n, c, mean_x, var
+
+
+def _zscore_block(vals, q: GridQuery):
+    """(last - mean) / stddev over the window (reference ZScoreChunked),
+    NaN where n < 2 or the deviation is 0."""
+    fin = torch.isfinite(vals)
+    n, c, mean_x, var = _masked_moments(vals, fin, q)
+    sd = torch.sqrt(var)
+    lastv = _nan_tile(vals, q)
+    for d in range(q.kbuckets):
+        lastv = torch.where(_win(fin, d, q), _win(vals, d, q), lastv)
+    out = ((lastv - c) - mean_x) / torch.where(sd == 0, _scalar(1.0, vals),
+                                                sd)
+    return torch.where((n >= 2) & (sd > 0), out,
+                       _scalar(float("nan"), vals))
+
+
+def _window_end(steps0: int, q: GridQuery, like) -> torch.Tensor:
+    """Each window's end, epoch-relative int32 ms ``[T, 1]``."""
+    tcol = torch.arange(q.nsteps, dtype=torch.int32, device=like.device)
+    return (tcol * (q.gstep_ms * q.stride) + steps0)[:, None]
+
+
+def _linreg_block(ts, vals, steps0: int, q: GridQuery):
+    """Least-squares slope (deriv) or forecast ``farg`` seconds past the
+    window end (predict_linear) over each window (reference: Prometheus
+    linearRegression, intercept at the window end).  x is seconds
+    relative to the window end, shifted by +W/2, and y relative to the
+    window's first finite value, so that the f32 sums do not cancel
+    (the slope is shift-invariant in both)."""
+    dt = vals.dtype
+    fin = torch.isfinite(vals)
+    c = _window_first(vals, fin, q)
+    hi = _window_end(steps0, q, vals).to(dt)
+    shift = _scalar(q.kbuckets * q.gstep_ms / 1000.0 / 2.0, vals)
+    ms_per_s = _scalar(1000.0, vals)
+    zero = _scalar(0.0, vals)
+    shape = (q.nsteps, vals.shape[1])
+    n, sx, sy, sxx, sxy = (torch.zeros(shape, dtype=dt, device=vals.device)
+                           for _ in range(5))
+    for d in range(q.kbuckets):
+        fd = _win(fin, d, q)
+        x = (_win(ts, d, q).to(dt) - hi) / ms_per_s + shift
+        x = torch.where(fd, x, zero)
+        y = torch.where(fd, _win(vals, d, q) - c, zero)
+        n = n + fd.to(dt)
+        sx = sx + x
+        sy = sy + y
+        sxx = sxx + x * x
+        sxy = sxy + x * y
+    nsafe = torch.clamp(n, min=1.0)
+    cov = sxy - sx * sy / nsafe
+    var = sxx - sx * sx / nsafe
+    slope = cov / torch.where(var == 0, _scalar(1.0, vals), var)
+    ok = (n >= 2) & (var > 0)
+    nan = _scalar(float("nan"), vals)
+    if q.op == "deriv":
+        return torch.where(ok, slope, nan)
+    intercept = sy / nsafe - slope * (sx / nsafe - shift)
+    out = (intercept + slope * _scalar(q.farg, vals)) + c
+    return torch.where(ok, out, nan)
+
+
+def _timestamp_block(ts, vals, steps0: int, q: GridQuery):
+    """timestamp() as seconds RELATIVE to each window's end: the
+    magnitudes stay within the window span, exact in f32.  The store
+    re-bases them to absolute seconds in f64."""
+    hi = _window_end(steps0, q, vals)
+    ms_per_s = _scalar(1000.0, vals)
+    nan = _scalar(float("nan"), vals)
+    if q.dense:
+        live = torch.isfinite(_win(vals, 0, q))
+        rel = _win(ts, q.kbuckets - 1, q) - hi
+        return torch.where(live, rel.to(vals.dtype) / ms_per_s, nan)
+    fin = torch.isfinite(vals)
+    sel = torch.full((q.nsteps, vals.shape[1]), _IBIG, dtype=ts.dtype,
+                     device=ts.device)
+    for d in range(q.kbuckets):            # forward: last finite wins
+        sel = torch.where(_win(fin, d, q), _win(ts, d, q), sel)
+    return torch.where(sel != _IBIG, (sel - hi).to(vals.dtype) / ms_per_s,
+                       nan)
+
+
+def batcher_pairs(K: int) -> list:
+    """Batcher odd-even mergesort compare-exchange pairs for K inputs: a
+    sorting network fixed by K."""
+    pairs = []
+    p = 1
+    while p < K:
+        k = p
+        while k >= 1:
+            for j in range(k % p, K - k, 2 * k):
+                for i in range(0, min(k, K - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
+
+
+def _sort_tiles(tiles: list) -> list:
+    out = list(tiles)
+    for a, b in batcher_pairs(len(out)):
+        out[a], out[b] = (torch.minimum(out[a], out[b]),
+                          torch.maximum(out[a], out[b]))
+    return out
+
+
+def _interp_weights(phi: float, K: int) -> tuple:
+    """Linear interpolation at quantile ``phi`` of K sorted values:
+    ``(lo, hi, w_lo, w_hi, fill)``.  ``lo < 0`` means the answer is
+    ``fill`` for every live lane: NaN for a NaN phi, +Inf above 1, -Inf
+    below 0, as Prometheus answers (reference
+    QuantileOverTimeFunction).  The weights are computed in double and
+    rounded once to the values' type by the caller."""
+    if math.isnan(phi):
+        return -1, -1, 0.0, 0.0, float("nan")
+    if phi > 1.0:
+        return -1, -1, 0.0, 0.0, float("inf")
+    if phi < 0.0:
+        return -1, -1, 0.0, 0.0, float("-inf")
+    r = phi * (K - 1)
+    lo, hi = int(math.floor(r)), int(math.ceil(r))
+    frac = r - lo
+    return lo, hi, 1.0 - frac, frac, 0.0
+
+
+def _interp_rank(sorted_tiles: list, phi: float):
+    lo, hi, w_lo, w_hi, fill = _interp_weights(phi, len(sorted_tiles))
+    s = sorted_tiles
+    if lo < 0:
+        return torch.full_like(s[0], fill)
+    if lo == hi:
+        return s[lo]
+    return s[lo] * _scalar(w_lo, s[0]) + s[hi] * _scalar(w_hi, s[0])
+
+
+def _sort_ops_block(vals, q: GridQuery):
+    """quantile_over_time / mad_over_time under the dense contract:
+    the K window rows through a sorting network, then interpolation at
+    fixed ranks (reference: QuantileOverTimeChunkedFunction /
+    MedianAbsoluteDeviationOverTime)."""
+    _dense_required(q)
+    tiles = [_win(vals, d, q) for d in range(q.kbuckets)]
+    live = torch.isfinite(tiles[0])
+    s = _sort_tiles(tiles)
+    if q.op == "quantile":
+        out = _interp_rank(s, q.farg)
+    else:                                     # mad
+        med = _interp_rank(s, 0.5)
+        out = _interp_rank(_sort_tiles([torch.abs(t - med) for t in tiles]),
+                           0.5)
+    return torch.where(live, out, _scalar(float("nan"), vals))
+
+
+def _holt_winters_block(vals, q: GridQuery):
+    """Double exponential smoothing under the dense contract: the level
+    starts at the window's first row and the trend at its first pair,
+    then K-1 steps of the recurrence (reference HoltWintersFunction)."""
+    _dense_required(q)
+    if q.kbuckets < 2:
+        return _nan_tile(vals, q)
+    sf = _scalar(q.farg, vals)
+    tf = _scalar(q.farg2, vals)
+    one = _scalar(1.0, vals)
+    s = _win(vals, 0, q)
+    live = torch.isfinite(s)
+    b = torch.zeros_like(s)
+    for i in range(1, q.kbuckets):
+        y = _win(vals, i, q)
+        b_eff = (y - s) if i == 1 else b
+        xn = sf * y + (one - sf) * (s + b_eff)
+        b = tf * (xn - s) + (one - tf) * b_eff
+        s = xn
+    return torch.where(live, s, _scalar(float("nan"), vals))
+
+
 def _agg_block(vals, q: GridQuery):
     """The *_over_time family on the aligned grid (reference:
-    AggrOverTimeFunctions.scala sum/count/avg/min/max/last)."""
+    AggrOverTimeFunctions.scala sum/count/avg/min/max/last,
+    stddev/stdvar, changes/resets)."""
     K = q.kbuckets
     dt = vals.dtype
     nan = float("nan")
-    if q.dense:
+    if q.dense and q.op not in ("stddev", "stdvar"):
         if q.op == "last":
             return _win(vals, K - 1, q)
+        if q.op in ("changes", "resets"):
+            return _changes_block(vals, q)
         live = torch.isfinite(_win(vals, 0, q))
         if q.op == "count":
             return torch.where(live, _scalar(K, vals), _scalar(nan, vals))
@@ -307,6 +574,8 @@ def _agg_block(vals, q: GridQuery):
         if q.op == "avg":
             acc = acc / _scalar(K, vals)
         return torch.where(live, acc, _scalar(nan, vals))
+    if q.op in DENSE_ONLY_OPS:
+        _dense_required(q)
     fin = torch.isfinite(vals)
     shape = (q.nsteps, vals.shape[1])
     if q.op == "last":
@@ -314,6 +583,10 @@ def _agg_block(vals, q: GridQuery):
         for d in range(K):                  # forward: last finite wins
             v2 = torch.where(_win(fin, d, q), _win(vals, d, q), v2)
         return v2
+    if q.op in ("stddev", "stdvar"):
+        n, _c, _mean_x, var = _masked_moments(vals, fin, q)
+        var = torch.where(n > 0, var, _scalar(nan, vals))
+        return torch.sqrt(var) if q.op == "stddev" else var
     c = torch.zeros(shape, dtype=dt, device=vals.device)
     if q.op in ("sum", "avg", "count"):
         acc = torch.zeros(shape, dtype=dt, device=vals.device)
@@ -341,10 +614,21 @@ def _agg_block(vals, q: GridQuery):
     return torch.where(c > 0, acc, _scalar(nan, vals))
 
 
-def _check_op(q: GridQuery) -> None:
-    if q.op not in SERVED_OPS:
-        raise ValueError(f"grid op {q.op!r} is not served by this package "
-                         f"(have {sorted(SERVED_OPS)})")
+def _check_op(q: GridQuery, ops=SERVED_OPS) -> None:
+    if q.op not in ops:
+        raise ValueError(f"grid op {q.op!r} is not served by this kernel "
+                         f"(have {sorted(ops)})")
+
+
+def _free_block(vals, q: GridQuery):
+    """The TS_FREE ops: values only."""
+    if q.op in ("quantile", "mad"):
+        return _sort_ops_block(vals, q)
+    if q.op == "holt_winters":
+        return _holt_winters_block(vals, q)
+    if q.op == "zscore":
+        return _zscore_block(vals, q)
+    return _agg_block(vals, q)
 
 
 def rate_grid_ref(ts, vals, steps0: int, q: GridQuery, phase=None):
@@ -355,8 +639,14 @@ def rate_grid_ref(ts, vals, steps0: int, q: GridQuery, phase=None):
     if _phase_mode(q, phase):
         ph = torch.as_tensor(phase).reshape(1, -1)
         return _phase_block(ph, vals, q)
+    if q.op in ("irate", "idelta"):
+        return _instant_pair_block(ts, vals, q)
+    if q.op == "timestamp":
+        return _timestamp_block(ts, vals, int(steps0), q)
+    if q.op in ("deriv", "predict_linear"):
+        return _linreg_block(ts, vals, int(steps0), q)
     if q.op in TS_FREE_OPS:
-        return _agg_block(vals, q)
+        return _free_block(vals, q)
     if q.op == "delta":
         vcorr = vals
     else:
@@ -467,7 +757,7 @@ def _packed_plane_outputs(packed: dict, q: GridQuery, row0: int,
         if use_phase:
             yield _phase_block(m[2:3], vals, q), torch.isfinite(vals[0:1])
         else:
-            out = _agg_block(vals, q)
+            out = _free_block(vals, q)
             yield out, torch.isfinite(out)
 
 
@@ -513,7 +803,7 @@ def _group_reduce(out: torch.Tensor, ok: torch.Tensor, group_lanes: int,
 
 
 def _grouped_check(vals, q: GridQuery, group_lanes: int) -> None:
-    _check_op(q)
+    _check_op(q, GROUPED_KERNEL_OPS)
     nb, ns = vals.shape
     if group_lanes < 1 or ns == 0 or ns % group_lanes != 0:
         raise ValueError(f"series count {ns} must be a non-zero multiple of "
@@ -539,6 +829,7 @@ def _grouped_packed_check(packed: dict, q: GridQuery, row0: int,
                           use_phase: bool, group_lanes: int,
                           hb: int = 1) -> list:
     """The group-aligned pack contract; returns the class planes."""
+    _check_op(q, GROUPED_KERNEL_OPS)
     if hb < 1 or group_lanes < 1 or group_lanes % hb != 0:
         raise ValueError(f"group_lanes {group_lanes} not a multiple of the "
                          f"bucket count {hb}")
@@ -600,7 +891,10 @@ def hist_grid_grouped_packed_ref(packed: dict, steps0: int, q: GridQuery,
 # ---------------------------------------------------------------------------
 
 _OP_CODE = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 4, "last": 5,
-            "rate": 6, "increase": 7, "delta": 8}
+            "rate": 6, "increase": 7, "delta": 8, "irate": 9, "idelta": 10,
+            "changes": 11, "resets": 12, "stddev": 13, "stdvar": 14,
+            "zscore": 15, "deriv": 16, "predict_linear": 17,
+            "timestamp": 18, "quantile": 19, "mad": 20, "holt_winters": 21}
 _MODE_CODE = {"free": 0, "phase": 1, "ts": 2}
 
 
@@ -621,6 +915,27 @@ def _int32_args(*vals: int) -> list:
         if not -2**31 <= int(v) < 2**31:
             raise ValueError(f"kernel argument {v} overflows int32")
     return [ctypes.c_int(int(v)) for v in vals]
+
+
+def _fn_args(q: GridQuery) -> list:
+    """The second op set's arguments for the kernel: farg, farg2 (f32, as
+    the plain versions round them), then quantile/mad's interpolation
+    ranks, weights and fill (:func:`_interp_weights`; mad's median is at
+    phi 0.5).  Ops that need the dense contract or a short window are
+    refused here, as the plain versions refuse them."""
+    if q.op in DENSE_ONLY_OPS:
+        _dense_required(q)
+    rank = (-1, -1, 0.0, 0.0, 0.0)
+    if q.op in ("quantile", "mad"):
+        if not 1 <= q.kbuckets <= SORT_OPS_MAX_K:
+            raise ValueError(f"{q.op} takes 1 to {SORT_OPS_MAX_K} buckets "
+                             f"a window, not {q.kbuckets}")
+        rank = _interp_weights(q.farg if q.op == "quantile" else 0.5,
+                               q.kbuckets)
+    lo, hi, w_lo, w_hi, fill = rank
+    return [ctypes.c_float(q.farg), ctypes.c_float(q.farg2), ctypes.c_int(lo),
+            ctypes.c_int(hi), ctypes.c_float(w_lo), ctypes.c_float(w_hi),
+            ctypes.c_float(fill)]
 
 
 def _launch_check(rc: int, name: str) -> None:
@@ -684,6 +999,7 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
     if vals.device.type == "cpu":
         return rate_grid_ref(ts, vals, steps0, q, phase=phase)
     _check_op(q)
+    fn_args = _fn_args(q)
     dev = _cuda_device(vals, "rate_grid")
     nb, ns = vals.shape
     if nb < _rows_needed(q):
@@ -701,7 +1017,7 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
             *_int32_args(nb, ns, q.nsteps, q.kbuckets, q.stride,
                          q.gstep_ms, steps0, _OP_CODE[q.op],
                          _MODE_CODE[mode], q.dense, q.is_rate),
-            _stream())
+            *fn_args, _stream())
     rate_grid.launches += 1
     _launch_check(rc, "rate_grid")
     return out
@@ -726,6 +1042,7 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
         return rate_grid_packed_ref(packed, steps0, q, row0, use_phase)
     dev = _cuda_device(planes[0][0], "rate_grid_packed")
     _packed_check(packed, q, row0, use_phase)
+    fn_args = _fn_args(q)
     width = packed_width(packed)
     out = torch.empty((q.nsteps, width), dtype=torch.float32, device=dev)
     lib = kernels.library()
@@ -739,7 +1056,7 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
                 *_int32_args(kind, nb, n, width, col, row0, q.nsteps,
                              q.kbuckets, q.stride, q.gstep_ms,
                              _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
-                _stream())
+                *fn_args, _stream())
         rate_grid_packed.launches += 1
         _launch_check(rc, "rate_grid_packed")
         col += n

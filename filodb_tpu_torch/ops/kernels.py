@@ -78,14 +78,19 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(_compile())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            # the function arguments: (farg, farg2, rank_lo, rank_hi,
+            #  w_lo, w_hi, fill)
+            fn_args = [f32, f32, i32, i32, f32, f32, f32]
             # (vals, ts, phase, out; nb, ns, T, K, stride, g, steps0, op,
-            #  mode, dense, is_rate; stream)
-            lib.rate_grid_launch.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
+            #  mode, dense, is_rate; function arguments; stream)
+            lib.rate_grid_launch.argtypes = \
+                [ptr] * 4 + [i32] * 11 + fn_args + [ptr]
             # (plane, meta, out; kind, nb, n, out_ld, col, row0, T, K,
-            #  stride, g, op, use_phase, dense, is_rate; stream)
+            #  stride, g, op, use_phase, dense, is_rate; function
+            #  arguments; stream)
             lib.rate_grid_packed_launch.argtypes = \
-                [ptr] * 3 + [i32] * 14 + [ptr]
+                [ptr] * 3 + [i32] * 14 + fn_args + [ptr]
             # (vals, ts, phase, sum, cnt; nb, ns, group_lanes, T, K,
             #  stride, g, steps0, op, mode, dense, is_rate; stream)
             lib.rate_grid_grouped_launch.argtypes = \

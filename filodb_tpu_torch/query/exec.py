@@ -49,9 +49,8 @@ _ACTIVE = threading.local()
 
 # aggregate operator -> the grouped op the device grid reduces it with;
 # the JAX package derives the same table from its mesh
-# (filodb_tpu/parallel/meshgrid.py GRID_MESH_OPS).  The port's grid
-# answers None for "moments" (stddev/stdvar), and the general path serves
-# them.
+# (filodb_tpu/parallel/meshgrid.py GRID_MESH_OPS): stddev/stdvar reduce
+# the (sum, count, sum of squares) "moments" planes on the device.
 GRID_AGG_OPS = {Agg.SUM: "sum", Agg.COUNT: "count", Agg.AVG: "avg",
                 Agg.MIN: "min", Agg.MAX: "max", Agg.GROUP: "count",
                 Agg.STDDEV: "moments", Agg.STDVAR: "moments"}

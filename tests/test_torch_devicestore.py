@@ -5,10 +5,11 @@ The same RecordContainer bytes, built once with the JAX package's
 ``RecordBuilder``, are ingested into a ``filodb_tpu`` memstore and into a
 ``filodb_tpu_torch`` memstore (``device="cpu"``; see
 ``tests/torch_slice_data.py``).  Then ``scan_grid_grouped`` must agree
-for every served range function and every group op, with the grid's
-compressed residents on and off; both stores must plan alike and leave
-the same range functions unserved.  The per-series sweep is
-``tests/test_torch_scan_grid.py``, the f32 packed path
+for every served range function and every group op (stddev/stdvar's
+``moments`` too), with the grid's compressed residents on and off; both
+stores must plan alike and serve the same range functions.  The
+per-series sweeps are ``tests/test_torch_scan_grid.py`` and
+``tests/test_torch_scan_grid_ops.py``, the f32 packed path
 ``tests/test_torch_devicestore_f32.py``.
 
 Tolerances: on the CPU both stores keep f64 residents.  Selection ops
@@ -30,25 +31,19 @@ from filodb_tpu.query.logical import RangeFunctionId as JF
 from filodb_tpu_torch.core.filters import ColumnFilter, Equals
 from filodb_tpu_torch.memstore import devicestore
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
-from tests.torch_slice_data import (GIDS, N_GROUPS, SELECTION, SERVED,
-                                    SPANS, STEP, WINDOW, assert_close, fns,
-                                    ids, stores)
+from tests.torch_slice_data import (EXACT, GIDS, MORE_SERVED, N_GROUPS,
+                                    SELECTION, SERVED, SPANS, STEP, WINDOW,
+                                    assert_close, fns, ids, stores)
 
 # the shapes are small: one thread per test worker leaves the other
 # workers of a parallel run their cores
 torch.set_num_threads(1)
 
-UNSERVED = {"STDDEV_OVER_TIME": (), "STDVAR_OVER_TIME": (),
-            "CHANGES": (), "RESETS": (), "IRATE": (), "IDELTA": (),
-            "DERIV": (), "PREDICT_LINEAR": (600.0,), "TIMESTAMP": (),
-            "Z_SCORE": (), "QUANTILE_OVER_TIME": (0.9,),
-            "MAD_OVER_TIME": (), "HOLT_WINTERS": (0.5, 0.5)}
-
-
 
 # ------------------------------------------------------------------ tests
 
-@pytest.mark.parametrize("agg", ["sum", "avg", "count", "min", "max"])
+@pytest.mark.parametrize("agg", ["sum", "avg", "count", "min", "max",
+                                 "moments"])
 @pytest.mark.parametrize("compress", [True, False])
 @pytest.mark.parametrize("kind", ["jitter", "uniform"])
 def test_scan_grid_grouped_matches_jax(kind, compress, agg):
@@ -65,7 +60,8 @@ def test_scan_grid_grouped_matches_jax(kind, compress, agg):
         assert want is not None and got is not None, name
         assert sorted(got) == sorted(want)
         for key in want:
-            exact = key == "count" or (name in SELECTION and key != "sum")
+            exact = key == "count" or (name in SELECTION
+                                       and key not in ("sum", "sumsq"))
             assert_close(got[key], want[key], exact, 1e-9,
                           f"{kind} {agg} {name} {key}")
 
@@ -92,22 +88,39 @@ def test_plan_modes_match_jax():
         assert len(tcache.blocks) == len(jcache.blocks) == 2
 
 
-@pytest.mark.parametrize("name", sorted(UNSERVED))
-def test_unported_ops_not_served(name):
-    """The 13 range functions the slice does not port: the JAX grid
-    serves them, the port answers None ("not served here")."""
+@pytest.mark.parametrize("name", sorted(MORE_SERVED))
+def test_ported_ops_served_match_jax(name):
+    """The 13 range functions of the grid's second op set: both grids
+    serve them, per series and under a fused ``sum by``, and agree
+    (timestamp skips the fused reduce in both); a wrong number of
+    function arguments is not served in either."""
     jshard, tshard = stores("uniform", compress=False)
     jids, tids = ids(jshard, tshard)
     steps0, nsteps, _ = SPANS["one_block"]
-    fargs = UNSERVED[name]
+    fargs = MORE_SERVED[name]
+    jf, tf = getattr(JF, name), getattr(F, name)
     with jax.disable_jit():
-        assert jshard.scan_grid(jids, getattr(JF, name), steps0, nsteps,
-                                STEP, WINDOW, fargs=fargs) is not None
-    assert tshard.scan_grid(tids, getattr(F, name), steps0, nsteps, STEP,
-                            WINDOW, fargs=fargs) is None
-    assert tshard.scan_grid_grouped(tids, getattr(F, name), steps0, nsteps,
-                                    STEP, WINDOW, GIDS, N_GROUPS, "sum",
-                                    fargs=fargs) is None
+        want = jshard.scan_grid(jids, jf, steps0, nsteps, STEP, WINDOW,
+                                fargs=fargs)
+        want_g = jshard.scan_grid_grouped(jids, jf, steps0, nsteps, STEP,
+                                          WINDOW, GIDS, N_GROUPS, "sum",
+                                          fargs=fargs)
+    got = tshard.scan_grid(tids, tf, steps0, nsteps, STEP, WINDOW,
+                           fargs=fargs)
+    got_g = tshard.scan_grid_grouped(tids, tf, steps0, nsteps, STEP, WINDOW,
+                                     GIDS, N_GROUPS, "sum", fargs=fargs)
+    assert want is not None and got is not None
+    assert_close(got[1], want[1], name in EXACT, 1e-9, name)
+    assert (got_g is None) == (want_g is None) == (name == "TIMESTAMP")
+    if want_g is not None:
+        assert_close(got_g["count"], want_g["count"], True, 0, name)
+        assert_close(got_g["sum"], want_g["sum"], name in EXACT, 1e-9, name)
+    wrong = fargs + (1.0,)
+    assert tshard.scan_grid(tids, tf, steps0, nsteps, STEP, WINDOW,
+                            fargs=wrong) is None
+    with jax.disable_jit():
+        assert jshard.scan_grid(jids, jf, steps0, nsteps, STEP, WINDOW,
+                                fargs=wrong) is None
 
 
 

@@ -156,7 +156,7 @@ def test_predicates_match_jax_cpu_branch(op, dense):
 
 
 def test_unserved_op_raises():
-    q = tgrid.GridQuery(3, K, STEP, op="stddev")
+    q = tgrid.GridQuery(3, K, STEP, op="bogus")
     vals = torch.zeros((8, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="not served"):
         tgrid.rate_grid_ref(None, vals, 0, q)

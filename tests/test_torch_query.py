@@ -174,10 +174,12 @@ def test_downsampled_query_matches_jax(stores):
 
 def test_grid_served_the_grid_queries(stores):
     """The comparison is not vacuous: the port's grid serves the queries
-    its kernels cover, and answers None (general path) for irate."""
+    its kernels cover, and answers None (general path) for irate, which
+    needs the dense contract that the gappy half of the series breaks."""
     _jms, _jp, ms, planner = stores
     for query, served in ((f'sum by (g)(rate(m_diff{SEL}[2m]))', True),
                           (f'avg_over_time(m_diff{SEL}[2m])', True),
+                          (f'deriv(m_diff{SEL}[2m])', True),
                           (f'sum by (g)(irate(m_diff{SEL}[1m]))', False)):
         before = _hits(ms)
         _run(query, ms, planner, query_range_to_logical_plan, ExecContext,

@@ -33,6 +33,17 @@ SERVED = ("RATE", "INCREASE", "DELTA", "SUM_OVER_TIME", "COUNT_OVER_TIME",
           "LAST_OVER_TIME", None)
 SELECTION = ("COUNT_OVER_TIME", "MIN_OVER_TIME", "MAX_OVER_TIME",
              "LAST_OVER_TIME", None)
+# the range functions the grid serves beyond those, with their scalar
+# arguments; the dense-only ones answer None over gappy lanes
+MORE_SERVED = {"STDDEV_OVER_TIME": (), "STDVAR_OVER_TIME": (),
+               "CHANGES": (), "RESETS": (), "IRATE": (), "IDELTA": (),
+               "DERIV": (), "PREDICT_LINEAR": (600.0,), "TIMESTAMP": (),
+               "Z_SCORE": (), "QUANTILE_OVER_TIME": (0.9,),
+               "MAD_OVER_TIME": (), "HOLT_WINTERS": (0.5, 0.3)}
+DENSE_ONLY = ("CHANGES", "RESETS", "IRATE", "IDELTA", "QUANTILE_OVER_TIME",
+              "MAD_OVER_TIME", "HOLT_WINTERS")
+# bit-equal on both stores: counts, and timestamps re-based in f64
+EXACT = ("CHANGES", "RESETS", "TIMESTAMP")
 
 
 # ------------------------------------------------------------------ data
