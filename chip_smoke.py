@@ -18,14 +18,16 @@ Phases, each timed on a line of its own:
    irate at K=1024 over a 1,100-row plane; ``m4_grid`` at
    [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
    zeros of both signs, all-NaN bins, an all-NaN series); then the
-   grouped kernels at the mid shape: ``rate_grid_grouped`` in every
-   op/mode (gappy lanes, strides 1 and 2, 512-lane groups, the last one
-   all-NaN), ``rate_grid_grouped_packed`` over a p8 plane and a p16
-   plane of whole groups (phase and free ops, row0 = 3, stride 2),
-   ``hist_grid_grouped_packed`` at hb = 4, 16, 20 (row0 0 and 3, a dead
-   series, the free sum op); each held against its plain PyTorch version
-   run on the same CUDA tensors (m4 bit for bit, grouped counts equal,
-   sums rtol 2e-5), and each grouped kernel refusing the second op set;
+   grouped kernels at the mid shape, in all 22 ops of their TPU kernels:
+   ``rate_grid_grouped`` in every op/mode (gappy lanes, strides 1 and 2,
+   512-lane groups, the last one all-NaN, quantile at K=32 and with phi
+   1.5), ``rate_grid_grouped_packed`` over a p8 plane and a p16 plane of
+   whole groups (the phase ops and the 14 that read no timestamps, row0
+   = 3, stride 2), ``hist_grid_grouped_packed`` at hb = 4, 16, 20 (row0
+   0 and 3, a dead series, the phase ops and every free op); each held
+   against its plain PyTorch version run on the same CUDA tensors (m4
+   bit for bit, grouped counts equal, sums rtol 2e-5), and the packed
+   grouped kernels refusing the 5 ops that read timestamps;
 4. main    — one shard of ``prom-counter`` data at high cardinality
    (``req_total``: 100 pods x 1,024 series, 260 one-minute samples,
    constant per-series phase, integer increments 0-9, a reset in 1% of
@@ -76,8 +78,12 @@ Phases, each timed on a line of its own:
    launch counters reset just before and read just after (exactly one
    rate_grid_grouped, one rate_grid_grouped_packed, one
    hist_grid_grouped_packed and two rate_grid_packed launches); each new
-   kernel against its plain version at those widths and timed; each
-   query's device ms and samples/s.
+   kernel against its plain version at those widths and timed; the
+   grouped kernels in the second op set on the same data (13 ops on
+   rate_grid_grouped, the 5 that read timestamps over the dense
+   variant's ts plane; 8 each on rate_grid_grouped_packed and
+   hist_grid_grouped_packed), each against its plain version, its
+   launches counted, and timed; each query's device ms and samples/s.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -157,6 +163,21 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(build_log: str) -> list:
+    """One line a kernel from ``nvcc -Xptxas -v``: its (mangled) name,
+    registers, stack and spills."""
+    out, name, frame = [], "?", ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1]
+        elif "spill" in line:
+            frame = line
+        elif "Used " in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {frame}")
+    return out
 
 
 # ------------------------------------------------------------- comparison
@@ -348,9 +369,10 @@ def grouped_packed_work(packed, q, row0, use_phase,
     return nbytes - cells * 4 + 2 * nslots * q.nsteps * 4, ops + 2 * cells
 
 
-def compare_grouped(got, want, case: str) -> float:
+def compare_grouped(got, want, case: str, op: str = "") -> float:
     """(sum, count) against the plain version's: counts equal, sums with
-    the same NaN cells and within RTOL_KERNEL.  Returns the largest
+    the same NaN cells and within RTOL_KERNEL (of the group's largest sum
+    over its steps for answers that cross 0).  Returns the largest
     absolute difference of the sums."""
     import torch
     (gs, gc), (ws, wc) = got, want
@@ -358,7 +380,8 @@ def compare_grouped(got, want, case: str) -> float:
         raise AssertionError(f"{case}: counts differ in "
                              f"{int((gc != wc).sum())} cells")
     try:
-        return compare(gs, ws, "grouped sum", RTOL_KERNEL)
+        return compare(gs, ws, "grouped sum", RTOL_KERNEL,
+                       1 if op in CROSSING else None)
     except AssertionError as e:
         raise AssertionError(f"{case}: {e}") from None
 
@@ -607,11 +630,13 @@ def two_plane_pack(rng, rows: int, width: int) -> dict:
 
 def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
     """The grouped kernels at the mid shape, each against its plain
-    version on the same card tensors: rate_grid_grouped in every mode
-    (gappy lanes in ts and free mode, strides 1 and 2, a group of all-NaN
-    lanes), rate_grid_grouped_packed over a two-plane pack (phase and
-    free, row0 = 3, stride 2), hist_grid_grouped_packed at hb 4, 16 and
-    20 (row0 0 and 3, a dead series, the free sum op)."""
+    version on the same card tensors, in every op of their TPU kernels:
+    rate_grid_grouped in every op/mode (gappy lanes, strides 1 and 2, a
+    group of all-NaN lanes, quantile at K = 32 and with phi 1.5),
+    rate_grid_grouped_packed over a two-plane pack (phase and free ops,
+    row0 = 3, stride 2), hist_grid_grouped_packed at hb 4, 16 and 20
+    (row0 0 and 3, a dead series, every free op); then the packed ones
+    refusing the ops that read timestamps."""
     import numpy as np
     import torch
     from filodb_tpu_torch.codecs import xorgrid
@@ -623,62 +648,68 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
     worst = 0.0
     rows = []
 
-    def run(kname, case, fn, ref, work):
+    def run(kname, case, fn, ref, work, op):
         nonlocal worst
         got, want = fn(), ref()
         torch.cuda.synchronize()
-        err = compare_grouped(got, want, case)
+        err = compare_grouped(got, want, case, op)
         worst = max(worst, err)
         ms = cuda_ms(fn, reps, flush)
         pms = cuda_ms(ref, reps, flush)
         bms, by = bound_ms(*work)
         log(f"{case}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
             f"({by}) max_abs_err {err:.3e} ok")
-        rows.append({"kernel": kname, "case": case, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "max_abs_err": err})
+        rows.append({"kernel": kname, "case": case, "op": op, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bms, "max_abs_err": err})
+        return got
 
     # B2: the last GL lanes of _mid_planes are empty, a group of padding
     planes = {g: _mid_planes(rng, B, S, g) for g in (False, True)}
-    for mode, dense, op in (
-            [("phase", True, o) for o in ("rate", "increase", "delta")]
-            + [("ts", d, o) for d in (True, False)
-               for o in ("rate", "increase", "delta")]
-            + [("free", d, o) for d in (True, False)
-               for o in ("sum", "count", "avg", "min", "max", "last")]):
+    b2_cases = [(mode, dense, op, stride, sweep_query(
+                    op, dense, stride, (B - K) // stride + 1))
+                for mode, dense, op in FIRST_OPS_CASES + SECOND_OPS_CASES
+                for stride in (1, 2)]
+    b2_cases += [("free", True, "quantile", 1, sweep_query(
+                     "quantile", True, 1, B - grid.SORT_OPS_MAX_K + 1,
+                     k=grid.SORT_OPS_MAX_K)),
+                 ("free", True, "quantile", 1, sweep_query(
+                     "quantile", True, 1, B - K + 1)._replace(farg=1.5))]
+    for mode, dense, op, stride, q in b2_cases:
         ts_np, v_np, ph_np = planes[not dense]
         ts = torch.as_tensor(ts_np, device=device)
         vals = torch.as_tensor(v_np, device=device)
         ph = torch.as_tensor(ph_np, device=device) \
             if mode == "phase" else None
-        for stride in (1, 2):
-            q = grid.GridQuery(nsteps=(B - K) // stride + 1, kbuckets=K,
-                               gstep_ms=STEP, is_rate=(op == "rate"),
-                               op=op, dense=dense, stride=stride)
-            args = (ts, vals, K * STEP, q, GL)
-            case = (f"rate_grid_grouped {mode}-"
-                    f"{'dense' if dense else 'gappy'}-{op} stride={stride}")
-            run("rate_grid_grouped", case,
-                partial(grid.rate_grid_grouped, *args, phase=ph),
-                partial(grid.rate_grid_grouped_ref, *args, phase=ph),
-                grouped_work(vals, q, ph, S // GL))
-            if grid.rate_grid_grouped(*args, phase=ph)[1][-1].any():
-                raise AssertionError(f"{case}: the all-NaN group counted")
+        args = (ts, vals, q.kbuckets * STEP, q, GL)
+        case = (f"rate_grid_grouped {mode}-{'dense' if dense else 'gappy'}-"
+                f"{op} stride={stride} K={q.kbuckets}"
+                + (f" phi={q.farg}" if op == "quantile" else ""))
+        s, c = run("rate_grid_grouped", case,
+                   partial(grid.rate_grid_grouped, *args, phase=ph),
+                   partial(grid.rate_grid_grouped_ref, *args, phase=ph),
+                   grouped_work(vals, q, ph, S // GL), op)
+        if c[-1].any() or s[-1].any():
+            raise AssertionError(f"{case}: the all-NaN group counted")
+        if op == "quantile" and q.farg > 1.0 and (c.any() or s.any()):
+            raise AssertionError(f"{case}: phi above 1 counted an answer")
     # B4 over a p8 plane and a p16 plane of 16 groups each
     pk = xorgrid.packed_to_torch(two_plane_pack(rng, B, S // 2), device)
-    for use_phase, op in ([(True, o) for o in ("rate", "increase", "delta")]
-                          + [(False, o) for o in ("sum", "count", "avg",
-                                                  "min", "max", "last")]):
+    for use_phase, dense, op in (
+            [(True, True, o) for o in ("rate", "increase", "delta")]
+            + [(False, True, o) for o in ("sum", "count", "avg", "min",
+                                          "max", "last")]
+            + [(False, True, o) for o in FREE_SECOND_OPS]
+            + [(False, False, o) for o in MOMENT_OPS]):
         row0 = 3
-        q = grid.GridQuery(nsteps=(B - row0 - K) // 2 + 1, kbuckets=K,
-                           gstep_ms=STEP, is_rate=(op == "rate"), op=op,
-                           dense=True, stride=2)
+        q = sweep_query(op, dense, 2, (B - row0 - K) // 2 + 1)
         args = (pk, 0, q, GL, row0, use_phase)
         run("rate_grid_grouped_packed",
             f"rate_grid_grouped_packed p8+p16 "
-            f"{'phase' if use_phase else 'free'}-{op}",
+            f"{'phase' if use_phase else 'free'}-"
+            f"{'dense' if dense else 'gappy'}-{op}",
             partial(grid.rate_grid_grouped_packed, *args),
             partial(grid.rate_grid_grouped_packed_ref, *args),
-            grouped_packed_work(pk, q, row0, use_phase, S // GL))
+            grouped_packed_work(pk, q, row0, use_phase, S // GL), op)
     # B5: 48 groups of 16 series x hb buckets, series 1 dead
     for hb in (4, 16, 20):
         per, ngroups = 16, 48
@@ -691,33 +722,35 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
         if hp is None or not (hp.inv == np.arange(cols)).all():
             raise AssertionError(f"hb={hb}: not an identity stride pack")
         hpk = xorgrid.packed_to_torch(hp, device)
-        for row0, use_phase, op in ((0, True, "rate"), (3, True, "rate"),
-                                    (3, False, "sum")):
-            q = grid.GridQuery(nsteps=B - row0 - K + 1, kbuckets=K,
-                               gstep_ms=STEP, is_rate=(op == "rate"),
-                               op=op, dense=True)
+        for row0, use_phase, dense, op in (
+                [(0, True, True, "rate"), (3, True, True, "rate"),
+                 (3, False, True, "sum")]
+                + [(3, False, True, o) for o in FREE_SECOND_OPS]
+                + [(3, False, False, o) for o in MOMENT_OPS]):
+            q = sweep_query(op, dense, 1, B - row0 - K + 1)
             args = (hpk, 0, q, hb, per * hb, row0, use_phase)
             run("hist_grid_grouped_packed",
                 f"hist_grid_grouped_packed hb={hb} row0={row0} "
-                f"{'phase' if use_phase else 'free'}-{op}",
+                f"{'phase' if use_phase else 'free'}-"
+                f"{'dense' if dense else 'gappy'}-{op}",
                 partial(grid.hist_grid_grouped_packed, *args),
                 partial(grid.hist_grid_grouped_packed_ref, *args),
-                grouped_packed_work(hpk, q, row0, use_phase, ngroups * hb))
-    # the grouped kernels keep the first nine ops and refuse the rest
-    for op in TS_SECOND_OPS + FREE_SECOND_OPS:
+                grouped_packed_work(hpk, q, row0, use_phase, ngroups * hb),
+                op)
+    # a packed plane has no ts: the packed kernels refuse those ops
+    for op in TS_SECOND_OPS:
         q = sweep_query(op, True, 1, B - K + 1)
-        for call in (partial(grid.rate_grid_grouped, None, vals, 0, q, GL),
-                     partial(grid.rate_grid_grouped_packed, pk, 0, q, GL,
+        for call in (partial(grid.rate_grid_grouped_packed, pk, 0, q, GL,
                              0, False),
-                     partial(grid.hist_grid_grouped_packed, hpk, 0, q, 4,
-                             64, 0, False)):
+                     partial(grid.hist_grid_grouped_packed, hpk, 0, q, 20,
+                             16 * 20, 0, False)):
             try:
                 call()
             except ValueError:
                 continue
-            raise AssertionError(f"a grouped kernel accepted op {op}")
-    log(f"grouped kernels refuse the second op set "
-        f"({len(TS_SECOND_OPS + FREE_SECOND_OPS)} ops)")
+            raise AssertionError(f"a packed grouped kernel accepted op {op}")
+    log(f"packed grouped kernels refuse the {len(TS_SECOND_OPS)} ops that "
+        f"read timestamps")
     report["grouped_sweep"] = rows
     return worst
 
@@ -1477,6 +1510,8 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             kern_rows[kname] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                                 "bound_by": by, "bytes": work[0],
                                 "max_abs_err": err}
+    with Phase("northstar.second_ops"):
+        second = northstar_second_ops(cases, reps, flush)
     with Phase("northstar.query_times"):
         for name, fn in queries.items():
             case = cases[name]
@@ -1487,8 +1522,66 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             rows[name].update(query_ms=qms, samples=case.samples,
                               samples_per_s=rate)
     report["northstar"] = {"queries": rows, "kernels": kern_rows,
-                           "launches": totals}
-    return {"launches": totals, "rows": kern_rows}
+                           "launches": totals, "second_ops": second}
+    return {"launches": totals, "rows": kern_rows, "second_ops": second}
+
+
+def northstar_second_ops(cases, reps: int, flush) -> list:
+    """The grouped kernels in the second op set at the benchmark's widths,
+    on the data the north-star variants hold: rate_grid_grouped in the 13
+    ops (the five that read timestamps over the dense variant's ts plane),
+    rate_grid_grouped_packed and hist_grid_grouped_packed in the 8 that
+    read none; each once against its plain version (its launches counted
+    on that call), then timed."""
+    from filodb_tpu_torch import northstar as ns
+    from filodb_tpu_torch.ops import grid
+
+    d, p, h = (cases[k] for k in ("dense", "packed", "hist"))
+    s0 = ns.steps0()
+
+    def with_op(q, op):
+        farg, farg2 = FARGS.get(op, (0.0, 0.0))
+        return q._replace(op=op, is_rate=False, farg=farg, farg2=farg2)
+
+    runs = []        # (wrapper, plain version, arguments, work)
+    for op in TS_SECOND_OPS + FREE_SECOND_OPS:
+        q = with_op(d.q, op)
+        ts = d.ts if op in TS_SECOND_OPS else None
+        runs.append((grid.rate_grid_grouped, grid.rate_grid_grouped_ref,
+                     (ts, d.vals, s0, q, d.group_lanes),
+                     grouped_work(d.vals, q, None,
+                                  d.vals.shape[1] // d.group_lanes)))
+    for op in FREE_SECOND_OPS:
+        q = with_op(p.q, op)
+        runs.append((grid.rate_grid_grouped_packed,
+                     grid.rate_grid_grouped_packed_ref,
+                     (p.planes, s0, q, p.group_lanes, 0, False),
+                     grouped_packed_work(p.planes, q, 0, False,
+                                         p.vals.shape[1] // p.group_lanes)))
+        q = with_op(h.q, op)
+        runs.append((grid.hist_grid_grouped_packed,
+                     grid.hist_grid_grouped_packed_ref,
+                     (h.planes, s0, q, h.hb, h.group_lanes, 0, False),
+                     grouped_packed_work(h.planes, q, 0, False,
+                                         h.groups * h.hb)))
+    rows = []
+    for fn, ref, args, work in runs:
+        kname = fn.__name__
+        op = next(a for a in args if isinstance(a, grid.GridQuery)).op
+        before = fn.launches
+        got = fn(*args)
+        launched = fn.launches - before
+        err = compare_grouped(got, ref(*args), f"northstar {kname} {op}", op)
+        ms = cuda_ms(partial(fn, *args), reps, flush)
+        pms = cuda_ms(partial(ref, *args), reps, flush)
+        bms, by = bound_ms(*work)
+        log(f"northstar {kname} {op}: launches {launched} ms {ms:.4f} "
+            f"plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, {work[0]} bytes) "
+            f"max_abs_err {err:.3e} ok")
+        rows.append({"kernel": kname, "op": op, "launches": launched,
+                     "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "bytes": work[0], "max_abs_err": err})
+    return rows
 
 
 def main() -> int:
@@ -1525,10 +1618,10 @@ def main() -> int:
         kernels.library()
         build_s = time.perf_counter() - t0
         log(f"build seconds {build_s:.3f}")
-        for line in kernels.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  grid_kernels.cu: {line.strip()}")
+        for line in ptxas_summary(kernels.build_log):
+            log(f"  grid_kernels.cu: {line}")
         report["build_seconds"] = build_s
+        report["build_log"] = kernels.build_log
     with Phase("kernels"):
         sweep_err = kernel_sweep(device, REPS, args.seed, report)
         sweep_err = max(sweep_err, grouped_sweep(device, REPS, args.seed,
@@ -1577,7 +1670,8 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     launches = {**main["launches"],
                 "m4_grid": engine["launches"]["m4_grid"],
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
-    sweep = report["kernel_sweep"] + report["grouped_sweep"]
+    sweep = (report["kernel_sweep"] + report["grouped_sweep"]
+             + northstar["second_ops"])
     entries = []
     for kname in replaces:
         row = path_rows[kname]

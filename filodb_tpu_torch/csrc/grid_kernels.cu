@@ -59,7 +59,11 @@
 // and reduces the group's lanes per step into (sum, count) rows, so only
 // [G*hb, T] partials reach device memory.  Phase mode sums every lane
 // live at row 0 (its value as it is, finite or not) and counts the live
-// lanes; free and ts modes sum and count the finite results.
+// lanes; free and ts modes sum and count the finite results.  Like B1/B3
+// they compute all 22 ops: the nine of lane_windows in the kernels
+// above, the thirteen of lane_windows_ext in rate_grid_grouped_ext_kernel
+// and grouped_packed_ext_kernel, one instantiation a family (the packed
+// ones the four families that read no timestamps).
 //
 // What bounds them: bytes, as above, less the [T, lanes] output: at the
 // north-star widths (59 rows of 1,024,000 lanes; 1,048,576 bucket
@@ -839,6 +843,52 @@ __global__ void grouped_packed_kernel(const W* __restrict__ plane,
   sink.finish(sum + rows, cnt + rows);
 }
 
+// The second op set into the group reduce: the two kernels above with
+// lane_windows_ext<Fam> for lane_windows, one instantiation a family, so
+// that the nine ops' kernels compile as they did.  lane_windows_ext calls
+// the sink once a step for every thread, whatever its lane holds, as the
+// sinks' shuffles and barriers need.
+template <int Fam>
+__global__ void rate_grid_grouped_ext_kernel(const float* __restrict__ vals,
+                                             const int* __restrict__ ts,
+                                             float* __restrict__ sum,
+                                             float* __restrict__ cnt, int ns,
+                                             int group_lanes, Params P) {
+  extern __shared__ float sh[];
+  const long g0 = static_cast<long>(blockIdx.x) * group_lanes;
+  const long rows = static_cast<long>(blockIdx.x) * P.T;
+  WarpSumSink sink = WarpSumSink::make(sh, P.T, 1, nullptr, nullptr, true);
+  for (int c0 = 0; c0 < group_lanes; c0 += blockDim.x) {
+    sink.begin(c0, group_lanes);
+    const long lane = g0 + min(c0 + static_cast<int>(threadIdx.x),
+                               group_lanes - 1);
+    DenseSrc src{vals + lane, ns};
+    lane_windows_ext<Fam>(src, ts ? ts + lane : nullptr, ns, P, sink);
+  }
+  sink.finish(sum + rows, cnt + rows);
+}
+
+template <typename W, class Sink, int Fam>
+__global__ void grouped_packed_ext_kernel(const W* __restrict__ plane,
+                                          const int* __restrict__ meta,
+                                          float* __restrict__ sum,
+                                          float* __restrict__ cnt, int n,
+                                          int group_lanes, int hb, int row0,
+                                          Params P, int acc_shared) {
+  extern __shared__ float sh[];
+  const int g0 = blockIdx.x * group_lanes;
+  const long rows = static_cast<long>(blockIdx.x) * hb * P.T;
+  Sink sink = Sink::make(sh, P.T, hb, sum + rows, cnt + rows, acc_shared);
+  for (int c0 = 0; c0 < group_lanes; c0 += blockDim.x) {
+    sink.begin(c0, group_lanes);
+    const int lane = g0 + min(c0 + static_cast<int>(threadIdx.x),
+                              group_lanes - 1);
+    PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
+    lane_windows_ext<Fam>(src, nullptr, 0, P, sink);
+  }
+  sink.finish(sum + rows, cnt + rows);
+}
+
 // A grouped launch's shape: threads a CTA (a warp multiple) and dynamic
 // shared bytes.  hb = 1: up to 8 warps, fewer while their partial rows
 // would pass 48 KB (one warp holds T <= 6,144 in it, and past that the
@@ -877,24 +927,62 @@ cudaError_t allow_shared(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// One grouped kernel launched at shape g (its shared memory allowed
+// first where it passes 48 KB): cudaGetLastError() after the launch.
+template <typename Kern, typename... Args>
+int launch_grouped(Kern kernel, int grid, const GroupShape& g,
+                   cudaStream_t s, Args... args) {
+  const cudaError_t rc = allow_shared(kernel, g.shared);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<grid, g.threads, g.shared, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One class plane's groups through the grouped packed kernel of the op's
+// family (the free families only: a packed plane has no ts).
+template <typename W, class Sink>
+int grouped_packed_family(const W* plane, const int* meta, float* sum,
+                          float* cnt, int n, int group_lanes, int hb,
+                          int row0, const Params& P, int mode,
+                          cudaStream_t s) {
+  const GroupShape g = group_shape(group_lanes, hb, P.T);
+  const int grid = n / group_lanes;
+  const int acc = g.acc_shared;
+  switch (family_of(P.op)) {
+    case F_BASE:
+      return launch_grouped(grouped_packed_kernel<W, Sink>, grid, g, s,
+                            plane, meta, sum, cnt, n, group_lanes, hb, row0,
+                            P, mode, acc);
+    case F_CHANGES:
+      return launch_grouped(grouped_packed_ext_kernel<W, Sink, F_CHANGES>,
+                            grid, g, s, plane, meta, sum, cnt, n,
+                            group_lanes, hb, row0, P, acc);
+    case F_MOMENTS:
+      return launch_grouped(grouped_packed_ext_kernel<W, Sink, F_MOMENTS>,
+                            grid, g, s, plane, meta, sum, cnt, n,
+                            group_lanes, hb, row0, P, acc);
+    case F_SORT:
+      return launch_grouped(grouped_packed_ext_kernel<W, Sink, F_SORT>,
+                            grid, g, s, plane, meta, sum, cnt, n,
+                            group_lanes, hb, row0, P, acc);
+    case F_HOLT:
+      return launch_grouped(grouped_packed_ext_kernel<W, Sink, F_HOLT>,
+                            grid, g, s, plane, meta, sum, cnt, n,
+                            group_lanes, hb, row0, P, acc);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename W>
 int grouped_packed_run(const W* plane, const int* meta, float* sum,
                        float* cnt, int n, int group_lanes, int hb, int row0,
                        const Params& P, int mode, cudaStream_t s) {
-  const GroupShape g = group_shape(group_lanes, hb, P.T);
-  const int grid = n / group_lanes;
-  if (hb == 1) {
-    auto* kern = grouped_packed_kernel<W, WarpSumSink>;
-    const cudaError_t rc = allow_shared(kern, g.shared);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    kern<<<grid, g.threads, g.shared, s>>>(plane, meta, sum, cnt, n,
-                                            group_lanes, 1, row0, P, mode, 1);
-  } else {  // within 48 KB by construction
-    grouped_packed_kernel<W, BucketSink><<<grid, g.threads, g.shared, s>>>(
-        plane, meta, sum, cnt, n, group_lanes, hb, row0, P, mode,
-        g.acc_shared);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (hb == 1)
+    return grouped_packed_family<W, WarpSumSink>(
+        plane, meta, sum, cnt, n, group_lanes, 1, row0, P, mode, s);
+  return grouped_packed_family<W, BucketSink>(
+      plane, meta, sum, cnt, n, group_lanes, hb, row0, P, mode, s);
 }
 
 // M4 pixel-bin selection.  m4_grid_kernel replaces the TPU kernel m4_grid
@@ -1077,19 +1165,50 @@ int rate_grid_grouped_launch(const void* vals, const void* ts,
                              const void* phase, void* sum, void* cnt,
                              int nb, int ns, int group_lanes, int T, int K,
                              int stride, int g, int steps0, int op, int mode,
-                             int dense, int is_rate, void* stream) {
+                             int dense, int is_rate, FN_ARGS, void* stream) {
   (void)nb;
-  if (op < SUM || op > DELTA) return static_cast<int>(cudaErrorInvalidValue);
-  Params P{T, K, stride, g, steps0, op, dense, is_rate};
+  if (!args_ok(op, K)) return static_cast<int>(cudaErrorInvalidValue);
+  Params P{T, K, stride, g, steps0, op, dense, is_rate, farg, farg2,
+           rank_lo, rank_hi, w_lo, w_hi, fill};
   const GroupShape gs = group_shape(group_lanes, 1, T);
-  const cudaError_t rc = allow_shared(rate_grid_grouped_kernel, gs.shared);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  rate_grid_grouped_kernel<<<ns / group_lanes, gs.threads, gs.shared,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vals), static_cast<const int*>(ts),
-      static_cast<const int*>(phase), static_cast<float*>(sum),
-      static_cast<float*>(cnt), ns, group_lanes, P, mode);
-  return static_cast<int>(cudaGetLastError());
+  const int grid = ns / group_lanes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vals);
+  const int* t = static_cast<const int*>(ts);
+  float* so = static_cast<float*>(sum);
+  float* co = static_cast<float*>(cnt);
+  const int fam = family_of(op);
+  if (reads_ts(fam) && t == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (fam) {
+    case F_BASE:
+      return launch_grouped(rate_grid_grouped_kernel, grid, gs, s, v, t,
+                            static_cast<const int*>(phase), so, co, ns,
+                            group_lanes, P, mode);
+    case F_PAIR:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_PAIR>, grid, gs,
+                            s, v, t, so, co, ns, group_lanes, P);
+    case F_LINREG:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_LINREG>, grid, gs,
+                            s, v, t, so, co, ns, group_lanes, P);
+    case F_STAMP:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_STAMP>, grid, gs,
+                            s, v, t, so, co, ns, group_lanes, P);
+    case F_CHANGES:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_CHANGES>, grid,
+                            gs, s, v, t, so, co, ns, group_lanes, P);
+    case F_MOMENTS:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_MOMENTS>, grid,
+                            gs, s, v, t, so, co, ns, group_lanes, P);
+    case F_SORT:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_SORT>, grid, gs,
+                            s, v, t, so, co, ns, group_lanes, P);
+    case F_HOLT:
+      return launch_grouped(rate_grid_grouped_ext_kernel<F_HOLT>, grid, gs,
+                            s, v, t, so, co, ns, group_lanes, P);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One class plane's groups: sum and cnt point at zeroed [G_all * hb, T]
@@ -1098,11 +1217,13 @@ int grouped_packed_launch(const void* plane, const void* meta, void* sum,
                           void* cnt, int kind, int nb, int n,
                           int group_lanes, int hb, int slot0, int row0,
                           int T, int K, int stride, int g, int op,
-                          int use_phase, int dense, int is_rate,
+                          int use_phase, int dense, int is_rate, FN_ARGS,
                           void* stream) {
   (void)nb;
-  if (op < SUM || op > DELTA) return static_cast<int>(cudaErrorInvalidValue);
-  Params P{T, K, stride, g, 0, op, dense, is_rate};
+  if (!args_ok(op, K) || reads_ts(family_of(op)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P{T, K, stride, g, 0, op, dense, is_rate, farg, farg2, rank_lo,
+           rank_hi, w_lo, w_hi, fill};
   const int mode = use_phase ? PHASE : FREE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* m = static_cast<const int*>(meta);

@@ -105,12 +105,10 @@ K_FREE_DENSE_OPS = frozenset(("rate", "increase", "last", "count",
 DENSE_ONLY_OPS = frozenset(("changes", "resets", "irate", "idelta",
                             "quantile", "mad", "holt_winters"))
 
-# the ops of rate_grid and rate_grid_packed (every op of the TPU kernels)
+# the ops of every grid kernel (every op of the TPU kernels); the packed
+# ones serve those that read no ts plane
 SERVED_OPS = TS_FREE_OPS | PHASE_OPS | frozenset(
     ("irate", "idelta", "deriv", "predict_linear", "timestamp"))
-# the ops of the grouped kernels (rate_grid_grouped & co)
-GROUPED_KERNEL_OPS = frozenset(("rate", "increase", "delta", "sum",
-                                "count", "avg", "min", "max", "last"))
 
 MAX_K_BUCKETS = 64       # K cap of the ops that walk every window row
 MAX_DENSE_K = 1024       # K cap of the K-free ops under the dense contract
@@ -614,10 +612,10 @@ def _agg_block(vals, q: GridQuery):
     return torch.where(c > 0, acc, _scalar(nan, vals))
 
 
-def _check_op(q: GridQuery, ops=SERVED_OPS) -> None:
-    if q.op not in ops:
+def _check_op(q: GridQuery) -> None:
+    if q.op not in SERVED_OPS:
         raise ValueError(f"grid op {q.op!r} is not served by this kernel "
-                         f"(have {sorted(ops)})")
+                         f"(have {sorted(SERVED_OPS)})")
 
 
 def _free_block(vals, q: GridQuery):
@@ -803,7 +801,7 @@ def _group_reduce(out: torch.Tensor, ok: torch.Tensor, group_lanes: int,
 
 
 def _grouped_check(vals, q: GridQuery, group_lanes: int) -> None:
-    _check_op(q, GROUPED_KERNEL_OPS)
+    _check_op(q)
     nb, ns = vals.shape
     if group_lanes < 1 or ns == 0 or ns % group_lanes != 0:
         raise ValueError(f"series count {ns} must be a non-zero multiple of "
@@ -829,7 +827,6 @@ def _grouped_packed_check(packed: dict, q: GridQuery, row0: int,
                           use_phase: bool, group_lanes: int,
                           hb: int = 1) -> list:
     """The group-aligned pack contract; returns the class planes."""
-    _check_op(q, GROUPED_KERNEL_OPS)
     if hb < 1 or group_lanes < 1 or group_lanes % hb != 0:
         raise ValueError(f"group_lanes {group_lanes} not a multiple of the "
                          f"bucket count {hb}")
@@ -1071,10 +1068,11 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
     """Fused ``sum by (group)(fn(...))``: ``vals [B, S]`` -> ``(sum,
     count)`` ``[G, T]`` f32, ``G = S / group_lanes``.
 
-    Series are pre-sorted by group and padded with NaN columns so that
-    group g occupies columns ``[g*group_lanes, (g+1)*group_lanes)``; a
-    group of padding comes back with count 0.  Free and ts modes sum and
-    count the finite results; phase mode (``phase`` as in
+    Every op of :func:`rate_grid`, in the same modes.  Series are
+    pre-sorted by group and padded with NaN columns so that group g
+    occupies columns ``[g*group_lanes, (g+1)*group_lanes)``; a group of
+    padding comes back with count 0.  Free and ts modes sum and count the
+    finite results; phase mode (``phase`` as in
     :func:`rate_grid`) sums every lane live at row 0 and counts the live
     lanes.  Any G >= 1: the TPU's rule that G be a multiple of 8 is its
     output tile's, and does not apply here.  CPU tensors run
@@ -1085,6 +1083,7 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
                                      phase=phase)
     dev = _cuda_device(vals, "rate_grid_grouped")
     _grouped_check(vals, q, group_lanes)
+    fn_args = _fn_args(q)
     nb, ns = vals.shape
     mode, ts_ptr, ph_ptr = _dense_pointers(ts, vals, q, phase)
     shape = (ns // group_lanes, q.nsteps)
@@ -1098,7 +1097,7 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
             *_int32_args(nb, ns, group_lanes, q.nsteps, q.kbuckets,
                          q.stride, q.gstep_ms, steps0, _OP_CODE[q.op],
                          _MODE_CODE[mode], q.dense, q.is_rate),
-            _stream())
+            *fn_args, _stream())
     rate_grid_grouped.launches += 1
     _launch_check(rc, "rate_grid_grouped")
     return s, c
@@ -1117,6 +1116,7 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
     order."""
     planes = _grouped_packed_check(packed, q, row0, use_phase, group_lanes,
                                    hb)
+    fn_args = _fn_args(q)
     dev = _cuda_device(planes[0][0], wrapper.__name__)
     if hb > MAX_HIST_BUCKETS:
         raise ValueError(f"{hb} buckets; the kernel takes at most "
@@ -1138,7 +1138,7 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
                 *_int32_args(kind, nb, n, group_lanes, hb, slot0, row0,
                              q.nsteps, q.kbuckets, q.stride, q.gstep_ms,
                              _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
-                _stream())
+                *fn_args, _stream())
         wrapper.launches += 1
         _launch_check(rc, wrapper.__name__)
         slot0 += n // group_lanes
@@ -1150,7 +1150,9 @@ def rate_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
                              use_phase: bool = True):
     """Fully fused ``sum by (group)(fn(...))`` over packed residents:
     class planes -> ``(sum, count)`` ``[G, T]``, decode + window + group
-    reduce in one kernel launch per class plane.
+    reduce in one kernel launch per class plane.  Every op of
+    :func:`rate_grid_packed`: the phase-mode ops and those that read no
+    ts plane.
 
     Requires the GROUP-ALIGNED pack contract: every class plane's width
     is a whole number of ``group_lanes``-lane groups, and the pack

@@ -92,13 +92,15 @@ def library() -> ctypes.CDLL:
             lib.rate_grid_packed_launch.argtypes = \
                 [ptr] * 3 + [i32] * 14 + fn_args + [ptr]
             # (vals, ts, phase, sum, cnt; nb, ns, group_lanes, T, K,
-            #  stride, g, steps0, op, mode, dense, is_rate; stream)
+            #  stride, g, steps0, op, mode, dense, is_rate; function
+            #  arguments; stream)
             lib.rate_grid_grouped_launch.argtypes = \
-                [ptr] * 5 + [i32] * 12 + [ptr]
+                [ptr] * 5 + [i32] * 12 + fn_args + [ptr]
             # (plane, meta, sum, cnt; kind, nb, n, group_lanes, hb, slot0,
-            #  row0, T, K, stride, g, op, use_phase, dense, is_rate; stream)
+            #  row0, T, K, stride, g, op, use_phase, dense, is_rate;
+            #  function arguments; stream)
             lib.grouped_packed_launch.argtypes = \
-                [ptr] * 4 + [i32] * 15 + [ptr]
+                [ptr] * 4 + [i32] * 15 + fn_args + [ptr]
             # (vals, out; T, S, P, W; stream)
             lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             for fn in (lib.rate_grid_launch, lib.rate_grid_packed_launch,

@@ -220,16 +220,16 @@ def test_f32_holds_to_f64_near_1e6(op):
     _assert_match(got, want, op, 1e-5, lane_scaled=True)
 
 
-def _packed_planes():
+def _packed_planes(min_width=0):
     """Counters with a pinned f32 exponent (one 16-bit class) and 20
-    empty lanes."""
+    empty lanes (``min_width=16``: one plane in lane order)."""
     rng = np.random.default_rng(12)
     L = 256
     start = (2 ** 23 + 128 * rng.integers(0, 2 ** 15, L)).astype(np.float32)
     v = (start[None, :] + np.cumsum(128 * rng.integers(0, 8, (64, L)),
                                     axis=0)).astype(np.float32)
     v[:, 40:60] = np.nan                          # empty lanes
-    pk = jxorgrid.pack_vals(v)
+    pk = jxorgrid.pack_vals(v, min_width=min_width)
     assert pk is not None
     return pk
 
@@ -267,21 +267,35 @@ def test_dense_only_ops_raise_on_gappy_lanes(op):
         _port_ref(ts, vals, q)
 
 
-@pytest.mark.parametrize("op", sorted(tgrid.SERVED_OPS
-                                      - tgrid.GROUPED_KERNEL_OPS))
+@pytest.mark.parametrize("op", sorted(TS_OPS + FREE_OPS))
 def test_grouped_wrappers_refuse_the_second_op_set(op):
-    """The grouped kernels keep the first nine ops: each wrapper raises
-    on the others, on the CPU as on the card."""
-    q = tgrid.GridQuery(4, K, STEP, op=op, dense=True)
+    """The grouped kernels refuse an op of the second op set only where
+    the JAX kernels do, on the CPU as on the card: the packed ones an op
+    that reads timestamps, each of them a dense-only op without the dense
+    contract.  Elsewhere they answer, one (sum, count) row a group."""
+    q = tgrid.GridQuery(4, K, STEP, op=op, dense=True,
+                        farg=FARGS.get(op, (0.0, 0.0))[0])
+    gappy = q._replace(dense=False)
+    ts = torch.zeros((8, 4), dtype=torch.int32)
     vals = torch.zeros((8, 4), dtype=torch.float32)
-    with pytest.raises(ValueError, match="not served"):
-        tgrid.rate_grid_grouped(None, vals, 0, q, group_lanes=2)
-    pk = txorgrid.packed_to_torch(_packed_planes(), "cpu")
+    s, c = tgrid.rate_grid_grouped(ts, vals, 0, q, group_lanes=2)
+    assert s.shape == c.shape == (2, 4)
+    if op in DENSE_ONLY:
+        with pytest.raises(ValueError, match="dense contract"):
+            tgrid.rate_grid_grouped(ts, vals, 0, gappy, group_lanes=2)
+    pk = txorgrid.packed_to_torch(_packed_planes(16), "cpu")
     for fn in (tgrid.rate_grid_grouped_packed,
                lambda *a, **k: tgrid.hist_grid_grouped_packed(
                    a[0], a[1], a[2], 1, **k)):
-        with pytest.raises(ValueError, match="not served"):
-            fn(pk, 0, q, group_lanes=64, use_phase=False)
+        if op in TS_OPS:
+            with pytest.raises(ValueError, match="ts plane"):
+                fn(pk, 0, q, group_lanes=64, use_phase=False)
+            continue
+        s, c = fn(pk, 0, q, group_lanes=64, use_phase=False)
+        assert s.shape == c.shape == (4, 4)
+        if op in DENSE_ONLY:
+            with pytest.raises(ValueError, match="dense contract"):
+                fn(pk, 0, gappy, group_lanes=64, use_phase=False)
 
 
 def test_served_ops_are_the_tpu_kernels():
