@@ -17,7 +17,15 @@ Phases, each timed on a line of its own:
    timestamps), plus quantile at K=32 with phi 0.9, 0.5 and 1.5 and
    irate at K=1024 over a 1,100-row plane; ``m4_grid`` at
    [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
-   zeros of both signs, all-NaN bins, an all-NaN series); then the
+   zeros of both signs, all-NaN bins, an all-NaN series); then
+   kernels.b3_sweep: ``rate_grid_packed`` case by case over 256-row packs
+   of 4,096 lanes (p8 + p16 + raw, p8 + p16 + p32, a gappy pack, and
+   planes cut to rows that are not 16-byte multiples), row0 0, 1 and
+   127, strides 1 and 3, K 2, 5, 32 and (free, gappy) 64, every op it
+   serves, a K = 120 window (wider than a 32-bit plane's ring),
+   quantile and mad over windows with a NaN inside (held to the card's
+   insertion-sort semantics), one launch a call, bit for bit but rate and
+   increase (rtol 2e-5); then the
    grouped kernels at the mid shape, in all 22 ops of their TPU kernels:
    ``rate_grid_grouped`` in every op/mode (gappy lanes, strides 1 and 2,
    512-lane groups, the last one all-NaN, quantile at K=32 and with phi
@@ -47,11 +55,13 @@ Phases, each timed on a line of its own:
         and the rebuilt uniform-phase ts plane;
      Q6 stddev_over_time, deriv and timestamp over jit_total (gappy
         lanes) -> rate_grid; the 7 dense-only functions answer None there.
-   Launch counters show each query went through its kernel; each query's
-   rows for the first 8 pods are held against a CPU store that ingests
+   Launch counters show each query went through its kernel (exactly one
+   rate_grid_packed launch a packed query, every class plane in it); each
+   query's rows for the first 8 pods are held against a CPU store that ingests
    only those pods (rtol 1e-5; deriv, idelta and zscore, which cross 0,
    of each series' largest answer); one warm run of Q1-Q4 is profiled
-   (torch.profiler); each kernel is then held against its plain version
+   (torch.profiler); each warm query's median of 20 is printed with its
+   p10 and p90; each kernel is then held against its plain version
    on the inputs the main path gave it, and timed;
 5. engine  — the same store through the query engine's entry point
    (PromQL -> query_range_to_logical_plan -> SingleClusterPlanner ->
@@ -249,6 +259,13 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
+def spread(xs) -> tuple[float, float]:
+    """(p10, p90) of repeated timings, beside their median: how far a
+    warm query moves within one run."""
+    q = statistics.quantiles(xs, n=10, method="inclusive")
+    return q[0], q[-1]
+
+
 def make_flush(device):
     import torch
     buf = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=device)
@@ -268,8 +285,8 @@ def _ops_per_output(q) -> int:
     the collapsed phase formula (~12), the instant pair (6), the
     timestamp (3), K steps of a regression (10 each), of the moments (6
     each), of Holt-Winters (10 each), the sorting network's
-    compare-exchanges (2 ops each; mad sorts twice), or K
-    accumulations."""
+    compare-exchanges (2 ops each; mad then merges its deviations, 3 ops
+    a row), or K accumulations."""
     from filodb_tpu_torch.ops import grid
     K = q.kbuckets
     if q.op in ("rate", "increase", "delta"):
@@ -285,8 +302,9 @@ def _ops_per_output(q) -> int:
     if q.op == "holt_winters":
         return 10 * K
     if q.op in ("quantile", "mad"):
-        sorts = 2 if q.op == "mad" else 1
-        return sorts * 2 * len(grid.batcher_pairs(K)) + 2 * K + 4
+        # mad: the deviations (2 ops each) and their merge (1)
+        extra = 3 * K if q.op == "mad" else 0
+        return 2 * len(grid.batcher_pairs(K)) + 2 * K + 4 + extra
     return 2 * q.kbuckets
 
 
@@ -590,6 +608,220 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
         rows.append({"kernel": "m4_grid", "case": name, "ms": ms,
                      "plain_ms": pms, "bound_ms": bms, "max_abs_err": err})
     report["kernel_sweep"] = rows
+    return worst
+
+
+def compare_bits(got, want, case: str) -> float:
+    """Raise unless ``got`` and ``want`` hold the same NaN cells and the
+    same 32 bits in every other cell; returns 0.0."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{case}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    nan = torch.isnan(want)
+    same = torch.isnan(got) == nan
+    same &= (got.view(torch.int32) == want.view(torch.int32)) | nan
+    if not bool(same.all()):
+        raise AssertionError(f"{case}: {int((~same).sum())} cells differ "
+                             f"from the plain version's bits")
+    return 0.0
+
+
+def sort_ops_insertion(win, op: str, q):
+    """quantile / mad over windows ``win [N, K]`` (f32 numpy) as the card
+    computes them: an insertion sort that moves a value only past larger
+    ones (so a NaN stops it where it stands), interpolation at the
+    host's ranks in f32, and for mad the same over |x - median| in sorted
+    order.  The plain version's sorting network spreads a NaN instead, so
+    a NaN inside a window (not in its row 0) is held to this model."""
+    import numpy as np
+    from filodb_tpu_torch.ops import grid
+
+    def isort(s):
+        s = s.copy()
+        idx = np.arange(s.shape[0])
+        for i in range(1, s.shape[1]):
+            v = s[:, i].copy()
+            pos = np.full(s.shape[0], i)
+            moving = np.ones(s.shape[0], bool)
+            for j in range(i - 1, -1, -1):
+                moving &= s[:, j] > v
+                s[moving, j + 1] = s[moving, j]
+                pos[moving] = j
+            s[idx, pos] = v
+        return s
+
+    def interp(s, phi):
+        lo, hi, w_lo, w_hi, fill = grid._interp_weights(phi, s.shape[1])
+        if lo < 0:
+            return np.full(s.shape[0], fill, np.float32)
+        if lo == hi:
+            return s[:, lo]
+        return s[:, lo] * np.float32(w_lo) + s[:, hi] * np.float32(w_hi)
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        s = isort(win)
+        med = interp(s, q.farg if op == "quantile" else 0.5)
+        if op == "mad":
+            med = interp(isort(np.abs(s - med[:, None])), 0.5)
+    return np.where(np.isfinite(win[:, 0]), med, np.float32(np.nan))
+
+
+B3_ROWS = 256            # row0 127 + (T - 1) * 3 + 64 <= 256
+B3_T = 20
+B3_SERIES = 4096
+
+
+def b3_packs(rng) -> dict:
+    """The B3 sweep's packs of B3_ROWS x B3_SERIES counters: "dense" (no
+    NaN: constants -> p8, counters -> p16, noise -> raw, three class
+    planes), "dense-p32" (its raw lanes moved to a p32 plane), "gappy"
+    (every eighth counter lane 10% missed samples, in a raw plane) and
+    "unaligned" (dense's planes cut to 500, 300 and 100 lanes)."""
+    import numpy as np
+    from filodb_tpu_torch.codecs import xorgrid
+    B, S = B3_ROWS, B3_SERIES
+    phase = rng.integers(1, STEP, S).astype(np.int32)
+    v = (np.cumsum(rng.integers(0, 10, (B, S)), axis=0)
+         + rng.integers(0, 10**6, S)[None, :]).astype(np.float32)
+    for s in np.flatnonzero(rng.random(S) < 0.01):     # one reset each
+        at = rng.integers(1, B)
+        v[at:, s] -= v[at - 1, s]
+    v[:, :S // 8] = 7.0
+    # counters with fractional increments: XOR residuals too wide to pack
+    # (rate over a noisy gauge would pile up resets, whose corrections
+    # the plain version sums in another order)
+    v[:, S // 8:S // 4] = (1e6 + np.cumsum(rng.random((B, S // 8)) * 1e3,
+                                           axis=0)).astype(np.float32)
+    dense = xorgrid.pack_vals(v, phase=phase)
+    g = v.copy()
+    lanes = np.arange(S // 4, S, 8)
+    g[:, lanes] = np.where(rng.random((B, len(lanes))) < 0.1, np.nan,
+                           g[:, lanes])
+    gappy = xorgrid.pack_vals(g, phase=phase)
+    if dense is None or gappy is None:
+        raise AssertionError("a B3 sweep plane did not pack")
+    # the same planes cut to widths whose uint8 and uint16 rows are not
+    # 16-byte multiples: the kernel stages those with plain loads
+    cut = {"p8": 500, "p16": 300, "raw": 100}
+    unaligned = {k: np.ascontiguousarray(dense.planes[k][:, :w])
+                 for key, w in cut.items()
+                 for k in (key, {"p8": "m8", "p16": "m16",
+                                 "raw": "mraw"}[key])}
+    packs = {"dense": dense.planes, "dense-p32": _to_p32(dense.planes),
+             "gappy": gappy.planes, "unaligned": unaligned}
+    for name, pd in packs.items():
+        classes = [k for k in ("p8", "p16", "p32", "raw")
+                   if k in pd and pd[k].shape[1]]
+        if name != "gappy" and len(classes) != 3:
+            raise AssertionError(f"B3 sweep pack {name}: classes {classes}")
+    return packs
+
+
+def b3_sweep(device, seed: int, report: dict) -> float:
+    """rate_grid_packed (B3) against rate_grid_packed_ref, case by case:
+    the three word types and a raw plane, in packs of three class planes;
+    row0 0, 1 and 127; strides 1 and 3; K 2, 5, 32 and (free, gappy) 64;
+    every op B3 serves (the phase ops in phase mode, the six first free
+    ops dense and gappy, the eight free ops of the second op set dense,
+    the moments gappy); planes whose rows are not 16-byte multiples; a
+    window wider than a 32-bit plane's ring (K = 120: those CTAs read
+    device memory); quantile and mad over windows with a NaN
+    that is not in their row 0 (held to sort_ops_insertion); the five ops
+    that read timestamps refused.  Bit for bit, but rate and increase
+    (the correction prefix's order) at rtol 2e-5; each case one launch."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.codecs import xorgrid
+    from filodb_tpu_torch.ops import grid
+
+    rng = np.random.default_rng([seed, 7])
+    packs = {k: xorgrid.packed_to_torch(v, device)
+             for k, v in b3_packs(rng).items()}
+    rows, worst = [], 0.0
+
+    def run(pack_name, q, row0, use_phase):
+        nonlocal worst
+        packed = packs[pack_name]
+        before = grid.rate_grid_packed.launches
+        got = grid.rate_grid_packed(packed, 0, q, row0=row0,
+                                    use_phase=use_phase)
+        launched = grid.rate_grid_packed.launches - before
+        want = grid.rate_grid_packed_ref(packed, 0, q, row0=row0,
+                                         use_phase=use_phase)
+        torch.cuda.synchronize()
+        case = (f"b3 {pack_name} {'phase' if use_phase else 'free'}-"
+                f"{'dense' if q.dense else 'gappy'}-{q.op} row0={row0} "
+                f"stride={q.stride} K={q.kbuckets}")
+        if launched != 1:
+            raise AssertionError(f"{case}: {launched} launches, expected 1")
+        if q.op in ("rate", "increase"):
+            err = compare(got, want, q.op, RTOL_KERNEL)
+        else:
+            err = compare_bits(got, want, case)
+        worst = max(worst, err)
+        rows.append({"kernel": "rate_grid_packed", "case": case,
+                     "op": q.op, "max_abs_err": err})
+
+    first_free = ("sum", "count", "avg", "min", "max", "last")
+    for row0 in (0, 1, 127):
+        for stride in (1, 3):
+            for k in (2, 5, 32, 64):
+                q0 = partial(sweep_query, stride=stride, nsteps=B3_T, k=k)
+                if k <= 32:
+                    for name in ("dense", "dense-p32"):
+                        for op in ("rate", "increase", "delta"):
+                            run(name, q0(op, True), row0, True)
+                        for op in first_free + FREE_SECOND_OPS:
+                            run(name, q0(op, True), row0, False)
+                for op in first_free + MOMENT_OPS:
+                    run("gappy", q0(op, False), row0, False)
+    # rows that are not 16-byte multiples
+    for row0 in (0, 1, 127):
+        for stride in (1, 3):
+            q0 = partial(sweep_query, stride=stride, nsteps=B3_T, k=5)
+            run("unaligned", q0("rate", True), row0, True)
+            for op in ("sum", "mad"):
+                run("unaligned", q0(op, True), row0, False)
+    # a window wider than the ring of a 32-bit plane: its CTAs read device
+    # memory, the uint8 and uint16 planes' stage as before
+    for op, use_phase in (("rate", True), ("sum", False), ("last", False)):
+        run("dense", sweep_query(op, True, 1, 100, k=120), 3, use_phase)
+    # quantile and mad over windows with a NaN inside (the gappy pack
+    # under the dense op), held to the insertion-sort model
+    packed = packs["gappy"]
+    vals = torch.cat([grid.decode_packed_plane(p, m) for p, m, _k
+                      in grid._packed_planes(packed)], dim=1).cpu().numpy()
+    nan_cells = 0
+    for op, k, stride in (("quantile", 5, 1), ("mad", 5, 3),
+                          ("quantile", 32, 1), ("mad", 32, 3)):
+        q = sweep_query(op, True, stride, B3_T, k=k)
+        row0 = 1
+        got = grid.rate_grid_packed(packed, 0, q, row0=row0).cpu().numpy()
+        win = np.stack([vals[row0 + t * stride:row0 + t * stride + k].T
+                        for t in range(B3_T)])          # [T, lanes, K]
+        inside = np.isnan(win[..., 1:]).any(-1) & ~np.isnan(win[..., 0])
+        want = sort_ops_insertion(win.reshape(-1, k), op, q).reshape(
+            B3_T, -1)
+        case = f"b3 gappy free-dense-{op} NaN inside K={k} stride={stride}"
+        compare_bits(torch.as_tensor(got), torch.as_tensor(want), case)
+        nan_cells += int(inside.sum())
+        rows.append({"kernel": "rate_grid_packed", "case": case, "op": op,
+                     "max_abs_err": 0.0})
+    if nan_cells == 0:
+        raise AssertionError("b3: no window with a NaN inside")
+    for op in TS_SECOND_OPS:
+        try:
+            grid.rate_grid_packed(packs["dense"], 0,
+                                  sweep_query(op, True, 1, B3_T), row0=0)
+        except ValueError:
+            continue
+        raise AssertionError(f"rate_grid_packed accepted op {op}")
+    log(f"b3 sweep: {len(rows)} cases bit-equal (rate, increase within "
+        f"rtol {RTOL_KERNEL}; max_abs_err {worst:.3e}), {nan_cells} "
+        f"windows with a NaN inside, one launch a call, the "
+        f"{len(TS_SECOND_OPS)} ops that read timestamps refused")
+    report["b3_sweep"] = rows
     return worst
 
 
@@ -1007,9 +1239,13 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                     grid.rate_grid_packed.launches - before[1]}
             other = "rate_grid" if kern == "rate_grid_packed" \
                 else "rate_grid_packed"
-            if launched[kern] < 1 or launched[other] != 0:
-                raise AssertionError(f"{name}: expected {kern} only, "
-                                     f"launched {launched}")
+            # rate_grid_packed serves every class plane of the block's
+            # pack in one launch
+            if launched[kern] < 1 or launched[other] != 0 or (
+                    kern == "rate_grid_packed" and launched[kern] != 1):
+                raise AssertionError(f"{name}: expected {kern} only (one "
+                                     f"rate_grid_packed launch), launched "
+                                     f"{launched}")
             cache = next(iter(shard.device_caches.values()))
             plans[name] = plan = list(cache._plan_memo.values())[-1]
             if name == "Q2" and not any(isinstance(v, dict)
@@ -1060,9 +1296,15 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 evs.append(a.elapsed_time(b))
             row["warm_wall_ms"] = statistics.median(walls)
             row["warm_events_ms"] = statistics.median(evs)
+            row["warm_wall_p10_p90"] = spread(walls)
+            row["warm_events_p10_p90"] = spread(evs)
             log(f"{name}: warm median of {reps}: wall_ms "
-                f"{row['warm_wall_ms']:.3f} events_ms "
-                f"{row['warm_events_ms']:.3f}")
+                f"{row['warm_wall_ms']:.3f} (p10 "
+                f"{row['warm_wall_p10_p90'][0]:.3f}, p90 "
+                f"{row['warm_wall_p10_p90'][1]:.3f}) events_ms "
+                f"{row['warm_events_ms']:.3f} (p10 "
+                f"{row['warm_events_p10_p90'][0]:.3f}, p90 "
+                f"{row['warm_events_p10_p90'][1]:.3f})")
     report["queries"] = qrows
     with Phase("main.profile"):
         profile_queries(shard, looked)
@@ -1296,7 +1538,8 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
                 engine_queries(), cold_runs):
         want = {k: 0 for k in kernels}
         if kern is not None:
-            want[kern] = launched[kern]
+            # one rate_grid_packed launch serves every class plane
+            want[kern] = 1 if kern == "rate_grid_packed" else launched[kern]
             if launched[kern] < 1:
                 raise AssertionError(f"{name}: {kern} never launched "
                                      f"({launched})")
@@ -1386,8 +1629,9 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
 
 # ------------------------------------------------------------- phase 6
 
-# the launches of each north-star query: one per class plane, and each
-# of these packs is one plane
+# the launches of each north-star query: the grouped packed kernels launch
+# once per class plane (each of these packs is one plane), rate_grid_packed
+# once a call (topk calls it for the value and the filter column)
 NORTHSTAR_LAUNCHES = {
     "dense": {"rate_grid_grouped": 1},
     "packed": {"rate_grid_grouped_packed": 1},
@@ -1624,6 +1868,8 @@ def main() -> int:
         report["build_log"] = kernels.build_log
     with Phase("kernels"):
         sweep_err = kernel_sweep(device, REPS, args.seed, report)
+        with Phase("kernels.b3_sweep"):
+            sweep_err = max(sweep_err, b3_sweep(device, args.seed, report))
         sweep_err = max(sweep_err, grouped_sweep(device, REPS, args.seed,
                                                  report))
         log(f"kernel sweep: every case within tolerance (max_abs_err "
@@ -1670,8 +1916,8 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     launches = {**main["launches"],
                 "m4_grid": engine["launches"]["m4_grid"],
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
-    sweep = (report["kernel_sweep"] + report["grouped_sweep"]
-             + northstar["second_ops"])
+    sweep = (report["kernel_sweep"] + report["b3_sweep"]
+             + report["grouped_sweep"] + northstar["second_ops"])
     entries = []
     for kname in replaces:
         row = path_rows[kname]

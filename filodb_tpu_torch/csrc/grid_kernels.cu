@@ -4,12 +4,13 @@
 //
 // rate_grid_kernel replaces the TPU kernel rate_grid
 // (filodb_tpu/ops/grid.py:848-898, bodies _series_kernel,
-// _series_kernel_free, _series_kernel_phase).  rate_grid_packed_kernel
-// replaces rate_grid_packed (filodb_tpu/ops/grid.py:1086-1127, body
-// _series_kernel_packed with the in-VMEM decode _decode_packed).  Both
-// compute all 22 ops of the TPU kernels' window dispatch (_rate_block,
-// :734-766): the nine of lane_windows below, and the thirteen of
-// lane_windows_ext (rate_grid_ext_kernel, rate_grid_packed_ext_kernel).
+// _series_kernel_free, _series_kernel_phase).
+// rate_grid_packed_kernel replaces rate_grid_packed
+// (filodb_tpu/ops/grid.py:1086-1127, body _series_kernel_packed with the
+// in-VMEM decode _decode_packed).  Both compute all 22 ops of the TPU
+// kernels' window dispatch (_rate_block, :734-766): the nine of
+// lane_windows below, and the thirteen of lane_windows_ext
+// (rate_grid_ext_kernel, and the packed kernels' Fam parameter).
 //
 // What bounds them on the card: bytes.  Each reads its input planes once
 // and writes a [T, lanes] f32 output, a handful of flops per sample, so
@@ -24,6 +25,10 @@
 // last two (value and ts), timestamp one value row and one ts row.  Only
 // the sort ops at K = 32 (a sorting network of 191 compare-exchanges)
 // are bound by operations.
+//
+// rate_grid_packed stages its rows in shared memory (the note above
+// rate_grid_packed_kernel); rate_grid reads device memory
+// directly, as described next.
 //
 // Design.  The TPU kernels turn the per-lane sequential parts (counter-
 // correction prefix, forward fill, prefix-XOR decode) into log-step roll
@@ -498,7 +503,10 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
 // first finite value: a counter near 1e6 moving a few a step then keeps
 // its f32 answer within a few ulps (the TPU kernel's lane-wide centre
 // loses 1e-4 of a variance there, and 1e-3 of a zscore or a slope).
-//   F_SORT    quantile, mad (free, dense, K <= 32): a sorted window.
+//   F_SORT    quantile, mad (free, dense, K <= 32): a sorted window, in
+//             registers up to K = kSortRegK (one instantiation a K); mad
+//             merges the deviations' two monotone runs instead of sorting
+//             them again.
 //   F_HOLT    holt_winters (free, dense): double exponential smoothing.
 enum Family { F_BASE = 0, F_PAIR, F_LINREG, F_STAMP, F_CHANGES, F_MOMENTS,
               F_SORT, F_HOLT };
@@ -541,6 +549,124 @@ __device__ __forceinline__ float interp_sorted(const float* s,
   if (P.rank_lo < 0) return P.fill;
   if (P.rank_lo == P.rank_hi) return s[P.rank_lo];
   return s[P.rank_lo] * P.w_lo + s[P.rank_hi] * P.w_hi;
+}
+
+// quantile and mad over a window s[0..K) in local memory, sorted in
+// place.  mad takes the median of the deviations |s[d] - q| from the
+// median q without a second sort: over a sorted window they are two
+// monotone runs, descending below q and ascending from it, and a merge of
+// the two gives them in sorted order.  fabsf(a - b) == fabsf(b - a) in
+// IEEE arithmetic and the deviations carry no -0.0, so the merged floats
+// are the ones a sort gives, bit for bit.  A NaN breaks the runs (and the
+// insertion sort's order, which the plain version's sorting network does
+// not share), so a window with a NaN deviation sorts them as before.
+__device__ float sort_op_local(float* s, int K, const Params& P) {
+  sort_window(s, K);
+  const float q = interp_sorted(s, P);
+  if (P.op != MAD) return q;
+  int below = 0;                       // s[0..below) < q
+  bool nan = false;
+  for (int d = 0; d < K; ++d) {
+    if (s[d] < q) below = d + 1;
+    s[d] = fabsf(s[d] - q);
+    nan = nan || isnan(s[d]);
+  }
+  if (nan) {
+    sort_window(s, K);
+    return interp_sorted(s, P);
+  }
+  float m[kSortMaxK];
+  const int need = P.rank_lo < 0 ? 0 : P.rank_hi + 1;
+  int i = below - 1, j = below;
+  for (int k = 0; k < need; ++k)
+    m[k] = (j >= K || (i >= 0 && s[i] <= s[j])) ? s[i--] : s[j++];
+  return interp_sorted(m, P);
+}
+
+constexpr int kSortRegK = 8;   // windows this short stay in registers
+
+// A compare-exchange that swaps only a pair strictly out of order, so
+// equal floats (+0.0 and -0.0) keep their order, as in the insertion sort.
+__device__ __forceinline__ void order_pair(float& lo, float& hi) {
+  const bool swap = lo > hi;
+  const float l = swap ? hi : lo;
+  hi = swap ? lo : hi;
+  lo = l;
+}
+
+// v[i] for a run-time i, by selects, so that v stays in registers.
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int i) {
+  float r = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = (i == k) ? v[k] : r;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ float interp_regs(const float (&v)[N],
+                                             const Params& P) {
+  if (P.rank_lo < 0) return P.fill;
+  const float lo = pick(v, P.rank_lo);
+  if (P.rank_lo == P.rank_hi) return lo;
+  return lo * P.w_lo + pick(v, P.rank_hi) * P.w_hi;
+}
+
+// quantile and mad over the N = K <= kSortRegK rows that cursor c walks,
+// in registers (every index a compile-time one): an odd-even
+// transposition sort of order_pair (stable, so it gives the insertion
+// sort's floats), and for mad the deviations, a V-shaped (bitonic)
+// sequence, padded with +Inf to a power of two and put in order by a
+// bitonic merge.  A window or deviation holding a NaN goes through
+// sort_op_local, the code that served it before.  first: row 0's value.
+template <int N, class Src>
+__device__ float sort_op_regs(Cursor<Src>& c, const Params& P,
+                              float& first) {
+  static_assert(N >= 1 && N <= kSortRegK, "a register window");
+  constexpr int M = N <= 1 ? 1 : N <= 2 ? 2 : N <= 4 ? 4 : 8;
+  float v[N];
+  bool nan = false;
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    c.step(false, false);
+    v[d] = c.raw;
+    nan = nan || isnan(v[d]);
+  }
+  first = v[0];
+  if (nan) {
+    float s[N];
+#pragma unroll
+    for (int d = 0; d < N; ++d) s[d] = v[d];
+    return sort_op_local(s, N, P);
+  }
+#pragma unroll
+  for (int round = 0; round < N; ++round) {
+#pragma unroll
+    for (int i = round & 1; i + 1 < N; i += 2) order_pair(v[i], v[i + 1]);
+  }
+  const float q = interp_regs(v, P);
+  if (P.op != MAD) return q;
+  float dev[M];
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < M; ++d) {
+    dev[d] = d < N ? fabsf(v[d] - q) : INFINITY;
+    bad = bad || isnan(dev[d]);
+  }
+  if (bad) {
+    float s[N];
+#pragma unroll
+    for (int d = 0; d < N; ++d) s[d] = dev[d];
+    sort_window(s, N);
+    return interp_sorted(s, P);
+  }
+#pragma unroll
+  for (int k = M / 2; k > 0; k >>= 1) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if ((i & k) == 0) order_pair(dev[i], dev[i + k]);
+  }
+  return interp_regs(dev, P);
 }
 
 template <int Fam, class Src, class Sink>
@@ -656,20 +782,27 @@ __device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
     } else if constexpr (Fam == F_SORT) {
       a.advance_to(base, false, false);
       Cursor<Src> c = a;
-      float s[kSortMaxK];
-      for (int d = 0; d < K; ++d) {
-        c.step(false, false);
-        s[d] = c.raw;
+      float first, q;
+      switch (K) {                        // K <= kSortRegK: in registers
+        case 1: q = sort_op_regs<1>(c, P, first); break;
+        case 2: q = sort_op_regs<2>(c, P, first); break;
+        case 3: q = sort_op_regs<3>(c, P, first); break;
+        case 4: q = sort_op_regs<4>(c, P, first); break;
+        case 5: q = sort_op_regs<5>(c, P, first); break;
+        case 6: q = sort_op_regs<6>(c, P, first); break;
+        case 7: q = sort_op_regs<7>(c, P, first); break;
+        case 8: q = sort_op_regs<8>(c, P, first); break;
+        default: {
+          float s[kSortMaxK];
+          for (int d = 0; d < K; ++d) {
+            c.step(false, false);
+            s[d] = c.raw;
+          }
+          first = s[0];
+          q = sort_op_local(s, K, P);
+        }
       }
-      const bool live = isfinite(s[0]);
-      sort_window(s, K);
-      float q = interp_sorted(s, P);
-      if (P.op == MAD) {                  // the median of |x - median|
-        for (int d = 0; d < K; ++d) s[d] = fabsf(s[d] - q);
-        sort_window(s, K);
-        q = interp_sorted(s, P);
-      }
-      if (live) o = q;
+      if (isfinite(first)) o = q;
     } else if constexpr (Fam == F_HOLT) {
       if (K >= 2) {
         a.advance_to(base, false, false);
@@ -731,65 +864,359 @@ __device__ PackedSrc<W> packed_lane(const W* plane, const int* meta, int n,
   return src;
 }
 
-template <typename W>
-__global__ void rate_grid_packed_kernel(const W* __restrict__ plane,
-                                        const int* __restrict__ meta,
-                                        float* __restrict__ out, int n,
-                                        int out_ld, int row0, Params P,
-                                        int mode) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
-  const float ph =
-      (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
-  StoreSink sink{out + lane, out_ld};
-  lane_windows(src, nullptr, 0, ph, mode, P, sink);
+constexpr size_t kShared48 = 48 * 1024;
+
+// Dynamic shared memory above 48 KB must be allowed before a launch.
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+  if (bytes <= kShared48) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
+// B3 on Hopper: rate_grid_packed_kernel replaces the TPU kernel
+// rate_grid_packed (filodb_tpu/ops/grid.py:1086-1127, body
+// _series_kernel_packed with the in-VMEM decode _decode_packed), and
+// serves all 22 ops of that kernel that read no ts plane, through
+// lane_windows and lane_windows_ext.
+//
+// What bounds it: bytes.  It must read rows [0, row0 + R) of each class
+// plane (the XOR prefix starts at block row 0), 1- to 4-byte words, the
+// meta rows, and write the [T, n] f32 output: at the main path's Q1
+// (102,400 lanes, T = 60, K = 5) about 41.6 MB, 0.0124 ms at 3.35 TB/s,
+// of which the output is 24.6 MB.
+//
+// Design.  The TPU kernel stages a lane tile's whole [nb, lt] block in
+// VMEM before it decodes.  A thread that reads its own lane's words from
+// device memory instead (one thread a lane, the design before this one)
+// has one 1- to 4-byte load in flight at a time and waits a memory
+// latency a row: a warp's load is 32 to 128 bytes, far too few in flight
+// for 3.35 TB/s.  Here a CTA owns a tile of kTile = 128 lanes of one class
+// plane: four consumer warps, one thread a lane, and one producer warp.
+// The producer streams rows [0, row0 + R) of the tile into a ring of
+// kStages stages in shared memory, by 16-byte cp.async (plain loads where
+// a row slice is not 16-byte aligned), each stage's arrival signalled on
+// an mbarrier, so up to three stages are in flight while the consumers
+// decode the fourth.  Each consumer reads its column of the ring through
+// SmemPackedSrc, the row source lane_windows and lane_windows_ext already
+// take, so every op's arithmetic is the code it was and its answers keep
+// their bits; the XOR prefix rows [0, row0) pass through the same source
+// once.  Every lane walks the same rows in the same order, so step t of
+// every lane reads only rows [row0 + (t - 1) * stride, row0 + t * stride
+// + K): at the end of a step the sink frees the stages behind it (an
+// arrival on each one's "empty" mbarrier) and waits for the next step's
+// stages, so the window loops themselves hold no barrier; the producer
+// refills a stage once all 128 consumers have freed it.
+//
+// The ring has the same bytes for every plane of a launch, the least of
+// 16, 32 and 64 KB in which every plane's step fits: a stage holds
+// ring / (4 * 128 * word) rows, and a step's stride + K rows must fit in
+// three stages.  At Q1 (stride + K = 6) that is 16 KB a CTA whatever the
+// word, so shared memory does not bound the CTAs an SM holds.  A
+// CTA whose plane's step fits no ring (the K-free dense ops go up to
+// K = 1,024) reads device memory directly, one thread a lane, as before.
+// One launch serves every class plane of a pack: a table gives each
+// plane's words, meta, width, output column and word kind, and each CTA
+// finds its plane from blockIdx.x, so only the decode depends on the word
+// type.  Output stores stay coalesced: a warp writes 32 neighbouring
+// floats of one [T, n] row a step.
+//
+// On the card (PERF.md section 6) this is no longer bound by bytes at
+// Q1's width: 102,400 lanes give an SM about 24 consumer warps, each
+// walking its rows serially (cursor steps, the counter correction, in the
+// free ops a cursor copy that re-walks each window), so the instruction
+// rate of that walk bounds it.
+
+constexpr int kTile = 128;        // lanes a CTA: one consumer thread each
+constexpr int kStages = 4;        // ring stages
+constexpr int kProducers = 32;    // the producer warp
+constexpr int kMaxPlanes = 4;     // p8, p16, p32, raw
+constexpr int kRingMin = 16 * 1024;
+constexpr int kRingMax = 64 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A wait that never
+// ends is a fault in the ring protocol: trap after 2^22 polls (a stage
+// arrives within microseconds), so the launch fails rather than hangs.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (unsigned polls = 0;; ++polls) {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (polls > (1u << 22)) __trap();
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// One arrival on bar once this thread's earlier cp.asyncs have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+struct RingBars {
+  uint64_t full[kStages];    // the stage's rows have landed (kProducers)
+  uint64_t empty[kStages];   // every consumer is done with it (kTile)
+};
+
+// log2 of the rows a ring stage of `ring_bytes` holds in words of
+// `word` bytes, and whether a step of stride + K rows fits in three
+// stages.
+__host__ __device__ inline int stage_shift(int ring_bytes, int word) {
+  int rows = ring_bytes / (kStages * kTile * word), shift = 0;
+  while ((2 << shift) <= rows) ++shift;
+  return shift;
+}
+
+__host__ __device__ inline bool step_fits(int ring_bytes, int word,
+                                          int stride, int K) {
+  return ring_bytes >= kRingMin
+      && stride + K <= (kStages - 1) << stage_shift(ring_bytes, word);
+}
+
+// One lane of an XOR-class plane, read from its column of the ring (the
+// decode of PackedSrc); r is the block row.  It never waits: the sink
+// below waits, once a step, for every row the next step reads, so that
+// nothing in a window's loop stops the compiler from batching its reads.
+template <typename W>
+struct SmemPackedSrc {
+  const W* col;
+  int mask;          // ring rows - 1
+  int r;
+  uint32_t shift;
+  uint32_t first;
+  uint32_t x;
+  __device__ float next() {
+    const uint32_t u = static_cast<uint32_t>(col[(r & mask) * kTile]) << shift;
+    ++r;
+    x ^= u;
+    return __uint_as_float(x ^ first);
+  }
+};
+
+// StoreSink that also runs the consumer's side of the ring.  Step t reads
+// only rows [row0 + (t - 1) * stride, row0 + t * stride + K): after step
+// t the sink frees the stages below row0 + t * stride and waits for the
+// stages below row0 + (t + 1) * stride + K, the next step's rows.
+struct RingStoreSink {
+  float* out;
+  long ld;
+  bool store;        // a thread past the plane's last lane stores nothing
+  RingBars* bars;
+  int cshift;        // log2 rows a stage
+  int row0, stride, K, rows;
+  int freed;         // stages freed so far, in ring order
+  int ready;         // stages waited for so far
+  __device__ void free_below(int row) {
+    for (; (freed + 1) << cshift <= row; ++freed)
+      mbar_arrive(bars->empty + freed % kStages);
+  }
+  __device__ void ready_below(int row) {
+    row = min(row, rows);
+    for (; ready << cshift < row; ++ready)
+      mbar_wait(bars->full + ready % kStages, (ready / kStages) & 1);
+  }
+  __device__ void operator()(int t, float v, bool) {
+    if (store) out[t * ld] = v;
+    free_below(row0 + t * stride);
+    ready_below(row0 + (t + 1) * stride + K);
+  }
+};
+
+// The producer warp: rows [0, rows) of the tile's nl lanes into the ring,
+// a stage of 1 << cshift rows at a time.
+template <typename W>
+__device__ void stage_rows(const W* plane, long n, int lane0, int nl,
+                           int rows, int cshift, W* ring, RingBars& bars) {
+  const int pt = static_cast<int>(threadIdx.x) - kTile;
+  const bool aligned = reinterpret_cast<uintptr_t>(plane) % 16 == 0
+      && (n * static_cast<long>(sizeof(W))) % 16 == 0;
+  const int pieces = nl * static_cast<int>(sizeof(W)) / 16;   // a row
+  const int chunk = 1 << cshift;
+  const int nchunks = (rows + chunk - 1) >> cshift;
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % kStages;
+    if (c >= kStages) mbar_wait(&bars.empty[s], (c / kStages - 1) & 1);
+    const int nr = min(chunk, rows - (c << cshift));
+    W* dst = ring + (s << cshift) * kTile;
+    const W* src = plane + (static_cast<long>(c) << cshift) * n + lane0;
+    if (aligned) {
+      for (int i = pt; i < nr * pieces; i += kProducers) {
+        const int r = i / pieces, k = i - r * pieces;
+        cp_async16(reinterpret_cast<char*>(dst + r * kTile) + 16 * k,
+                   reinterpret_cast<const char*>(src + r * n) + 16 * k);
+      }
+      cp_async_arrive(&bars.full[s]);
+    } else {
+      for (int i = pt; i < nr * nl; i += kProducers) {
+        const int r = i / nl, j = i - r * nl;
+        dst[r * kTile + j] = src[r * n + j];
+      }
+      mbar_arrive(&bars.full[s]);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// One lane's windows from its own decoding source into the [T, n] out.
+template <int Fam, class Src, class Sink>
+__device__ void packed_windows(Src src, const int* meta, int n, int lane,
+                               const Params& P, int mode, Sink& sink) {
+  if constexpr (Fam == F_BASE) {
+    const float ph =
+        (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
+    lane_windows(src, nullptr, 0, ph, mode, P, sink);
+  } else {
+    lane_windows_ext<Fam>(src, nullptr, 0, P, sink);
+  }
+}
+
+// One CTA's tile of one class plane.  Staged: the producer warp stages,
+// each consumer thread runs its lane's windows from the ring (a thread
+// past the plane's last lane walks the last lane again and stores
+// nothing, so that every consumer frees every stage).  Direct (the step
+// fits no ring): each consumer thread reads its lane from device memory.
 template <typename W, int Fam>
-__global__ void rate_grid_packed_ext_kernel(const W* __restrict__ plane,
-                                            const int* __restrict__ meta,
-                                            float* __restrict__ out, int n,
-                                            int out_ld, int row0, Params P) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  PackedSrc<W> src = packed_lane(plane, meta, n, lane, row0);
-  StoreSink sink{out + lane, out_ld};
-  lane_windows_ext<Fam>(src, nullptr, 0, P, sink);
+__device__ void packed_tile(const W* plane, const int* meta, int n,
+                            int tile, float* out, int out_ld, int row0,
+                            const Params P, int mode, int ring_bytes,
+                            W* ring, RingBars& bars) {
+  const int lane0 = tile * kTile;
+  const int nl = min(kTile, n - lane0);
+  const int word = static_cast<int>(sizeof(W));
+  if (!step_fits(ring_bytes, word, P.stride, P.K)) {
+    const int lane = lane0 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x >= kTile || lane >= n) return;
+    StoreSink sink{out + lane, out_ld};
+    packed_windows<Fam>(packed_lane(plane, meta, n, lane, row0), meta, n,
+                        lane, P, mode, sink);
+    return;
+  }
+  const int cshift = stage_shift(ring_bytes, word);
+  const int rows = row0 + (P.T - 1) * P.stride + P.K;
+  if (threadIdx.x >= kTile) {
+    stage_rows(plane, n, lane0, nl, rows, cshift, ring, bars);
+    return;
+  }
+  const int j = min(static_cast<int>(threadIdx.x), nl - 1);
+  const int lane = lane0 + j;
+  SmemPackedSrc<W> src{ring + j, (kStages << cshift) - 1, 0,
+                       static_cast<uint32_t>(meta[lane]),
+                       static_cast<uint32_t>(meta[n + lane]), 0u};
+  RingStoreSink sink{out + lane, out_ld,
+                     static_cast<int>(threadIdx.x) < nl, &bars, cshift,
+                     row0, P.stride, P.K, rows, 0, 0};
+  for (int r = 0; r < row0;) {           // the XOR prefix, a stage at a time
+    const int end = min(row0, ((r >> cshift) + 1) << cshift);
+    sink.ready_below(end);
+    for (; r < end; ++r) src.next();
+    sink.free_below(r);
+  }
+  sink.ready_below(row0 + P.K);          // step 0's rows
+  packed_windows<Fam>(src, meta, n, lane, P, mode, sink);
 }
 
-// One class plane through the packed kernel of the op's family (the
-// free families only: a packed plane has no ts).
-template <typename W>
-cudaError_t packed_run(const W* plane, const int* meta, float* out, int n,
-                       int out_ld, int row0, const Params& P, int mode,
-                       cudaStream_t s) {
-  const int grid = (n + kBlock - 1) / kBlock;
-  switch (family_of(P.op)) {
-    case F_BASE:
-      rate_grid_packed_kernel<W><<<grid, kBlock, 0, s>>>(
-          plane, meta, out, n, out_ld, row0, P, mode);
+// The class planes of one pack, in packed order; plane p's tiles are CTAs
+// [cta0[p], cta0[p + 1]).  kind: 0 uint8, 1 uint16, 2 uint32, 3 raw f32
+// read as its uint32 bits.
+struct PlaneTable {
+  const void* plane[kMaxPlanes];
+  const int* meta[kMaxPlanes];
+  int n[kMaxPlanes], col[kMaxPlanes], kind[kMaxPlanes];
+  int cta0[kMaxPlanes + 1];
+  int count;
+};
+
+inline int word_bytes(int kind) { return kind == 0 ? 1 : kind == 1 ? 2 : 4; }
+
+template <int Fam>
+__global__ void __launch_bounds__(kTile + kProducers)
+rate_grid_packed_kernel(const PlaneTable tab, float* __restrict__ out,
+                        int out_ld, int row0, Params P, int mode,
+                        int ring_bytes) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ RingBars bars;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars.full[s], kProducers);
+      mbar_init(&bars.empty[s], kTile);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int p = 0;
+  while (p + 1 < tab.count && static_cast<int>(blockIdx.x) >= tab.cta0[p + 1])
+    ++p;
+  const int tile = static_cast<int>(blockIdx.x) - tab.cta0[p];
+  float* o = out + tab.col[p];
+  switch (tab.kind[p]) {
+    case 0:
+      packed_tile<uint8_t, Fam>(static_cast<const uint8_t*>(tab.plane[p]),
+                                tab.meta[p], tab.n[p], tile, o, out_ld, row0,
+                                P, mode, ring_bytes,
+                                reinterpret_cast<uint8_t*>(ring), bars);
       break;
-    case F_CHANGES:
-      rate_grid_packed_ext_kernel<W, F_CHANGES><<<grid, kBlock, 0, s>>>(
-          plane, meta, out, n, out_ld, row0, P);
-      break;
-    case F_MOMENTS:
-      rate_grid_packed_ext_kernel<W, F_MOMENTS><<<grid, kBlock, 0, s>>>(
-          plane, meta, out, n, out_ld, row0, P);
-      break;
-    case F_SORT:
-      rate_grid_packed_ext_kernel<W, F_SORT><<<grid, kBlock, 0, s>>>(
-          plane, meta, out, n, out_ld, row0, P);
-      break;
-    case F_HOLT:
-      rate_grid_packed_ext_kernel<W, F_HOLT><<<grid, kBlock, 0, s>>>(
-          plane, meta, out, n, out_ld, row0, P);
+    case 1:
+      packed_tile<uint16_t, Fam>(static_cast<const uint16_t*>(tab.plane[p]),
+                                 tab.meta[p], tab.n[p], tile, o, out_ld,
+                                 row0, P, mode, ring_bytes,
+                                 reinterpret_cast<uint16_t*>(ring), bars);
       break;
     default:
-      return cudaErrorInvalidValue;
+      packed_tile<uint32_t, Fam>(static_cast<const uint32_t*>(tab.plane[p]),
+                                 tab.meta[p], tab.n[p], tile, o, out_ld,
+                                 row0, P, mode, ring_bytes,
+                                 reinterpret_cast<uint32_t*>(ring), bars);
   }
-  return cudaGetLastError();
+}
+
+// The ring for a launch: the least of 16, 32 and 64 KB in which every
+// plane's step fits, or none when no plane's step fits even in 64 KB.
+int ring_bytes_for(const PlaneTable& tab, const Params& P) {
+  int need = 0;
+  for (int i = 0; i < tab.count; ++i) {
+    const int w = word_bytes(tab.kind[i]);
+    int b = kRingMin;
+    while (b <= kRingMax && !step_fits(b, w, P.stride, P.K)) b *= 2;
+    if (b <= kRingMax && b > need) need = b;
+  }
+  return need;
+}
+
+template <int Fam>
+int packed_launch(const PlaneTable& tab, float* out, int out_ld, int row0,
+                  const Params& P, int mode, cudaStream_t s) {
+  const int ring_bytes = ring_bytes_for(tab, P);
+  const cudaError_t rc =
+      allow_shared(rate_grid_packed_kernel<Fam>, ring_bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rate_grid_packed_kernel<Fam><<<tab.cta0[tab.count], kTile + kProducers,
+                                 ring_bytes, s>>>(
+      tab, out, out_ld, row0, P, mode, ring_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One CTA per group of group_lanes contiguous lanes of vals [nb, ns]; the
@@ -901,8 +1328,6 @@ struct GroupShape {
   bool acc_shared;
 };
 
-constexpr size_t kShared48 = 48 * 1024;
-
 GroupShape group_shape(int group_lanes, int hb, int T) {
   if (hb == 1) {
     int warps = (group_lanes + 31) / 32;
@@ -917,14 +1342,6 @@ GroupShape group_shape(int group_lanes, int hb, int T) {
   const size_t acc = 2 * static_cast<size_t>(hb) * T * sizeof(float);
   if (row + acc <= kShared48) return {threads, row + acc, true};
   return {threads, row, false};
-}
-
-template <typename K>
-cudaError_t allow_shared(K kernel, size_t bytes) {
-  if (bytes <= kShared48) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 // One grouped kernel launched at shape g (its shared memory allowed
@@ -1125,39 +1542,54 @@ int rate_grid_launch(const void* vals, const void* ts, const void* phase,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rate_grid_packed_launch(const void* plane, const void* meta, void* out,
-                            int kind, int nb, int n, int out_ld, int col,
-                            int row0, int T, int K, int stride, int g,
-                            int op, int use_phase, int dense, int is_rate,
-                            FN_ARGS, void* stream) {
-  (void)nb;
-  if (!args_ok(op, K) || reads_ts(family_of(op)))
+// Every class plane of a pack in one launch: nplanes (1 to 4) planes in
+// packed order, plane i's words at planes[i] (kinds[i]: 0 uint8, 1
+// uint16, 2 uint32, 3 raw f32 bits), its [8, widths[i]] int32 meta at
+// metas[i], its output columns [cols[i], cols[i] + widths[i]) of the
+// [T, out_ld] f32 out.
+int rate_grid_packed_launch(const void* const* planes,
+                            const void* const* metas, const int* widths,
+                            const int* cols, const int* kinds, int nplanes,
+                            void* out, int out_ld, int row0, int T, int K,
+                            int stride, int g, int op, int use_phase,
+                            int dense, int is_rate, FN_ARGS, void* stream) {
+  if (!args_ok(op, K) || reads_ts(family_of(op)) || nplanes < 1
+      || nplanes > kMaxPlanes || T < 1 || stride < 1 || row0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params P{T, K, stride, g, 0, op, dense, is_rate, farg, farg2, rank_lo,
            rank_hi, w_lo, w_hi, fill};
-  const int mode = use_phase ? PHASE : FREE;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* m = static_cast<const int*>(meta);
-  float* o = static_cast<float*>(out) + col;
-  cudaError_t rc;
-  switch (kind) {
-    case 0:
-      rc = packed_run(static_cast<const uint8_t*>(plane), m, o, n, out_ld,
-                      row0, P, mode, s);
-      break;
-    case 1:
-      rc = packed_run(static_cast<const uint16_t*>(plane), m, o, n, out_ld,
-                      row0, P, mode, s);
-      break;
-    case 2:
-    case 3:
-      rc = packed_run(static_cast<const uint32_t*>(plane), m, o, n, out_ld,
-                      row0, P, mode, s);
-      break;
-    default:
-      rc = cudaErrorInvalidValue;
+  PlaneTable tab{};
+  int ctas = 0;
+  for (int i = 0; i < nplanes; ++i) {
+    if (kinds[i] < 0 || kinds[i] > 3 || widths[i] < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.plane[i] = planes[i];
+    tab.meta[i] = static_cast<const int*>(metas[i]);
+    tab.n[i] = widths[i];
+    tab.col[i] = cols[i];
+    tab.kind[i] = kinds[i];
+    tab.cta0[i] = ctas;
+    ctas += (widths[i] + kTile - 1) / kTile;
   }
-  return static_cast<int>(rc);
+  tab.cta0[nplanes] = ctas;
+  tab.count = nplanes;
+  const int mode = use_phase ? PHASE : FREE;
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (family_of(op)) {
+    case F_BASE:
+      return packed_launch<F_BASE>(tab, o, out_ld, row0, P, mode, s);
+    case F_CHANGES:
+      return packed_launch<F_CHANGES>(tab, o, out_ld, row0, P, mode, s);
+    case F_MOMENTS:
+      return packed_launch<F_MOMENTS>(tab, o, out_ld, row0, P, mode, s);
+    case F_SORT:
+      return packed_launch<F_SORT>(tab, o, out_ld, row0, P, mode, s);
+    case F_HOLT:
+      return packed_launch<F_HOLT>(tab, o, out_ld, row0, P, mode, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // sum and cnt: [ns / group_lanes, T] f32.

@@ -1023,40 +1023,64 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
 rate_grid.launches = 0
 
 
+class PlaneEntry(NamedTuple):
+    """One class plane of a pack, as the packed kernel's table gives it."""
+    plane: torch.Tensor      # [B, n] words
+    meta: torch.Tensor       # [8, n] int32
+    n: int                   # lanes
+    col: int                 # its first column of the [T, packed_width] out
+    kind: int                # 0 uint8, 1 uint16, 2 uint32, 3 raw f32 bits
+
+
+def packed_plane_table(packed: dict) -> list:
+    """The table :func:`rate_grid_packed` hands its one kernel launch:
+    every non-empty class plane in packed order, with its width, output
+    column (the widths before it) and word kind."""
+    table, col = [], 0
+    for p, m, kind in _packed_planes(packed):
+        table.append(PlaneEntry(p, m, p.shape[1], col, kind))
+        col += p.shape[1]
+    return table
+
+
 def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
                      row0: int = 0, use_phase: bool = False):
     """Per-series windowed function over XOR-class packed residents:
     class planes -> ``[T, packed_width]`` f32 in PACKED lane order (map
-    back through the pack's ``inv``).  One kernel launch per non-empty
-    class plane; the decode starts at block row 0 and the query reads
-    rows ``[row0, row0 + rows_needed)``.  ``use_phase`` selects the
-    uniform-phase mode reading meta row 2; otherwise only TS_FREE ops
-    are legal.  CPU tensors run :func:`rate_grid_packed_ref`."""
-    planes = _packed_planes(packed)
-    if not planes:
+    back through the pack's ``inv``).  One kernel launch serves every
+    class plane (:func:`packed_plane_table`); the decode starts at block
+    row 0 and the query reads rows ``[row0, row0 + rows_needed)``.
+    ``use_phase`` selects the uniform-phase mode reading meta row 2;
+    otherwise only TS_FREE ops are legal.  CPU tensors run
+    :func:`rate_grid_packed_ref`."""
+    table = packed_plane_table(packed)
+    if not table:
         raise ValueError("pack has no class planes")
-    if planes[0][0].device.type == "cpu":
+    if table[0].plane.device.type == "cpu":
         return rate_grid_packed_ref(packed, steps0, q, row0, use_phase)
-    dev = _cuda_device(planes[0][0], "rate_grid_packed")
+    dev = _cuda_device(table[0].plane, "rate_grid_packed")
     _packed_check(packed, q, row0, use_phase)
     fn_args = _fn_args(q)
+    for e in table:
+        _plane_pointers(e.plane, e.meta, e.kind, dev)
     width = packed_width(packed)
     out = torch.empty((q.nsteps, width), dtype=torch.float32, device=dev)
+    k = len(table)
     lib = kernels.library()
-    col = 0
-    for p, m, kind in planes:
-        nb, n = p.shape
-        pp, mp = _plane_pointers(p, m, kind, dev)
-        with torch.cuda.device(dev):
-            rc = lib.rate_grid_packed_launch(
-                pp, mp, ctypes.c_void_p(out.data_ptr()),
-                *_int32_args(kind, nb, n, width, col, row0, q.nsteps,
-                             q.kbuckets, q.stride, q.gstep_ms,
-                             _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
-                *fn_args, _stream())
-        rate_grid_packed.launches += 1
-        _launch_check(rc, "rate_grid_packed")
-        col += n
+    with torch.cuda.device(dev):
+        rc = lib.rate_grid_packed_launch(
+            (ctypes.c_void_p * k)(*[e.plane.data_ptr() for e in table]),
+            (ctypes.c_void_p * k)(*[e.meta.data_ptr() for e in table]),
+            (ctypes.c_int * k)(*_int32_args(*[e.n for e in table])),
+            (ctypes.c_int * k)(*_int32_args(*[e.col for e in table])),
+            (ctypes.c_int * k)(*[e.kind for e in table]), k,
+            ctypes.c_void_p(out.data_ptr()),
+            *_int32_args(width, row0, q.nsteps, q.kbuckets, q.stride,
+                         q.gstep_ms, _OP_CODE[q.op], use_phase, q.dense,
+                         q.is_rate),
+            *fn_args, _stream())
+    rate_grid_packed.launches += 1
+    _launch_check(rc, "rate_grid_packed")
     return out
 
 

@@ -86,11 +86,15 @@ def library() -> ctypes.CDLL:
             #  mode, dense, is_rate; function arguments; stream)
             lib.rate_grid_launch.argtypes = \
                 [ptr] * 4 + [i32] * 11 + fn_args + [ptr]
-            # (plane, meta, out; kind, nb, n, out_ld, col, row0, T, K,
-            #  stride, g, op, use_phase, dense, is_rate; function
-            #  arguments; stream)
+            # (planes, metas: void*[k]; widths, cols, kinds: int[k]; k;
+            #  out; out_ld, row0, T, K, stride, g, op, use_phase, dense,
+            #  is_rate; function arguments; stream): every class plane of
+            #  a pack in one launch
+            ptrs = ctypes.POINTER(ptr)
+            ints = ctypes.POINTER(i32)
             lib.rate_grid_packed_launch.argtypes = \
-                [ptr] * 3 + [i32] * 14 + fn_args + [ptr]
+                [ptrs, ptrs, ints, ints, ints, i32, ptr] + [i32] * 10 \
+                + fn_args + [ptr]
             # (vals, ts, phase, sum, cnt; nb, ns, group_lanes, T, K,
             #  stride, g, steps0, op, mode, dense, is_rate; function
             #  arguments; stream)
