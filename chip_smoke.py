@@ -9,7 +9,8 @@ Phases, each timed on a line of its own:
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
-   csrc/grid_kernels.cu``;
+   csrc/grid_kernels.cu`` and ``csrc/hist_staged.cu`` (one ``nvcc`` a
+   source, in parallel);
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
    of the TPU kernels, each in every mode the TPU kernel serves it, at
@@ -31,11 +32,14 @@ Phases, each timed on a line of its own:
    512-lane groups, the last one all-NaN, quantile at K=32 and with phi
    1.5), ``rate_grid_grouped_packed`` over a p8 plane and a p16 plane of
    whole groups (the phase ops and the 14 that read no timestamps, row0
-   = 3, stride 2), ``hist_grid_grouped_packed`` at hb = 4, 16, 20 (row0
-   0 and 3, a dead series, the phase ops and every free op); each held
-   against its plain PyTorch version run on the same CUDA tensors (m4
-   bit for bit, grouped counts equal, sums rtol 2e-5), and the packed
-   grouped kernels refusing the 5 ops that read timestamps;
+   = 3, stride 2), ``hist_grid_grouped_packed`` case by case (b5_sweep:
+   hb 4, 16, 20 and 160, row0 0, 3, 20 and 40 on p16 and p8 planes,
+   strides 1 and 2, a dead series, every op it serves, groups of either
+   lane tile of the staged kernel, a K = 120 window on the direct kernel,
+   sums bit for bit but rate and increase); each held against its plain
+   PyTorch version run on the same CUDA tensors (m4 bit for bit, grouped
+   counts equal, sums rtol 2e-5), and the packed grouped kernels refusing
+   the 5 ops that read timestamps;
 4. main    — one shard of ``prom-counter`` data at high cardinality
    (``req_total``: 100 pods x 1,024 series, 260 one-minute samples,
    constant per-series phase, integer increments 0-9, a reset in 1% of
@@ -88,8 +92,10 @@ Phases, each timed on a line of its own:
    launch counters reset just before and read just after (exactly one
    rate_grid_grouped, one rate_grid_grouped_packed, one
    hist_grid_grouped_packed and two rate_grid_packed launches); each new
-   kernel against its plain version at those widths and timed; the
-   grouped kernels in the second op set on the same data (13 ops on
+   kernel against its plain version at those widths and timed (the
+   staged hist_grid_grouped_packed with no launch of its direct kernel
+   on the path); the grouped kernels in the
+   second op set on the same data (13 ops on
    rate_grid_grouped, the 5 that read timestamps over the dense
    variant's ts plane; 8 each on rate_grid_grouped_packed and
    hist_grid_grouped_packed), each against its plain version, its
@@ -866,9 +872,9 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
     rate_grid_grouped in every op/mode (gappy lanes, strides 1 and 2, a
     group of all-NaN lanes, quantile at K = 32 and with phi 1.5),
     rate_grid_grouped_packed over a two-plane pack (phase and free ops,
-    row0 = 3, stride 2), hist_grid_grouped_packed at hb 4, 16 and 20
-    (row0 0 and 3, a dead series, every free op); then the packed ones
-    refusing the ops that read timestamps."""
+    row0 = 3, stride 2), hist_grid_grouped_packed case by case
+    (:func:`b5_sweep`); then the packed ones refusing the ops that read
+    timestamps."""
     import numpy as np
     import torch
     from filodb_tpu_torch.codecs import xorgrid
@@ -942,48 +948,176 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
             partial(grid.rate_grid_grouped_packed, *args),
             partial(grid.rate_grid_grouped_packed_ref, *args),
             grouped_packed_work(pk, q, row0, use_phase, S // GL), op)
-    # B5: 48 groups of 16 series x hb buckets, series 1 dead
-    for hb in (4, 16, 20):
-        per, ngroups = 16, 48
-        cols = ngroups * per * hb
-        v = _counters_np(rng, B, cols)
-        v[:, hb:2 * hb] = np.nan
-        phase = np.repeat(rng.integers(1, STEP, cols // hb), hb)
-        hp = xorgrid.pack_vals(v, phase=phase.astype(np.int32), min_width=16,
-                               stride=hb)
-        if hp is None or not (hp.inv == np.arange(cols)).all():
-            raise AssertionError(f"hb={hb}: not an identity stride pack")
-        hpk = xorgrid.packed_to_torch(hp, device)
-        for row0, use_phase, dense, op in (
-                [(0, True, True, "rate"), (3, True, True, "rate"),
-                 (3, False, True, "sum")]
-                + [(3, False, True, o) for o in FREE_SECOND_OPS]
-                + [(3, False, False, o) for o in MOMENT_OPS]):
-            q = sweep_query(op, dense, 1, B - row0 - K + 1)
-            args = (hpk, 0, q, hb, per * hb, row0, use_phase)
-            run("hist_grid_grouped_packed",
-                f"hist_grid_grouped_packed hb={hb} row0={row0} "
-                f"{'phase' if use_phase else 'free'}-"
-                f"{'dense' if dense else 'gappy'}-{op}",
-                partial(grid.hist_grid_grouped_packed, *args),
-                partial(grid.hist_grid_grouped_packed_ref, *args),
-                grouped_packed_work(hpk, q, row0, use_phase, ngroups * hb),
-                op)
-    # a packed plane has no ts: the packed kernels refuse those ops
+    # B5, case by case (b5_sweep)
+    worst = max(worst, b5_sweep(device, reps, seed, rows, flush))
+    # a packed plane has no ts: the packed kernels refuse those ops (B5's
+    # refusal in b5_sweep)
     for op in TS_SECOND_OPS:
         q = sweep_query(op, True, 1, B - K + 1)
-        for call in (partial(grid.rate_grid_grouped_packed, pk, 0, q, GL,
-                             0, False),
-                     partial(grid.hist_grid_grouped_packed, hpk, 0, q, 20,
-                             16 * 20, 0, False)):
-            try:
-                call()
-            except ValueError:
-                continue
-            raise AssertionError(f"a packed grouped kernel accepted op {op}")
+        try:
+            grid.rate_grid_grouped_packed(pk, 0, q, GL, 0, False)
+        except ValueError:
+            continue
+        raise AssertionError(f"a packed grouped kernel accepted op {op}")
     log(f"packed grouped kernels refuse the {len(TS_SECOND_OPS)} ops that "
         f"read timestamps")
     report["grouped_sweep"] = rows
+    return worst
+
+
+# B5's op cases (use_phase, dense, op): the phase ops, the six first free
+# ops, the free ops of the second op set dense, the moments gappy
+B5_OPS = ([(True, True, o) for o in ("rate", "increase", "delta")]
+          + [(False, True, o) for o in ("sum", "count", "avg", "min", "max",
+                                        "last")]
+          + [(False, True, o) for o in FREE_SECOND_OPS]
+          + [(False, False, o) for o in MOMENT_OPS])
+B5_ROWS = 128
+B5_PER = 16                     # series a group
+
+
+def b5_pack(rng, hb: int, groups: int, small: bool):
+    """A stride pack of ``groups`` groups of B5_PER series x ``hb``
+    buckets (B5_ROWS rows; a p8 plane when ``small``, else p16), series
+    1 dead, one scrape phase a series."""
+    import numpy as np
+    from filodb_tpu_torch.codecs import xorgrid
+    cols = groups * B5_PER * hb
+    v = _counters_np(rng, B5_ROWS, cols, small)
+    v[:, hb:2 * hb] = np.nan
+    phase = np.repeat(rng.integers(1, STEP, cols // hb), hb)
+    hp = xorgrid.pack_vals(v, phase=phase.astype(np.int32),
+                           min_width=8 if small else 16, stride=hb)
+    key = "p8" if small else "p16"
+    if hp is None or not (hp.inv == np.arange(cols)).all() or [
+            k for k in ("p8", "p16", "raw")
+            if k in hp.planes and hp.planes[k].shape[1]] != [key]:
+        raise AssertionError(f"hb={hb}: not an identity {key} stride pack")
+    return hp
+
+
+def compare_grouped_bits(got, want, case: str, op: str) -> float:
+    """(sum, count) against the plain version's: counts equal, sums the
+    same bits in every cell but NaN ones (same NaN cells), but rate and
+    increase (the correction prefix's order: :func:`compare_grouped`)."""
+    import torch
+    if op in ("rate", "increase"):
+        return compare_grouped(got, want, case, op)
+    (gs, gc), (ws, wc) = got, want
+    if not torch.equal(gc, wc):
+        raise AssertionError(f"{case}: counts differ in "
+                             f"{int((gc != wc).sum())} cells")
+    return compare_bits(gs, ws, case)
+
+
+def b5_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
+    """hist_grid_grouped_packed (B5) against its plain version on the same
+    card tensors, case by case (:data:`B5_OPS` in each): hb 4, 16 and 20
+    over 48 groups of a p16 plane at row0 0 (rate) and 3, and hb 160 (more
+    buckets than a lane tile) over 16 groups, each timed; then, checked
+    only: hb 20 at row0 20 and stride 2 (rows beyond a ring stage, and
+    T = 52, not a multiple of the bucket-sum chunk); p8 planes at hb 4
+    (64-lane groups: the 128-lane tile), 16 and 160, row0 40, strides 1
+    and 2; a K = 120 window, whose step fits no ring (the direct kernel:
+    ``hist_grid_grouped_packed.direct`` counts it, and nothing else); the
+    ops that read timestamps refused.  Sums bit for bit but rate and
+    increase (rtol 2e-5), counts equal (:func:`compare_grouped_bits`).
+    Raises naming every case that failed."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.codecs import xorgrid
+    from filodb_tpu_torch.ops import grid
+
+    fn = grid.hist_grid_grouped_packed
+    rng = np.random.default_rng([seed, 8])
+    packs = {}
+    for name, hb, groups, small in (("p16 hb=4", 4, 48, False),
+                                    ("p16 hb=16", 16, 48, False),
+                                    ("p16 hb=20", 20, 48, False),
+                                    ("p16 hb=160", 160, 16, False),
+                                    ("p8 hb=4", 4, 48, True),
+                                    ("p8 hb=16", 16, 48, True),
+                                    ("p8 hb=160", 160, 16, True)):
+        packs[name] = (hb, groups, xorgrid.packed_to_torch(
+            b5_pack(rng, hb, groups, small), device))
+    worst, failed, ncases = 0.0, [], 0
+
+    def run(name, q, row0, use_phase, timed=False, direct=False):
+        nonlocal worst, ncases
+        hb, groups, pk = packs[name]
+        args = (pk, 0, q, hb, B5_PER * hb, row0, use_phase)
+        case = (f"hist_grid_grouped_packed {name} row0={row0} "
+                f"stride={q.stride} K={q.kbuckets} T={q.nsteps} "
+                f"{'phase' if use_phase else 'free'}-"
+                f"{'dense' if q.dense else 'gappy'}-{q.op}")
+        d0 = fn.direct
+        before = fn.launches
+        got = fn(*args)
+        want = grid.hist_grid_grouped_packed_ref(*args)
+        torch.cuda.synchronize()
+        ncases += 1
+        try:
+            if fn.launches - before != 1:
+                raise AssertionError(f"{case}: {fn.launches - before} "
+                                     f"launches, expected 1")
+            if fn.direct - d0 != int(direct):
+                raise AssertionError(f"{case}: direct launches "
+                                     f"{fn.direct - d0}, expected "
+                                     f"{int(direct)}")
+            err = compare_grouped_bits(got, want, case, q.op)
+        except AssertionError as e:
+            failed.append(str(e))
+            return
+        worst = max(worst, err)
+        row = {"kernel": "hist_grid_grouped_packed", "case": case,
+               "op": q.op, "max_abs_err": err}
+        if timed:
+            bms, by = bound_ms(*grouped_packed_work(
+                pk, q, row0, use_phase, groups * hb))
+            row.update(ms=cuda_ms(partial(fn, *args), reps, flush),
+                       plain_ms=cuda_ms(
+                           partial(grid.hist_grid_grouped_packed_ref, *args),
+                           reps, flush), bound_ms=bms)
+            log(f"{case}: ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                f"bound_ms {bms:.4f} ({by}) max_abs_err {err:.3e} ok")
+        rows.append(row)
+
+    for name in ("p16 hb=4", "p16 hb=16", "p16 hb=20", "p16 hb=160"):
+        run(name, sweep_query("rate", True, 1, B5_ROWS - K + 1), 0, True,
+            timed=True)
+        for use_phase, dense, op in B5_OPS:
+            run(name, sweep_query(op, dense, 1, B5_ROWS - 3 - K + 1), 3,
+                use_phase, timed=(op in ("rate", "sum")
+                                  or op in FREE_SECOND_OPS
+                                  or not dense))
+    for use_phase, dense, op in B5_OPS:
+        run("p16 hb=20", sweep_query(op, dense, 2, (B5_ROWS - 20 - K) // 2
+                                     + 1), 20, use_phase)
+    for name in ("p8 hb=4", "p8 hb=16", "p8 hb=160"):
+        for stride in (1, 2):
+            q0 = partial(sweep_query, stride=stride,
+                         nsteps=(B5_ROWS - 40 - K) // stride + 1)
+            for use_phase, dense, op in B5_OPS:
+                run(name, q0(op, dense), 40, use_phase)
+    for op, use_phase in (("rate", True), ("last", False)):
+        run("p16 hb=16", sweep_query(op, True, 1, 3, k=120), 3, use_phase,
+            direct=True)
+    hb, _g, pk = packs["p16 hb=20"]
+    for op in TS_SECOND_OPS:
+        try:
+            fn(pk, 0, sweep_query(op, True, 1, B5_ROWS - K + 1), hb,
+               B5_PER * hb, 0, False)
+        except ValueError:
+            continue
+        failed.append(f"hist_grid_grouped_packed accepted op {op}")
+    if failed:
+        raise AssertionError(f"b5 sweep: {len(failed)} of {ncases} cases "
+                             f"failed:\n" + "\n".join(failed))
+    log(f"b5 sweep: {ncases} cases, sums bit-equal (rate, increase within "
+        f"rtol {RTOL_KERNEL}; max_abs_err {worst:.3e}), counts equal, one "
+        f"launch a call, the K = 120 cases on the direct kernel and no "
+        f"other, the {len(TS_SECOND_OPS)} ops that read timestamps "
+        f"refused")
     return worst
 
 
@@ -1719,6 +1853,11 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             rows[name] = {"launches": launched}
         totals = grid.launch_counts()
         log(f"northstar path launches {totals}")
+        direct = grid.hist_grid_grouped_packed.direct
+        if direct:
+            raise AssertionError(f"northstar hist: {direct} launches of the "
+                                 f"direct bucket kernel, expected the "
+                                 f"staged one")
 
     flush = make_flush(device)
     kern_rows = {}
@@ -1863,7 +2002,7 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         log(f"build seconds {build_s:.3f}")
         for line in ptxas_summary(kernels.build_log):
-            log(f"  grid_kernels.cu: {line}")
+            log(f"  csrc: {line}")
         report["build_seconds"] = build_s
         report["build_log"] = kernels.build_log
     with Phase("kernels"):
@@ -1918,6 +2057,9 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
     sweep = (report["kernel_sweep"] + report["b3_sweep"]
              + report["grouped_sweep"] + northstar["second_ops"])
+    sources = {k: "filodb_tpu_torch/csrc/grid_kernels.cu" for k in replaces}
+    sources["hist_grid_grouped_packed"] = \
+        "filodb_tpu_torch/csrc/hist_staged.cu"
     entries = []
     for kname in replaces:
         row = path_rows[kname]
@@ -1925,7 +2067,7 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
         errs += [r["max_abs_err"] for r in sweep if r["kernel"] == kname]
         entries.append({
             "name": kname, "route": "cuda",
-            "source": "filodb_tpu_torch/csrc/grid_kernels.cu",
+            "source": sources[kname],
             "replaces": replaces[kname],
             "launches": launches[kname],
             "max_abs_err": max(errs + [row["max_abs_err"]]),

@@ -88,745 +88,13 @@
 // for each other, and the warps' rows added in warp order at the end.
 // hb buckets (BucketSink, any hb): a shared row of the lanes' values a
 // step, which thread j adds to bucket j's running sum in lane order, one
-// barrier a step.
+// barrier a step.  hist_grid_grouped_packed takes this kernel only where
+// a step fits no shared-memory ring; every other plane goes to the
+// staged kernel of hist_staged.cu, which replaces it there.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "grid_device.cuh"
 
 namespace {
-
-enum Op { SUM = 0, COUNT = 1, AVG = 2, MIN = 3, MAX = 4, LAST = 5,
-          RATE = 6, INCREASE = 7, DELTA = 8, IRATE = 9, IDELTA = 10,
-          CHANGES = 11, RESETS = 12, STDDEV = 13, STDVAR = 14, ZSCORE = 15,
-          DERIV = 16, PREDICT_LINEAR = 17, TIMESTAMP = 18, QUANTILE = 19,
-          MAD = 20, HOLT_WINTERS = 21 };
-enum Mode { FREE = 0, PHASE = 1, TS = 2 };
-
-constexpr int kBlock = 128;
-constexpr int kIBig = 1 << 30;
-constexpr int kSortMaxK = 32;      // quantile/mad window cap (SORT_OPS_MAX_K)
-
-struct Params {
-  int T, K, stride, g, steps0, op, dense, is_rate;
-  float farg, farg2;   // predict_linear's horizon; holt_winters' factors
-  int rank_lo, rank_hi;        // quantile/mad interpolation ranks
-  float w_lo, w_hi, fill;      // their weights; rank_lo < 0: fill
-};
-
-// One lane of a decoded f32 plane, read row by row.
-struct DenseSrc {
-  const float* p;
-  long ld;
-  __device__ float next() {
-    float v = *p;
-    p += ld;
-    return v;
-  }
-};
-
-// One lane of an XOR-class plane: widen -> shift -> running XOR ->
-// XOR the first-row bits -> bitcast.  W is the stored word (uint8,
-// uint16, uint32; raw f32 planes are read as their uint32 bits).
-template <typename W>
-struct PackedSrc {
-  const W* p;
-  long ld;
-  uint32_t shift;
-  uint32_t first;
-  uint32_t x;
-  __device__ float next() {
-    uint32_t u = static_cast<uint32_t>(*p) << shift;
-    p += ld;
-    x ^= u;
-    return __uint_as_float(x ^ first);
-  }
-};
-
-// A row cursor: the source plus the running counter-correction state.
-// After step(), raw is the row's value and val its corrected value.
-template <class Src>
-struct Cursor {
-  Src src;
-  int r;
-  float prev, acc, raw, val;
-
-  __device__ explicit Cursor(Src s)
-      : src(s), r(0), prev(0.f), acc(0.f), raw(0.f), val(0.f) {}
-
-  // correct: add the running sum of counter drops.  ffill: the previous
-  // sample is the last FINITE one (row 0's before any); otherwise it is
-  // the previous row.  NaN compares false, so it never drops.
-  __device__ void step(bool correct, bool ffill) {
-    float v = src.next();
-    if (correct) {
-      if (r == 0) prev = v;
-      float drop = (v < prev) ? prev : 0.f;
-      acc = acc + drop;
-      val = v + acc;
-      if (!ffill || isfinite(v)) prev = v;
-    } else {
-      val = v;
-    }
-    raw = v;
-    ++r;
-  }
-
-  __device__ void advance_to(int row_end, bool correct, bool ffill) {
-    while (r < row_end) step(correct, ffill);
-  }
-};
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (b < a ? b : a);
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (b > a ? b : a);
-}
-
-// Window t's end, epoch-relative int32 ms (wrapping as int32 does).
-__device__ __forceinline__ int window_end(int t, const Params& P) {
-  return static_cast<int>(static_cast<unsigned>(P.steps0)
-      + static_cast<unsigned>(t) * static_cast<unsigned>(P.g * P.stride));
-}
-
-// Prometheus extrapolatedRate (RateFunctions.scala:37-80) for window t.
-__device__ float extrapolate(float nf, int t1, int t2, float v1, float v2,
-                             int t, const Params& P) {
-  float hi = static_cast<float>(window_end(t, P));
-  float window = static_cast<float>(P.K * P.g);
-  float lo = hi - window;
-  float t1f = static_cast<float>(t1);
-  float t2f = static_cast<float>(t2);
-  float dur_start = (t1f - lo) / 1000.0f;
-  float dur_end = (hi - t2f) / 1000.0f;
-  float sampled = (t2f - t1f) / 1000.0f;
-  float avg_dur = sampled / fmaxf(nf - 1.0f, 1.0f);
-  float delta = v2 - v1;
-  if (P.op != DELTA) {  // counter zero-point clamp (rate/increase)
-    float dur_zero = sampled * v1 / (delta == 0.f ? 1.f : delta);
-    if (delta > 0.f && v1 >= 0.f && dur_zero < dur_start)
-      dur_start = dur_zero;
-  }
-  float thresh = avg_dur * 1.1f;
-  float half = avg_dur / 2.0f;
-  float extrap = sampled + (dur_start < thresh ? dur_start : half)
-      + (dur_end < thresh ? dur_end : half);
-  float scaled = delta * extrap / (sampled == 0.f ? 1.f : sampled);
-  if (P.op == RATE && P.is_rate) scaled = scaled / (window / 1000.0f);
-  return (nf >= 2.f && sampled > 0.f) ? scaled : NAN;
-}
-
-// rate/increase/delta under dense + uniform phase: the geometry is a
-// per-lane constant, the formula divide-free (grid.py _phase_block_raw).
-__device__ float phase_rate(float v1, float delta, float phase,
-                            const Params& P) {
-  const int K = P.K, g = P.g;
-  if (P.op == DELTA)
-    return delta * static_cast<float>(static_cast<double>(K) / (K - 1));
-  float sampled = static_cast<float>(static_cast<double>((K - 1) * g) * 1e-3);
-  float phase_s = phase * static_cast<float>(1e-3);
-  float g_s = static_cast<float>(static_cast<double>(g) * 1e-3);
-  float num = (P.op == RATE && P.is_rate)
-      ? static_cast<float>(1e3 / static_cast<double>(K * g)) : 1.0f;
-  float scale = num / sampled;
-  float end_sc = (sampled + g_s - phase_s) * scale;
-  float sv1 = sampled * v1;
-  float pd = phase_s * delta;
-  float start_num = (sv1 < pd && v1 >= 0.f) ? sv1 : pd;
-  return delta * end_sc + start_num * scale;
-}
-
-// Sink of the per-lane kernels: step t's value to out[t * ld].
-struct StoreSink {
-  float* out;
-  long ld;
-  __device__ void operator()(int t, float v, bool) { out[t * ld] = v; }
-};
-
-// The grouped kernels' sinks.  Each CTA owns one group and takes its lanes
-// blockDim at a time (a pass); begin() opens a pass, the sink is called
-// at every step of every lane, and finish() writes the group's (sum,
-// count) rows, slot j's step t at sum[j * T + t].  Both keep their
-// running sums in shared memory, zeroed by make() (BucketSink in the
-// zeroed output rows when they do not fit), and add in a fixed order,
-// with no atomics.
-
-// One bucket a group (hb = 1).  Each warp reduces its 32 lanes by
-// shuffles and its lane 0 adds the result to the warp's own row of
-// partials [T] (sum, then count), so warps never wait for each other;
-// finish() adds the warps' rows in warp order.  Shared: 2 * T floats a
-// warp.
-struct WarpSumSink {
-  float* part;
-  int T;
-  bool active;
-
-  __device__ static int warp() { return static_cast<int>(threadIdx.x) >> 5; }
-
-  __device__ static WarpSumSink make(float* sh, int T, int, float*, float*,
-                                     bool) {
-    const int n = 2 * T * static_cast<int>(blockDim.x >> 5);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sh[i] = 0.f;
-    __syncthreads();
-    return WarpSumSink{sh + warp() * 2 * T, T, false};
-  }
-
-  __device__ void begin(int first_col, int group_lanes) {
-    active = first_col + static_cast<int>(threadIdx.x) < group_lanes;
-  }
-
-  __device__ void operator()(int t, float v, bool ok) {
-    ok = ok && active;
-    float x = ok ? v : 0.f;
-    float c = ok ? 1.f : 0.f;
-    for (int off = 16; off > 0; off >>= 1) {
-      x += __shfl_down_sync(0xffffffffu, x, off);
-      c += __shfl_down_sync(0xffffffffu, c, off);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      part[t] = part[t] + x;
-      part[T + t] = part[T + t] + c;
-    }
-  }
-
-  __device__ void finish(float* sum, float* cnt) {
-    __syncthreads();
-    const float* rows = part - warp() * 2 * T;
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
-      float s = 0.f, n = 0.f;
-      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-        s = s + rows[w * 2 * T + t];
-        n = n + rows[w * 2 * T + T + t];
-      }
-      sum[t] = s;
-      cnt[t] = n;
-    }
-  }
-};
-
-// hb buckets a group, column c of the group into bucket c % hb (any hb).
-// At each step the CTA's lanes write their values to a shared row, and
-// thread j adds bucket j's lanes to its running sum in lane order, across
-// passes too: bucket j's sum is the plain left-to-right sum of its
-// series, which a reference can repeat bit for bit.  The row is
-// double-buffered by step parity, so one barrier a step suffices.  The
-// running sums [2][hb][T] sit in shared memory when they fit, else in
-// the zeroed output rows.  Shared: 4 * blockDim floats, + 2 * hb * T.
-struct BucketSink {
-  float* row;
-  float* acc_s;
-  float* acc_c;
-  int T, hb;
-  bool in_shared;
-  int first;       // group column of this pass's thread 0
-  int nvalid;      // threads of this pass that own a lane
-  bool active;
-  int k;           // calls so far: the row's parity
-
-  __device__ static BucketSink make(float* sh, int T, int hb, float* sum,
-                                    float* cnt, bool acc_shared) {
-    float* acc = sh + 4 * static_cast<int>(blockDim.x);
-    if (acc_shared) {
-      for (int i = threadIdx.x; i < 2 * hb * T; i += blockDim.x) acc[i] = 0.f;
-      __syncthreads();
-      return BucketSink{sh, acc, acc + hb * T, T, hb, true, 0, 0, false, 0};
-    }
-    return BucketSink{sh, sum, cnt, T, hb, false, 0, 0, false, 0};
-  }
-
-  __device__ void begin(int first_col, int group_lanes) {
-    first = first_col;
-    nvalid = min(static_cast<int>(blockDim.x), group_lanes - first_col);
-    active = static_cast<int>(threadIdx.x) < nvalid;
-  }
-
-  __device__ void operator()(int t, float v, bool ok) {
-    ok = ok && active;
-    const int nb = blockDim.x;
-    float* bv = row + (k & 1) * 2 * nb;
-    float* bc = bv + nb;
-    ++k;
-    const int tid = threadIdx.x;
-    bv[tid] = ok ? v : 0.f;
-    bc[tid] = ok ? 1.f : 0.f;
-    __syncthreads();
-    if (tid < hb) {
-      float s = acc_s[tid * T + t], n = acc_c[tid * T + t];
-      // from the first row slot whose group column lies in bucket tid
-      for (int i = (tid - first % hb + hb) % hb; i < nvalid; i += hb) {
-        s = s + bv[i];
-        n = n + bc[i];
-      }
-      acc_s[tid * T + t] = s;
-      acc_c[tid * T + t] = n;
-    }
-  }
-
-  __device__ void finish(float* sum, float* cnt) {
-    if (!in_shared) return;
-    __syncthreads();
-    for (int i = threadIdx.x; i < hb * T; i += blockDim.x) {
-      sum[i] = acc_s[i];
-      cnt[i] = acc_c[i];
-    }
-  }
-};
-
-// The shared window-op path: every output step of one lane, handed to
-// sink(t, value, ok) where ok says whether the group reduce takes the
-// value: the lane's row-0 liveness in phase mode, finiteness otherwise.
-template <class Src, class Sink>
-__device__ void lane_windows(Src src, const int* ts, long ts_ld,
-                             float phase, int mode, const Params& P,
-                             Sink& sink) {
-  const int K = P.K;
-  if (mode == PHASE) {
-    const bool correct = P.op != DELTA;
-    Cursor<Src> a(src), b(src);
-    a.step(correct, false);
-    const bool live = isfinite(a.raw);     // liveness is row 0's
-    for (int t = 0; t < P.T; ++t) {
-      const int base = t * P.stride;
-      a.advance_to(base + 1, correct, false);
-      b.advance_to(base + K, correct, false);
-      float o = phase_rate(a.val, b.val - a.val, phase, P);
-      sink(t, live ? o : NAN, live);
-    }
-    return;
-  }
-  if (mode == TS) {
-    const bool correct = P.op != DELTA;
-    Cursor<Src> a(src), b(src);
-    for (int t = 0; t < P.T; ++t) {
-      const int base = t * P.stride;
-      float nf, v1, v2;
-      int t1, t2;
-      if (P.dense) {
-        a.advance_to(base + 1, correct, false);
-        b.advance_to(base + K, correct, false);
-        nf = isfinite(a.raw) ? static_cast<float>(K) : 0.f;
-        t1 = ts[base * ts_ld];
-        t2 = ts[(base + K - 1) * ts_ld];
-        v1 = a.val;
-        v2 = b.val;
-      } else {
-        a.advance_to(base, correct, true);
-        Cursor<Src> c = a;
-        nf = 0.f;
-        t1 = t2 = kIBig;
-        v1 = v2 = NAN;
-        for (int d = 0; d < K; ++d) {
-          c.step(correct, true);
-          if (isfinite(c.raw)) {
-            const int tt = ts[(base + d) * ts_ld];
-            if (nf == 0.f) {
-              t1 = tt;
-              v1 = c.val;
-            }
-            nf = nf + 1.f;
-            t2 = tt;
-            v2 = c.val;
-          }
-        }
-      }
-      const float o = extrapolate(nf, t1, t2, v1, v2, t, P);
-      sink(t, o, isfinite(o));
-    }
-    return;
-  }
-  // FREE: the *_over_time family, values only
-  Cursor<Src> a(src), b(src);
-  for (int t = 0; t < P.T; ++t) {
-    const int base = t * P.stride;
-    float o;
-    if (P.dense && P.op == LAST) {
-      b.advance_to(base + K, false, false);
-      o = b.raw;
-    } else if (P.dense) {
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      c.step(false, false);
-      const bool live = isfinite(c.raw);
-      float acc = c.raw;
-      if (P.op == COUNT) {
-        acc = static_cast<float>(K);
-      } else {
-        for (int d = 1; d < K; ++d) {
-          c.step(false, false);
-          if (P.op == MIN) acc = min_nan(acc, c.raw);
-          else if (P.op == MAX) acc = max_nan(acc, c.raw);
-          else acc = acc + c.raw;
-        }
-        if (P.op == AVG) acc = acc / static_cast<float>(K);
-      }
-      o = live ? acc : NAN;
-    } else {
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      float cnt = 0.f, last = NAN;
-      float acc = (P.op == MIN) ? INFINITY : (P.op == MAX) ? -INFINITY : 0.f;
-      for (int d = 0; d < K; ++d) {
-        c.step(false, false);
-        const float v = c.raw;
-        const bool fin = isfinite(v);
-        if (fin) {
-          cnt = cnt + 1.f;
-          last = v;
-        }
-        if (P.op == SUM || P.op == AVG) acc = acc + (fin ? v : 0.f);
-        else if (P.op == MIN) acc = min_nan(acc, fin ? v : INFINITY);
-        else if (P.op == MAX) acc = max_nan(acc, fin ? v : -INFINITY);
-      }
-      if (P.op == LAST) o = last;
-      else if (P.op == COUNT) o = cnt > 0.f ? cnt : NAN;
-      else if (P.op == AVG) o = cnt > 0.f ? acc / fmaxf(cnt, 1.f) : NAN;
-      else if (P.op == MIN || P.op == MAX) o = isfinite(acc) ? acc : NAN;
-      else o = cnt > 0.f ? acc : NAN;
-    }
-    sink(t, o, isfinite(o));
-  }
-}
-
-// The second op set: the window functions beyond the nine above, each
-// family its own instantiation of lane_windows_ext, so that the nine ops'
-// code (lane_windows, shared with the grouped kernels) compiles as it did
-// and no family's registers or sort array weigh on another's.  Each
-// repeats its plain version in filodb_tpu_torch/ops/grid.py op for op.
-//   F_PAIR    irate, idelta (ts, dense): the window's last two rows.
-//   F_LINREG  deriv, predict_linear (ts): least squares over the window.
-//   F_STAMP   timestamp (ts): the last finite row's ts before window end.
-//   F_CHANGES changes, resets (free, dense): consecutive-row pairs.
-//   F_MOMENTS stddev, stdvar, zscore (free): window moments.
-// The moments and the regression's y are taken relative to the window's
-// first finite value: a counter near 1e6 moving a few a step then keeps
-// its f32 answer within a few ulps (the TPU kernel's lane-wide centre
-// loses 1e-4 of a variance there, and 1e-3 of a zscore or a slope).
-//   F_SORT    quantile, mad (free, dense, K <= 32): a sorted window, in
-//             registers up to K = kSortRegK (one instantiation a K); mad
-//             merges the deviations' two monotone runs instead of sorting
-//             them again.
-//   F_HOLT    holt_winters (free, dense): double exponential smoothing.
-enum Family { F_BASE = 0, F_PAIR, F_LINREG, F_STAMP, F_CHANGES, F_MOMENTS,
-              F_SORT, F_HOLT };
-
-inline int family_of(int op) {
-  switch (op) {
-    case IRATE: case IDELTA: return F_PAIR;
-    case DERIV: case PREDICT_LINEAR: return F_LINREG;
-    case TIMESTAMP: return F_STAMP;
-    case CHANGES: case RESETS: return F_CHANGES;
-    case STDDEV: case STDVAR: case ZSCORE: return F_MOMENTS;
-    case QUANTILE: case MAD: return F_SORT;
-    case HOLT_WINTERS: return F_HOLT;
-    default: return F_BASE;
-  }
-}
-
-inline bool reads_ts(int fam) {
-  return fam == F_PAIR || fam == F_LINREG || fam == F_STAMP;
-}
-
-// Insertion sort of s[0..K): any correct sort gives the plain version's
-// sorting network's values.
-__device__ void sort_window(float* s, int K) {
-  for (int i = 1; i < K; ++i) {
-    const float v = s[i];
-    int j = i - 1;
-    while (j >= 0 && s[j] > v) {
-      s[j + 1] = s[j];
-      --j;
-    }
-    s[j + 1] = v;
-  }
-}
-
-// Linear interpolation at the host's fixed ranks (grid.py
-// _interp_weights).
-__device__ __forceinline__ float interp_sorted(const float* s,
-                                               const Params& P) {
-  if (P.rank_lo < 0) return P.fill;
-  if (P.rank_lo == P.rank_hi) return s[P.rank_lo];
-  return s[P.rank_lo] * P.w_lo + s[P.rank_hi] * P.w_hi;
-}
-
-// quantile and mad over a window s[0..K) in local memory, sorted in
-// place.  mad takes the median of the deviations |s[d] - q| from the
-// median q without a second sort: over a sorted window they are two
-// monotone runs, descending below q and ascending from it, and a merge of
-// the two gives them in sorted order.  fabsf(a - b) == fabsf(b - a) in
-// IEEE arithmetic and the deviations carry no -0.0, so the merged floats
-// are the ones a sort gives, bit for bit.  A NaN breaks the runs (and the
-// insertion sort's order, which the plain version's sorting network does
-// not share), so a window with a NaN deviation sorts them as before.
-__device__ float sort_op_local(float* s, int K, const Params& P) {
-  sort_window(s, K);
-  const float q = interp_sorted(s, P);
-  if (P.op != MAD) return q;
-  int below = 0;                       // s[0..below) < q
-  bool nan = false;
-  for (int d = 0; d < K; ++d) {
-    if (s[d] < q) below = d + 1;
-    s[d] = fabsf(s[d] - q);
-    nan = nan || isnan(s[d]);
-  }
-  if (nan) {
-    sort_window(s, K);
-    return interp_sorted(s, P);
-  }
-  float m[kSortMaxK];
-  const int need = P.rank_lo < 0 ? 0 : P.rank_hi + 1;
-  int i = below - 1, j = below;
-  for (int k = 0; k < need; ++k)
-    m[k] = (j >= K || (i >= 0 && s[i] <= s[j])) ? s[i--] : s[j++];
-  return interp_sorted(m, P);
-}
-
-constexpr int kSortRegK = 8;   // windows this short stay in registers
-
-// A compare-exchange that swaps only a pair strictly out of order, so
-// equal floats (+0.0 and -0.0) keep their order, as in the insertion sort.
-__device__ __forceinline__ void order_pair(float& lo, float& hi) {
-  const bool swap = lo > hi;
-  const float l = swap ? hi : lo;
-  hi = swap ? lo : hi;
-  lo = l;
-}
-
-// v[i] for a run-time i, by selects, so that v stays in registers.
-template <int N>
-__device__ __forceinline__ float pick(const float (&v)[N], int i) {
-  float r = v[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) r = (i == k) ? v[k] : r;
-  return r;
-}
-
-template <int N>
-__device__ __forceinline__ float interp_regs(const float (&v)[N],
-                                             const Params& P) {
-  if (P.rank_lo < 0) return P.fill;
-  const float lo = pick(v, P.rank_lo);
-  if (P.rank_lo == P.rank_hi) return lo;
-  return lo * P.w_lo + pick(v, P.rank_hi) * P.w_hi;
-}
-
-// quantile and mad over the N = K <= kSortRegK rows that cursor c walks,
-// in registers (every index a compile-time one): an odd-even
-// transposition sort of order_pair (stable, so it gives the insertion
-// sort's floats), and for mad the deviations, a V-shaped (bitonic)
-// sequence, padded with +Inf to a power of two and put in order by a
-// bitonic merge.  A window or deviation holding a NaN goes through
-// sort_op_local, the code that served it before.  first: row 0's value.
-template <int N, class Src>
-__device__ float sort_op_regs(Cursor<Src>& c, const Params& P,
-                              float& first) {
-  static_assert(N >= 1 && N <= kSortRegK, "a register window");
-  constexpr int M = N <= 1 ? 1 : N <= 2 ? 2 : N <= 4 ? 4 : 8;
-  float v[N];
-  bool nan = false;
-#pragma unroll
-  for (int d = 0; d < N; ++d) {
-    c.step(false, false);
-    v[d] = c.raw;
-    nan = nan || isnan(v[d]);
-  }
-  first = v[0];
-  if (nan) {
-    float s[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) s[d] = v[d];
-    return sort_op_local(s, N, P);
-  }
-#pragma unroll
-  for (int round = 0; round < N; ++round) {
-#pragma unroll
-    for (int i = round & 1; i + 1 < N; i += 2) order_pair(v[i], v[i + 1]);
-  }
-  const float q = interp_regs(v, P);
-  if (P.op != MAD) return q;
-  float dev[M];
-  bool bad = false;
-#pragma unroll
-  for (int d = 0; d < M; ++d) {
-    dev[d] = d < N ? fabsf(v[d] - q) : INFINITY;
-    bad = bad || isnan(dev[d]);
-  }
-  if (bad) {
-    float s[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) s[d] = dev[d];
-    sort_window(s, N);
-    return interp_sorted(s, P);
-  }
-#pragma unroll
-  for (int k = M / 2; k > 0; k >>= 1) {
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-      if ((i & k) == 0) order_pair(dev[i], dev[i + k]);
-  }
-  return interp_regs(dev, P);
-}
-
-template <int Fam, class Src, class Sink>
-__device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
-                                 const Params& P, Sink& sink) {
-  const int K = P.K;
-  Cursor<Src> a(src), b(src);
-  for (int t = 0; t < P.T; ++t) {
-    const int base = t * P.stride;
-    float o = NAN;
-    if constexpr (Fam == F_PAIR) {
-      if (K >= 2) {
-        a.advance_to(base + K - 1, false, false);   // row base+K-2
-        b.advance_to(base + K, false, false);       // row base+K-1
-        const float v1 = a.raw, v2 = b.raw;
-        const int t1 = ts[(base + K - 2) * ts_ld];
-        const int t2 = ts[(base + K - 1) * ts_ld];
-        float delta = v2 - v1;
-        if (P.op == IRATE && v2 < v1) delta = v2;   // adjacent-pair reset
-        const float dts = static_cast<float>(t2 - t1) / 1000.0f;
-        if (isfinite(v2) && dts > 0.f)
-          o = (P.op == IDELTA) ? delta : delta / dts;
-      }
-    } else if constexpr (Fam == F_STAMP) {
-      const unsigned hi = static_cast<unsigned>(window_end(t, P));
-      int sel = kIBig;
-      if (P.dense) {
-        a.advance_to(base + 1, false, false);       // liveness: row base
-        if (isfinite(a.raw)) sel = ts[(base + K - 1) * ts_ld];
-      } else {
-        a.advance_to(base, false, false);
-        Cursor<Src> c = a;
-        for (int d = 0; d < K; ++d) {                // last finite wins
-          c.step(false, false);
-          if (isfinite(c.raw)) sel = ts[(base + d) * ts_ld];
-        }
-      }
-      if (sel != kIBig)
-        o = static_cast<float>(static_cast<int>(
-                static_cast<unsigned>(sel) - hi)) / 1000.0f;
-    } else if constexpr (Fam == F_LINREG) {
-      const float hi = static_cast<float>(window_end(t, P));
-      const float shift = static_cast<float>(
-          static_cast<double>(K * P.g) / 1000.0 / 2.0);
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      float n = 0.f, sx = 0.f, sy = 0.f, sxx = 0.f, sxy = 0.f, y0 = NAN;
-      for (int d = 0; d < K; ++d) {
-        c.step(false, false);
-        if (!isfinite(c.raw)) continue;
-        if (n == 0.f) y0 = c.raw;           // y from the first finite value
-        const float x = (static_cast<float>(ts[(base + d) * ts_ld]) - hi)
-            / 1000.0f + shift;
-        const float y = c.raw - y0;
-        n = n + 1.f;
-        sx = sx + x;
-        sy = sy + y;
-        sxx = sxx + x * x;
-        sxy = sxy + x * y;
-      }
-      const float nsafe = fmaxf(n, 1.f);
-      const float cov = sxy - sx * sy / nsafe;
-      const float var = sxx - sx * sx / nsafe;
-      const float slope = cov / (var == 0.f ? 1.f : var);
-      if (n >= 2.f && var > 0.f) {
-        if (P.op == DERIV) {
-          o = slope;
-        } else {
-          const float intercept = sy / nsafe - slope * (sx / nsafe - shift);
-          o = (intercept + slope * P.farg) + y0;
-        }
-      }
-    } else if constexpr (Fam == F_CHANGES) {
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      c.step(false, false);
-      float prev = c.raw;
-      const bool live = isfinite(prev);
-      float cnt = 0.f;
-      for (int d = 1; d < K; ++d) {
-        c.step(false, false);
-        const float cur = c.raw;
-        const bool hit = (P.op == CHANGES) ? (cur != prev) : (cur < prev);
-        cnt = cnt + (hit ? 1.f : 0.f);
-        prev = cur;
-      }
-      if (live) o = cnt;
-    } else if constexpr (Fam == F_MOMENTS) {
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      float s1 = 0.f, s2 = 0.f, n = 0.f, c0 = NAN, lastv = NAN;
-      for (int d = 0; d < K; ++d) {
-        c.step(false, false);
-        const float v = c.raw;
-        if (!isfinite(v)) continue;
-        if (n == 0.f) c0 = v;               // x from the first finite value
-        const float xd = v - c0;
-        s1 = s1 + xd;
-        s2 = s2 + xd * xd;
-        n = n + 1.f;
-        lastv = v;
-      }
-      const float nsafe = fmaxf(n, 1.f);
-      const float mean_x = s1 / nsafe;
-      const float var = max_nan(s2 / nsafe - mean_x * mean_x, 0.f);
-      if (P.op == ZSCORE) {
-        const float sd = sqrtf(var);
-        const float z = ((lastv - c0) - mean_x) / (sd == 0.f ? 1.f : sd);
-        if (n >= 2.f && sd > 0.f) o = z;
-      } else if (n > 0.f) {
-        o = (P.op == STDDEV) ? sqrtf(var) : var;
-      }
-    } else if constexpr (Fam == F_SORT) {
-      a.advance_to(base, false, false);
-      Cursor<Src> c = a;
-      float first, q;
-      switch (K) {                        // K <= kSortRegK: in registers
-        case 1: q = sort_op_regs<1>(c, P, first); break;
-        case 2: q = sort_op_regs<2>(c, P, first); break;
-        case 3: q = sort_op_regs<3>(c, P, first); break;
-        case 4: q = sort_op_regs<4>(c, P, first); break;
-        case 5: q = sort_op_regs<5>(c, P, first); break;
-        case 6: q = sort_op_regs<6>(c, P, first); break;
-        case 7: q = sort_op_regs<7>(c, P, first); break;
-        case 8: q = sort_op_regs<8>(c, P, first); break;
-        default: {
-          float s[kSortMaxK];
-          for (int d = 0; d < K; ++d) {
-            c.step(false, false);
-            s[d] = c.raw;
-          }
-          first = s[0];
-          q = sort_op_local(s, K, P);
-        }
-      }
-      if (isfinite(first)) o = q;
-    } else if constexpr (Fam == F_HOLT) {
-      if (K >= 2) {
-        a.advance_to(base, false, false);
-        Cursor<Src> c = a;
-        c.step(false, false);
-        float lvl = c.raw;
-        const bool live = isfinite(lvl);
-        const float sf = P.farg, tf = P.farg2;
-        const float osf = 1.f - sf, otf = 1.f - tf;
-        float trend = 0.f;
-        for (int i = 1; i < K; ++i) {
-          c.step(false, false);
-          const float y = c.raw;
-          const float b_eff = (i == 1) ? y - lvl : trend;
-          const float xn = sf * y + osf * (lvl + b_eff);
-          trend = tf * (xn - lvl) + otf * b_eff;
-          lvl = xn;
-        }
-        if (live) o = lvl;
-      }
-    }
-    sink(t, o, isfinite(o));
-  }
-}
 
 __global__ void rate_grid_kernel(const float* __restrict__ vals,
                                  const int* __restrict__ ts,
@@ -851,28 +119,6 @@ __global__ void rate_grid_ext_kernel(const float* __restrict__ vals,
   DenseSrc src{vals + lane, ns};
   StoreSink sink{out + lane, ns};
   lane_windows_ext<Fam>(src, ts ? ts + lane : nullptr, ns, P, sink);
-}
-
-// One lane of a packed plane, positioned at the query's first row: the
-// XOR prefix starts at block row 0, the query reads from row0.
-template <typename W>
-__device__ PackedSrc<W> packed_lane(const W* plane, const int* meta, int n,
-                                    int lane, int row0) {
-  PackedSrc<W> src{plane + lane, n, static_cast<uint32_t>(meta[lane]),
-                   static_cast<uint32_t>(meta[n + lane]), 0u};
-  for (int r = 0; r < row0; ++r) src.next();
-  return src;
-}
-
-constexpr size_t kShared48 = 48 * 1024;
-
-// Dynamic shared memory above 48 KB must be allowed before a launch.
-template <typename K>
-cudaError_t allow_shared(K kernel, size_t bytes) {
-  if (bytes <= kShared48) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 // B3 on Hopper: rate_grid_packed_kernel replaces the TPU kernel
@@ -928,172 +174,6 @@ cudaError_t allow_shared(K kernel, size_t bytes) {
 // free ops a cursor copy that re-walks each window), so the instruction
 // rate of that walk bounds it.
 
-constexpr int kTile = 128;        // lanes a CTA: one consumer thread each
-constexpr int kStages = 4;        // ring stages
-constexpr int kProducers = 32;    // the producer warp
-constexpr int kMaxPlanes = 4;     // p8, p16, p32, raw
-constexpr int kRingMin = 16 * 1024;
-constexpr int kRingMax = 64 * 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n\t.reg .b64 state;\n\t"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete.  A wait that never
-// ends is a fault in the ring protocol: trap after 2^22 polls (a stage
-// arrives within microseconds), so the launch fails rather than hangs.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  for (unsigned polls = 0;; ++polls) {
-    asm volatile("{\n\t.reg .pred p;\n\t"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                 "selp.u32 %0, 1, 0, p;\n\t}"
-                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (polls > (1u << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-// One arrival on bar once this thread's earlier cp.asyncs have landed.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-struct RingBars {
-  uint64_t full[kStages];    // the stage's rows have landed (kProducers)
-  uint64_t empty[kStages];   // every consumer is done with it (kTile)
-};
-
-// log2 of the rows a ring stage of `ring_bytes` holds in words of
-// `word` bytes, and whether a step of stride + K rows fits in three
-// stages.
-__host__ __device__ inline int stage_shift(int ring_bytes, int word) {
-  int rows = ring_bytes / (kStages * kTile * word), shift = 0;
-  while ((2 << shift) <= rows) ++shift;
-  return shift;
-}
-
-__host__ __device__ inline bool step_fits(int ring_bytes, int word,
-                                          int stride, int K) {
-  return ring_bytes >= kRingMin
-      && stride + K <= (kStages - 1) << stage_shift(ring_bytes, word);
-}
-
-// One lane of an XOR-class plane, read from its column of the ring (the
-// decode of PackedSrc); r is the block row.  It never waits: the sink
-// below waits, once a step, for every row the next step reads, so that
-// nothing in a window's loop stops the compiler from batching its reads.
-template <typename W>
-struct SmemPackedSrc {
-  const W* col;
-  int mask;          // ring rows - 1
-  int r;
-  uint32_t shift;
-  uint32_t first;
-  uint32_t x;
-  __device__ float next() {
-    const uint32_t u = static_cast<uint32_t>(col[(r & mask) * kTile]) << shift;
-    ++r;
-    x ^= u;
-    return __uint_as_float(x ^ first);
-  }
-};
-
-// StoreSink that also runs the consumer's side of the ring.  Step t reads
-// only rows [row0 + (t - 1) * stride, row0 + t * stride + K): after step
-// t the sink frees the stages below row0 + t * stride and waits for the
-// stages below row0 + (t + 1) * stride + K, the next step's rows.
-struct RingStoreSink {
-  float* out;
-  long ld;
-  bool store;        // a thread past the plane's last lane stores nothing
-  RingBars* bars;
-  int cshift;        // log2 rows a stage
-  int row0, stride, K, rows;
-  int freed;         // stages freed so far, in ring order
-  int ready;         // stages waited for so far
-  __device__ void free_below(int row) {
-    for (; (freed + 1) << cshift <= row; ++freed)
-      mbar_arrive(bars->empty + freed % kStages);
-  }
-  __device__ void ready_below(int row) {
-    row = min(row, rows);
-    for (; ready << cshift < row; ++ready)
-      mbar_wait(bars->full + ready % kStages, (ready / kStages) & 1);
-  }
-  __device__ void operator()(int t, float v, bool) {
-    if (store) out[t * ld] = v;
-    free_below(row0 + t * stride);
-    ready_below(row0 + (t + 1) * stride + K);
-  }
-};
-
-// The producer warp: rows [0, rows) of the tile's nl lanes into the ring,
-// a stage of 1 << cshift rows at a time.
-template <typename W>
-__device__ void stage_rows(const W* plane, long n, int lane0, int nl,
-                           int rows, int cshift, W* ring, RingBars& bars) {
-  const int pt = static_cast<int>(threadIdx.x) - kTile;
-  const bool aligned = reinterpret_cast<uintptr_t>(plane) % 16 == 0
-      && (n * static_cast<long>(sizeof(W))) % 16 == 0;
-  const int pieces = nl * static_cast<int>(sizeof(W)) / 16;   // a row
-  const int chunk = 1 << cshift;
-  const int nchunks = (rows + chunk - 1) >> cshift;
-  for (int c = 0; c < nchunks; ++c) {
-    const int s = c % kStages;
-    if (c >= kStages) mbar_wait(&bars.empty[s], (c / kStages - 1) & 1);
-    const int nr = min(chunk, rows - (c << cshift));
-    W* dst = ring + (s << cshift) * kTile;
-    const W* src = plane + (static_cast<long>(c) << cshift) * n + lane0;
-    if (aligned) {
-      for (int i = pt; i < nr * pieces; i += kProducers) {
-        const int r = i / pieces, k = i - r * pieces;
-        cp_async16(reinterpret_cast<char*>(dst + r * kTile) + 16 * k,
-                   reinterpret_cast<const char*>(src + r * n) + 16 * k);
-      }
-      cp_async_arrive(&bars.full[s]);
-    } else {
-      for (int i = pt; i < nr * nl; i += kProducers) {
-        const int r = i / nl, j = i - r * nl;
-        dst[r * kTile + j] = src[r * n + j];
-      }
-      mbar_arrive(&bars.full[s]);
-    }
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// One lane's windows from its own decoding source into the [T, n] out.
-template <int Fam, class Src, class Sink>
-__device__ void packed_windows(Src src, const int* meta, int n, int lane,
-                               const Params& P, int mode, Sink& sink) {
-  if constexpr (Fam == F_BASE) {
-    const float ph =
-        (mode == PHASE) ? static_cast<float>(meta[2 * n + lane]) : 0.f;
-    lane_windows(src, nullptr, 0, ph, mode, P, sink);
-  } else {
-    lane_windows_ext<Fam>(src, nullptr, 0, P, sink);
-  }
-}
-
 // One CTA's tile of one class plane.  Staged: the producer warp stages,
 // each consumer thread runs its lane's windows from the ring (a thread
 // past the plane's last lane walks the last lane again and stores
@@ -1119,6 +199,7 @@ __device__ void packed_tile(const W* plane, const int* meta, int n,
   const int rows = row0 + (P.T - 1) * P.stride + P.K;
   if (threadIdx.x >= kTile) {
     stage_rows(plane, n, lane0, nl, rows, cshift, ring, bars);
+    asm volatile("cp.async.wait_all;" ::: "memory");
     return;
   }
   const int j = min(static_cast<int>(threadIdx.x), nl - 1);
@@ -1126,9 +207,9 @@ __device__ void packed_tile(const W* plane, const int* meta, int n,
   SmemPackedSrc<W> src{ring + j, (kStages << cshift) - 1, 0,
                        static_cast<uint32_t>(meta[lane]),
                        static_cast<uint32_t>(meta[n + lane]), 0u};
-  RingStoreSink sink{out + lane, out_ld,
-                     static_cast<int>(threadIdx.x) < nl, &bars, cshift,
-                     row0, P.stride, P.K, rows, 0, 0};
+  RingStoreSink sink{{&bars, cshift, row0, P.stride, P.K, rows, 0, 0, 0},
+                     out + lane, out_ld,
+                     static_cast<int>(threadIdx.x) < nl};
   for (int r = 0; r < row0;) {           // the XOR prefix, a stage at a time
     const int end = min(row0, ((r >> cshift) + 1) << cshift);
     sink.ready_below(end);
@@ -1149,8 +230,6 @@ struct PlaneTable {
   int cta0[kMaxPlanes + 1];
   int count;
 };
-
-inline int word_bytes(int kind) { return kind == 0 ? 1 : kind == 1 ? 2 : 4; }
 
 template <int Fam>
 __global__ void __launch_bounds__(kTile + kProducers)
@@ -1479,17 +558,6 @@ int m4_grid_launch(const void* vals, void* out, int T, int S, int P, int W,
 
 const char* grid_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
-}
-
-// Function arguments of the second op set: predict_linear's horizon
-// (farg), holt_winters' factors (farg, farg2), and quantile/mad's
-// interpolation ranks, weights and out-of-range fill.
-#define FN_ARGS float farg, float farg2, int rank_lo, int rank_hi, \
-    float w_lo, float w_hi, float fill
-
-static bool args_ok(int op, int K) {
-  return op >= SUM && op <= HOLT_WINTERS
-      && (family_of(op) != F_SORT || (K >= 1 && K <= kSortMaxK));
 }
 
 int rate_grid_launch(const void* vals, const void* ts, const void* phase,

@@ -10,7 +10,8 @@ search, no gather (reference: query/exec/rangefn/RangeFunction.scala
 addChunks + the Prometheus extrapolated rate, RateFunctions.scala:37-80).
 
 Each function below has a hand-written CUDA kernel
-(``csrc/grid_kernels.cu``) and a plain PyTorch version beside it
+(``csrc/grid_kernels.cu``; ``csrc/hist_staged.cu`` for
+:func:`hist_grid_grouped_packed`) and a plain PyTorch version beside it
 (``<name>_ref``):
 
 - :func:`rate_grid` — decoded planes (``vals`` plus, per mode, a ts
@@ -1129,15 +1130,77 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
 
 rate_grid_grouped.launches = 0
 
-# thread j of a grouped CTA sums bucket j: at most a CTA's threads
+# the direct bucket kernel's thread j sums bucket j: at most a CTA's
+# threads
 MAX_HIST_BUCKETS = 1024
+
+# The staged hist kernel's launch plan (csrc/hist_staged.cu): its lane
+# tiles, the small one for a group that fits it (one pass) and the large
+# one for any other (faster than the small one in passes at the
+# north-star widths, PERF.md section 6), the steps a bucket-sum chunk, its
+# ring sizes and four stages, and the most the running [hb, T] sums and
+# counts may take in shared memory.
+HIST_TILE_SMALL = 128
+HIST_TILE = 256
+HIST_CHUNK = 16
+HIST_RING_BYTES = (16 * 1024, 32 * 1024, 64 * 1024)
+_RING_STAGES = 4
+HIST_ACC_SHARED_MAX = 48 * 1024
+_WORD_BYTES = (1, 2, 4, 4)          # by plane kind
+
+
+class HistPlan(NamedTuple):
+    """One class plane's launch of :func:`hist_grid_grouped_packed` on
+    the card."""
+    tile: int            # consumer threads, and lanes a pass
+    ring_bytes: int      # 0: the step fits no ring, the direct kernel
+    chunk: int           # steps a bucket-sum chunk
+    acc_shared: bool     # the running sums in shared memory
+    shared: int          # dynamic shared bytes a CTA
+
+    @property
+    def staged(self) -> bool:
+        return self.ring_bytes > 0
+
+
+def ring_stage_rows(ring_bytes: int, word: int, tile: int) -> int:
+    """Rows a ring stage holds: a power of two (the kernel's
+    stage_shift)."""
+    rows, shift = ring_bytes // (_RING_STAGES * tile * word), 0
+    while (2 << shift) <= rows:
+        shift += 1
+    return 1 << shift
+
+
+def hist_staged_plan(hb: int, group_lanes: int, nsteps: int, kbuckets: int,
+                     stride: int, word: int) -> HistPlan:
+    """The staged kernel's plan for one class plane of ``word``-byte
+    words: a lane tile of :data:`HIST_TILE_SMALL` for a group of at most
+    that many lanes, else :data:`HIST_TILE`; the least ring in which a
+    step's ``stride + K`` rows fit in three of its four stages (none: the
+    direct kernel), a chunk of at most :data:`HIST_CHUNK` steps, the
+    running sums in shared memory when they take at most
+    :data:`HIST_ACC_SHARED_MAX`."""
+    tile = HIST_TILE_SMALL if group_lanes <= HIST_TILE_SMALL else HIST_TILE
+    ring = next((b for b in HIST_RING_BYTES
+                 if stride + kbuckets
+                 <= (_RING_STAGES - 1) * ring_stage_rows(b, word, tile)), 0)
+    if not ring:
+        return HistPlan(tile, 0, 0, False, 0)
+    chunk = min(HIST_CHUNK, nsteps)
+    acc = 8 * hb * nsteps
+    acc_shared = acc <= HIST_ACC_SHARED_MAX
+    return HistPlan(tile, ring, chunk, acc_shared,
+                    ring + 8 * chunk * tile + (acc if acc_shared else 0))
 
 
 def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
                            use_phase: bool, group_lanes: int, hb: int):
     """Launch the grouped packed kernel once per class plane (counted on
-    ``wrapper``): ``(sum, count)`` ``[G*hb, T]``, groups in plane
-    order."""
+    ``wrapper``): ``(sum, count)`` ``[G*hb, T]``, groups in plane order.
+    With buckets (hb > 1) a plane whose step fits a ring takes the staged
+    kernel at :func:`hist_staged_plan`'s plan, any other the direct one
+    (counted on ``wrapper.direct``)."""
     planes = _grouped_packed_check(packed, q, row0, use_phase, group_lanes,
                                    hb)
     fn_args = _fn_args(q)
@@ -1146,7 +1209,7 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
         raise ValueError(f"{hb} buckets; the kernel takes at most "
                          f"{MAX_HIST_BUCKETS}")
     shape = (packed_width(packed) // group_lanes * hb, q.nsteps)
-    # zeroed: the bucket kernel keeps its running sums here when they do
+    # zeroed: the bucket kernels keep their running sums here when they do
     # not fit in shared memory
     s = torch.zeros(shape, dtype=torch.float32, device=dev)
     c = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -1155,14 +1218,26 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
     for p, m, kind in planes:
         nb, n = p.shape
         pp, mp = _plane_pointers(p, m, kind, dev)
+        args = (kind, nb, n, group_lanes, hb, slot0, row0, q.nsteps,
+                q.kbuckets, q.stride, q.gstep_ms, _OP_CODE[q.op], use_phase,
+                q.dense, q.is_rate)
+        plan = hist_staged_plan(hb, group_lanes, q.nsteps, q.kbuckets,
+                                q.stride, _WORD_BYTES[kind]) \
+            if hb > 1 else None
+        sc = (ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()))
         with torch.cuda.device(dev):
-            rc = lib.grouped_packed_launch(
-                pp, mp, ctypes.c_void_p(s.data_ptr()),
-                ctypes.c_void_p(c.data_ptr()),
-                *_int32_args(kind, nb, n, group_lanes, hb, slot0, row0,
-                             q.nsteps, q.kbuckets, q.stride, q.gstep_ms,
-                             _OP_CODE[q.op], use_phase, q.dense, q.is_rate),
-                *fn_args, _stream())
+            if plan is not None and plan.staged:
+                rc = lib.hist_staged_launch(
+                    pp, mp, *sc,
+                    *_int32_args(*args, plan.tile, plan.ring_bytes,
+                                 plan.chunk, plan.acc_shared),
+                    *fn_args, _stream())
+            else:
+                rc = lib.grouped_packed_launch(pp, mp, *sc,
+                                               *_int32_args(*args),
+                                               *fn_args, _stream())
+                if hb > 1:
+                    wrapper.direct += 1
         wrapper.launches += 1
         _launch_check(rc, wrapper.__name__)
         slot0 += n // group_lanes
@@ -1208,7 +1283,9 @@ def hist_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
     Requires the hist group-aligned contract: ``group_lanes % hb == 0``,
     no alignment-pad lanes, whole groups per class plane (a
     ``pack_vals(stride=hb, min_width=...)`` identity pack), and at most
-    :data:`MAX_HIST_BUCKETS` buckets on the card.  CPU tensors run
+    :data:`MAX_HIST_BUCKETS` buckets on the card.  On the card each class
+    plane is one launch: the staged kernel, or the direct one where the
+    step fits no ring (counted in ``.direct``).  CPU tensors run
     :func:`hist_grid_grouped_packed_ref`."""
     planes = _packed_planes(packed)
     if planes and planes[0][0].device.type == "cpu":
@@ -1219,6 +1296,7 @@ def hist_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
 
 
 hist_grid_grouped_packed.launches = 0
+hist_grid_grouped_packed.direct = 0
 
 
 def hist_quantile_grid_packed(packed: dict, steps0: int, tops, q: GridQuery,
@@ -1447,3 +1525,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    hist_grid_grouped_packed.direct = 0

@@ -1,13 +1,16 @@
 """Build and bind the hand-written CUDA kernels (``csrc/grid_kernels.cu``:
 ``rate_grid``, ``rate_grid_packed``, ``rate_grid_grouped``, the grouped
 packed kernel behind ``rate_grid_grouped_packed`` and
-``hist_grid_grouped_packed``, and ``m4_grid``).
+``hist_grid_grouped_packed``'s direct path, and ``m4_grid``;
+``csrc/hist_staged.cu``: the staged kernel of
+``hist_grid_grouped_packed``; both on ``csrc/grid_device.cuh``).
 
-The source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, at first use, into the
-git-ignored ``filodb_tpu_torch/_build/`` directory; the library file
-name carries a hash of the source, so an edited kernel never loads a
-stale build.  The library is bound with ``ctypes``: every pointer and
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
+object, one ``nvcc`` a source, all started together; the objects are
+linked into one shared library with a plain C interface, at first use,
+in the git-ignored ``filodb_tpu_torch/_build/`` directory.  The library
+file name carries a hash of the sources, so an edited kernel never loads
+a stale build.  The library is bound with ``ctypes``: every pointer and
 the stream are ``c_void_p``, every scalar a ``c_int``, and each entry
 returns ``cudaGetLastError()`` after its launch.
 
@@ -25,14 +28,18 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "grid_kernels.cu")
+_CSRC = os.path.join(_PKG, "csrc")
+SOURCES = ("grid_kernels.cu", "hist_staged.cu")
+HEADERS = ("grid_device.cuh",)
 _BUILD = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # no fused multiply-add contraction: the kernels repeat the
               # plain versions' f32 arithmetic op for op
               "-fmad=false", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,23 +59,57 @@ def nvcc_path() -> str:
     return p
 
 
+def _run(procs: list, what: str) -> str:
+    """Wait for every (source, process) pair; their output, or raise with
+    the first failure's."""
+    log, failed = [], None
+    try:
+        for src, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            log.append(out + err)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed on {src} ({what}):\n{err[-4000:]}"
+    finally:
+        for _src, proc in procs:          # a timeout leaves none running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(log)
+
+
 def _compile() -> str:
     global build_log
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(name.encode() + f.read())
     so = os.path.join(_BUILD, f"libgrid_kernels-{digest.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD, exist_ok=True)
+    tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+    objs = [os.path.join(_BUILD, f"{os.path.splitext(n)[0]}-{tag}.o")
+            for n in SOURCES]
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True, timeout=600)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
+    nvcc = nvcc_path()
+    try:
+        procs = [(n, subprocess.Popen(
+                     [nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                      os.path.join(_CSRC, n)],
+                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                     text=True)) for n, o in zip(SOURCES, objs)]
+        build_log = _run(procs, "compile")
+        link = subprocess.Popen([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        build_log += _run([("the objects", link)], "link")
+        os.replace(tmp, so)
+    finally:
+        for p in objs + [tmp]:
+            if os.path.exists(p):
+                os.remove(p)
     return so
 
 
@@ -105,11 +146,17 @@ def library() -> ctypes.CDLL:
             #  function arguments; stream)
             lib.grouped_packed_launch.argtypes = \
                 [ptr] * 4 + [i32] * 15 + fn_args + [ptr]
+            # (plane, meta, sum, cnt; kind, nb, n, group_lanes, hb, slot0,
+            #  row0, T, K, stride, g, op, use_phase, dense, is_rate, tile,
+            #  ring_bytes, chunk, acc_shared; function arguments; stream)
+            lib.hist_staged_launch.argtypes = \
+                [ptr] * 4 + [i32] * 19 + fn_args + [ptr]
             # (vals, out; T, S, P, W; stream)
             lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             for fn in (lib.rate_grid_launch, lib.rate_grid_packed_launch,
                        lib.rate_grid_grouped_launch,
-                       lib.grouped_packed_launch, lib.m4_grid_launch):
+                       lib.grouped_packed_launch, lib.hist_staged_launch,
+                       lib.m4_grid_launch):
                 fn.restype = i32
             lib.grid_error_string.restype = ctypes.c_char_p
             lib.grid_error_string.argtypes = [i32]
