@@ -9,8 +9,8 @@ Phases, each timed on a line of its own:
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
-   csrc/grid_kernels.cu`` and ``csrc/hist_staged.cu`` (one ``nvcc`` a
-   source, in parallel);
+   csrc/grid_kernels.cu``, ``csrc/hist_staged.cu`` and
+   ``csrc/grouped_staged.cu`` (one ``nvcc`` a source, in parallel);
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
    of the TPU kernels, each in every mode the TPU kernel serves it, at
@@ -32,7 +32,11 @@ Phases, each timed on a line of its own:
    512-lane groups, the last one all-NaN, quantile at K=32 and with phi
    1.5), ``rate_grid_grouped_packed`` over a p8 plane and a p16 plane of
    whole groups (the phase ops and the 14 that read no timestamps, row0
-   = 3, stride 2), ``hist_grid_grouped_packed`` case by case (b5_sweep:
+   = 3, stride 2) and case by case (b4_sweep: p8, p16 and p32 planes,
+   groups of 64, 512 and 1,024 lanes, row0 0, 3 and 40, strides 1 and
+   2, every op it serves, bit for bit against its direct kernel on the
+   same tensors, a K = 120 window on the direct kernel),
+   ``hist_grid_grouped_packed`` case by case (b5_sweep:
    hb 4, 16, 20 and 160, row0 0, 3, 20 and 40 on p16 and p8 planes,
    strides 1 and 2, a dead series, every op it serves, groups of either
    lane tile of the staged kernel, a K = 120 window on the direct kernel,
@@ -93,8 +97,10 @@ Phases, each timed on a line of its own:
    rate_grid_grouped, one rate_grid_grouped_packed, one
    hist_grid_grouped_packed and two rate_grid_packed launches); each new
    kernel against its plain version at those widths and timed (the
-   staged hist_grid_grouped_packed with no launch of its direct kernel
-   on the path); the grouped kernels in the
+   staged rate_grid_grouped_packed and hist_grid_grouped_packed with no
+   launch of their direct kernels on the path); rate_grid_packed at the
+   topk query's two launches, timed beside the query; the grouped
+   kernels in the
    second op set on the same data (13 ops on
    rate_grid_grouped, the 5 that read timestamps over the dense
    variant's ts plane; 8 each on rate_grid_grouped_packed and
@@ -629,7 +635,7 @@ def compare_bits(got, want, case: str) -> float:
     same &= (got.view(torch.int32) == want.view(torch.int32)) | nan
     if not bool(same.all()):
         raise AssertionError(f"{case}: {int((~same).sum())} cells differ "
-                             f"from the plain version's bits")
+                             f"from the reference's bits")
     return 0.0
 
 
@@ -872,9 +878,9 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
     rate_grid_grouped in every op/mode (gappy lanes, strides 1 and 2, a
     group of all-NaN lanes, quantile at K = 32 and with phi 1.5),
     rate_grid_grouped_packed over a two-plane pack (phase and free ops,
-    row0 = 3, stride 2), hist_grid_grouped_packed case by case
-    (:func:`b5_sweep`); then the packed ones refusing the ops that read
-    timestamps."""
+    row0 = 3, stride 2) and case by case (:func:`b4_sweep`),
+    hist_grid_grouped_packed case by case (:func:`b5_sweep`); the sweeps
+    hold the packed ones refusing the ops that read timestamps."""
     import numpy as np
     import torch
     from filodb_tpu_torch.codecs import xorgrid
@@ -948,19 +954,11 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
             partial(grid.rate_grid_grouped_packed, *args),
             partial(grid.rate_grid_grouped_packed_ref, *args),
             grouped_packed_work(pk, q, row0, use_phase, S // GL), op)
-    # B5, case by case (b5_sweep)
+    # B4 and B5, case by case (b4_sweep, b5_sweep; each also holds its
+    # kernel's refusal of the ops that read timestamps: a packed plane
+    # has no ts)
+    worst = max(worst, b4_sweep(device, reps, seed, rows, flush))
     worst = max(worst, b5_sweep(device, reps, seed, rows, flush))
-    # a packed plane has no ts: the packed kernels refuse those ops (B5's
-    # refusal in b5_sweep)
-    for op in TS_SECOND_OPS:
-        q = sweep_query(op, True, 1, B - K + 1)
-        try:
-            grid.rate_grid_grouped_packed(pk, 0, q, GL, 0, False)
-        except ValueError:
-            continue
-        raise AssertionError(f"a packed grouped kernel accepted op {op}")
-    log(f"packed grouped kernels refuse the {len(TS_SECOND_OPS)} ops that "
-        f"read timestamps")
     report["grouped_sweep"] = rows
     return worst
 
@@ -997,9 +995,10 @@ def b5_pack(rng, hb: int, groups: int, small: bool):
 
 
 def compare_grouped_bits(got, want, case: str, op: str) -> float:
-    """(sum, count) against the plain version's: counts equal, sums the
-    same bits in every cell but NaN ones (same NaN cells), but rate and
-    increase (the correction prefix's order: :func:`compare_grouped`)."""
+    """(sum, count) against a reference's (the plain version's, or the
+    direct kernel's): counts equal, sums the same bits in every cell but
+    NaN ones (same NaN cells), but rate and increase against the plain
+    version (the correction prefix's order: :func:`compare_grouped`)."""
     import torch
     if op in ("rate", "increase"):
         return compare_grouped(got, want, case, op)
@@ -1118,6 +1117,181 @@ def b5_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
         f"launch a call, the K = 120 cases on the direct kernel and no "
         f"other, the {len(TS_SECOND_OPS)} ops that read timestamps "
         f"refused")
+    return worst
+
+
+B4_ROWS = 128
+B4_WIDTH = 4096                 # lanes a plane
+# (group lanes, (row0, stride, T) spans, T 0 for as many steps as the rows
+# hold): 64 lanes take the 128-lane tile in one pass, 512 and 1,024 the
+# 256-lane tile in 2 and 4 passes; a pass of the full rows lies in the
+# ring without wrapping (the linear layout) but on p32 planes at 512 and
+# 1,024 lanes, where it wraps the ring; the short spans take 1, 2 and 3
+# of a ring's four stages (the linear layout's pads)
+B4_GROUPS = ((64, ((0, 1, 0), (3, 2, 0), (40, 1, 0))),
+             (512, ((0, 1, 0), (3, 2, 0), (40, 1, 0))),
+             (1024, ((0, 1, 0), (3, 1, 0), (3, 2, 0), (40, 1, 0), (40, 2, 0),
+                     (0, 1, 20), (3, 1, 6))))
+
+
+def b4_packs(rng, width: int, rows: int) -> dict:
+    """Single-class identity packs of ``rows`` x ``width`` counters, one
+    scrape phase a lane: "p8", "p16" (lanes 1-5 dead) and "p32" (the p16
+    pack's words widened to 32 bits and shifted into place, so that they
+    use bits 7-22 of their words and decode to the same values)."""
+    import numpy as np
+    from filodb_tpu_torch.codecs import xorgrid
+    v16 = _counters_np(rng, rows, width)
+    v16[:, 1:6] = np.nan
+    packs = {}
+    for key, v in (("p8", _counters_np(rng, rows, width, True)),
+                   ("p16", v16)):
+        pk = xorgrid.pack_vals(v, phase=rng.integers(1, STEP, width)
+                               .astype(np.int32), min_width=int(key[1:]))
+        if pk is None or not (pk.inv == np.arange(width)).all() or [
+                k for k in ("p8", "p16", "raw")
+                if k in pk.planes and pk.planes[k].shape[1]] != [key]:
+            raise AssertionError(f"B4: not an identity {key} pack")
+        packs[key] = {k: pk.planes[k] for k in (key, "m" + key[1:])}
+    m = packs["p16"]["m16"].copy()
+    words = packs["p16"]["p16"].astype(np.uint32) \
+        << m[0].astype(np.uint32)[None, :]
+    m[0] = 0
+    packs["p32"] = {"p32": words, "m32": m}
+    return packs
+
+
+def grouped_packed_direct(packed: dict, q, group_lanes: int, row0: int,
+                          use_phase: bool):
+    """rate_grid_grouped_packed's (sum, count) from the direct kernel (the
+    library's grouped_packed_launch), one launch a class plane, on the
+    wrapper's inputs: what the staged kernel is held to bit for bit."""
+    import ctypes
+    import torch
+    from filodb_tpu_torch.ops import grid, kernels
+    planes = grid._grouped_packed_check(packed, q, row0, use_phase,
+                                        group_lanes)
+    dev = planes[0][0].device
+    shape = (grid.packed_width(packed) // group_lanes, q.nsteps)
+    s = torch.zeros(shape, dtype=torch.float32, device=dev)
+    c = torch.zeros(shape, dtype=torch.float32, device=dev)
+    lib, slot0 = kernels.library(), 0
+    for p, m, kind in planes:
+        nb, n = p.shape
+        with torch.cuda.device(dev):
+            rc = lib.grouped_packed_launch(
+                *grid._plane_pointers(p, m, kind, dev),
+                ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()),
+                *grid._int32_args(kind, nb, n, group_lanes, 1, slot0, row0,
+                                  q.nsteps, q.kbuckets, q.stride, q.gstep_ms,
+                                  grid._OP_CODE[q.op], use_phase, q.dense,
+                                  q.is_rate),
+                *grid._fn_args(q), grid._stream())
+        grid._launch_check(rc, "grouped_packed_launch")
+        slot0 += n // group_lanes
+    return s, c
+
+
+def b4_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
+    """rate_grid_grouped_packed (B4) case by case (:data:`B5_OPS` in
+    each) over the :func:`b4_packs` planes (p8, p16, p32) in groups of
+    64, 512 and 1,024 lanes (:data:`B4_GROUPS`: both lane tiles of the
+    staged kernel, 1, 2 and 4 passes, both ring layouts), row0 0, 3 and
+    40, strides 1 and 2:
+    one launch a call and none on the direct kernel, counts equal to the
+    plain version's and sums within rtol 2e-5 of them
+    (:func:`compare_grouped`), and sums and counts bit-equal to the direct
+    kernel's on the same tensors (:func:`grouped_packed_direct`,
+    :func:`compare_grouped_bits`); a few
+    cases timed; then a K = 120 window, whose step fits no ring (the
+    direct kernel: ``rate_grid_grouped_packed.direct`` counts it, and
+    nothing else), and the ops that read timestamps refused.  Raises
+    naming every case that failed."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.codecs import xorgrid
+    from filodb_tpu_torch.ops import grid
+
+    fn = grid.rate_grid_grouped_packed
+    packs = {k: xorgrid.packed_to_torch(v, device)
+             for k, v in b4_packs(np.random.default_rng([seed, 9]), B4_WIDTH,
+                                  B4_ROWS).items()}
+    worst, failed, ncases = 0.0, [], 0
+    timed = {("p16", 1024, 0, "rate"), ("p16", 1024, 0, "sum"),
+             ("p16", 1024, 0, "stddev"), ("p8", 64, 0, "rate"),
+             ("p32", 512, 0, "rate")}
+
+    def run(word, gl, q, row0, use_phase, direct=False):
+        nonlocal worst, ncases
+        pk = packs[word]
+        args = (pk, 0, q, gl, row0, use_phase)
+        case = (f"rate_grid_grouped_packed {word} group={gl} row0={row0} "
+                f"stride={q.stride} K={q.kbuckets} T={q.nsteps} "
+                f"{'phase' if use_phase else 'free'}-"
+                f"{'dense' if q.dense else 'gappy'}-{q.op}")
+        d0, before = fn.direct, fn.launches
+        got = fn(*args)
+        want = grid.rate_grid_grouped_packed_ref(*args)
+        torch.cuda.synchronize()
+        ncases += 1
+        try:
+            if fn.launches - before != 1:
+                raise AssertionError(f"{case}: {fn.launches - before} "
+                                     f"launches, expected 1")
+            if fn.direct - d0 != int(direct):
+                raise AssertionError(f"{case}: direct launches "
+                                     f"{fn.direct - d0}, expected "
+                                     f"{int(direct)}")
+            err = compare_grouped(got, want, case, q.op)
+            if not direct:
+                compare_grouped_bits(got, grouped_packed_direct(
+                    pk, q, gl, row0, use_phase), f"{case} (direct)", "")
+        except AssertionError as e:
+            failed.append(str(e))
+            return
+        worst = max(worst, err)
+        row = {"kernel": "rate_grid_grouped_packed", "case": case,
+               "op": q.op, "max_abs_err": err}
+        if (word, gl, row0, q.op) in timed and q.stride == 1:
+            bms, by = bound_ms(*grouped_packed_work(
+                pk, q, row0, use_phase, grid.packed_width(pk) // gl))
+            row.update(
+                ms=cuda_ms(partial(fn, *args), reps, flush),
+                direct_ms=cuda_ms(partial(grouped_packed_direct, pk, q, gl,
+                                          row0, use_phase), reps, flush),
+                plain_ms=cuda_ms(partial(grid.rate_grid_grouped_packed_ref,
+                                         *args), reps, flush),
+                bound_ms=bms)
+            log(f"{case}: ms {row['ms']:.4f} direct_ms "
+                f"{row['direct_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                f"bound_ms {bms:.4f} ({by}) max_abs_err {err:.3e} ok")
+        rows.append(row)
+
+    for word in packs:
+        for gl, spans in B4_GROUPS:
+            for row0, stride, nsteps in spans:
+                nsteps = nsteps or (B4_ROWS - row0 - K) // stride + 1
+                for use_phase, dense, op in B5_OPS:
+                    run(word, gl, sweep_query(op, dense, stride, nsteps),
+                        row0, use_phase)
+    for op, use_phase in (("rate", True), ("last", False)):
+        run("p16", 1024, sweep_query(op, True, 1, 6, k=120), 3, use_phase,
+            direct=True)
+    for op in TS_SECOND_OPS:
+        try:
+            fn(packs["p16"], 0, sweep_query(op, True, 1, B4_ROWS - K + 1),
+               1024, 0, False)
+        except ValueError:
+            continue
+        failed.append(f"rate_grid_grouped_packed accepted op {op}")
+    if failed:
+        raise AssertionError(f"b4 sweep: {len(failed)} of {ncases} cases "
+                             f"failed:\n" + "\n".join(failed))
+    log(f"b4 sweep: {ncases} cases, sums within rtol {RTOL_KERNEL} of the "
+        f"plain version (max_abs_err {worst:.3e}) and bit-equal to the "
+        f"direct kernel, counts equal, one launch a call, the K = 120 "
+        f"cases on the direct kernel and no other, the "
+        f"{len(TS_SECOND_OPS)} ops that read timestamps refused")
     return worst
 
 
@@ -1853,11 +2027,13 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             rows[name] = {"launches": launched}
         totals = grid.launch_counts()
         log(f"northstar path launches {totals}")
-        direct = grid.hist_grid_grouped_packed.direct
-        if direct:
-            raise AssertionError(f"northstar hist: {direct} launches of the "
-                                 f"direct bucket kernel, expected the "
-                                 f"staged one")
+        for name, fn in (("packed", grid.rate_grid_grouped_packed),
+                         ("hist", grid.hist_grid_grouped_packed)):
+            if fn.direct:
+                raise AssertionError(f"northstar {name}: {fn.direct} "
+                                     f"launches of the direct "
+                                     f"{fn.__name__} kernel, expected the "
+                                     f"staged one")
 
     flush = make_flush(device)
     kern_rows = {}
@@ -1893,6 +2069,7 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             kern_rows[kname] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                                 "bound_by": by, "bytes": work[0],
                                 "max_abs_err": err}
+        topk_b3 = topk_b3_times(cases["topk"], s0, reps, flush)
     with Phase("northstar.second_ops"):
         second = northstar_second_ops(cases, reps, flush)
     with Phase("northstar.query_times"):
@@ -1904,9 +2081,40 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
                 f"samples a query, device ms {qms:.4f})")
             rows[name].update(query_ms=qms, samples=case.samples,
                               samples_per_s=rate)
+    b3_ms = sum(r["ms"] for r in topk_b3)
+    log(f"northstar topk: its two rate_grid_packed launches {b3_ms:.4f} ms "
+        f"of the query's {rows['topk']['query_ms']:.4f}, the torch around "
+        f"them {rows['topk']['query_ms'] - b3_ms:.4f}")
     report["northstar"] = {"queries": rows, "kernels": kern_rows,
-                           "launches": totals, "second_ops": second}
-    return {"launches": totals, "rows": kern_rows, "second_ops": second}
+                           "launches": totals, "second_ops": second,
+                           "topk_b3": topk_b3}
+    return {"launches": totals, "rows": kern_rows,
+            "second_ops": second + topk_b3}
+
+
+def topk_b3_times(case, s0: int, reps: int, flush) -> list:
+    """rate_grid_packed (B3) at the topk query's two launches, the value
+    column's sum_over_time and the filter column's last value over
+    262,144 event lanes, each against its plain version and timed, with
+    its bound."""
+    from filodb_tpu_torch.ops import grid
+    out = []
+    for col, packed, q in (("value", case.dv, case.qs),
+                           ("filter", case.df, case.ql)):
+        fn = partial(grid.rate_grid_packed, packed, s0, q)
+        ref = partial(grid.rate_grid_packed_ref, packed, s0, q)
+        err = compare(fn(), ref(), q.op, RTOL_KERNEL)
+        ms = cuda_ms(fn, reps, flush)
+        pms = cuda_ms(ref, reps, flush)
+        work = packed_work(packed, q, 0, False)
+        bms, by = bound_ms(*work)
+        log(f"northstar topk rate_grid_packed {col} column ({q.op}): ms "
+            f"{ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, "
+            f"{work[0]} bytes) max_abs_err {err:.3e} ok")
+        out.append({"kernel": "rate_grid_packed", "column": col, "op": q.op,
+                    "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "bytes": work[0], "max_abs_err": err})
+    return out
 
 
 def northstar_second_ops(cases, reps: int, flush) -> list:
@@ -2060,6 +2268,8 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     sources = {k: "filodb_tpu_torch/csrc/grid_kernels.cu" for k in replaces}
     sources["hist_grid_grouped_packed"] = \
         "filodb_tpu_torch/csrc/hist_staged.cu"
+    sources["rate_grid_grouped_packed"] = \
+        "filodb_tpu_torch/csrc/grouped_staged.cu"
     entries = []
     for kname in replaces:
         row = path_rows[kname]

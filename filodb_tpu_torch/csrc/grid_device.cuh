@@ -1,11 +1,12 @@
 // The device code that the grid kernels share: the row sources, the
 // cursor, the window-op paths lane_windows and lane_windows_ext with
 // their families, the grouped kernels' sinks, and the shared-memory
-// ring (mbarriers, cp.async, stage_rows, SmemPackedSrc, RingWaits,
-// RingStoreSink).  grid_kernels.cu (B1-B4, B6, and B5's direct path)
-// and hist_staged.cu (B5 staged) each include it and are compiled as
-// separate translation units, in parallel (ops/kernels.py); the
-// designs are noted in those files.
+// ring (mbarriers, cp.async, consumer_sync, stage_rows, SmemPackedSrc,
+// RingWaits, RingStoreSink).  grid_kernels.cu (B1-B3, B6, and the
+// direct paths of B4 and B5), hist_staged.cu (B5 staged) and
+// grouped_staged.cu (B4 staged) each include it and are compiled as
+// separate translation units, in parallel (ops/kernels.py); the designs
+// are noted in those files.
 
 #pragma once
 
@@ -816,6 +817,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// A barrier over the consumer threads [0, nthreads) only: a warp-
+// specialised CTA's producer warp may be spinning on an "empty" mbarrier
+// or gone, so a CTA-wide __syncthreads() there could deadlock.
+__device__ __forceinline__ void consumer_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;" :: "r"(nthreads) : "memory");
 }
 
 struct RingBars {

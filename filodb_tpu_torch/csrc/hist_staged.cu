@@ -92,10 +92,6 @@ inline long hist_shared_bytes(const HistPlan& p, int hb, int T) {
       + (p.acc_shared ? 8L * hb * T : 0L);
 }
 
-__device__ __forceinline__ void consumer_sync(int nthreads) {
-  asm volatile("bar.sync 1, %0;" :: "r"(nthreads) : "memory");
-}
-
 // The consumers' sink: the ring protocol of RingWaits, and the bucket
 // sum a chunk of C steps at a time.  buf is [2][C][Tile]: two chunks of
 // C steps' values.

@@ -11,8 +11,10 @@ addChunks + the Prometheus extrapolated rate, RateFunctions.scala:37-80).
 
 Each function below has a hand-written CUDA kernel
 (``csrc/grid_kernels.cu``; ``csrc/hist_staged.cu`` for
-:func:`hist_grid_grouped_packed`) and a plain PyTorch version beside it
-(``<name>_ref``):
+:func:`hist_grid_grouped_packed` and ``csrc/grouped_staged.cu`` for
+:func:`rate_grid_grouped_packed`, each with a direct kernel in
+``grid_kernels.cu`` for a step that fits no ring) and a plain PyTorch
+version beside it (``<name>_ref``):
 
 - :func:`rate_grid` — decoded planes (``vals`` plus, per mode, a ts
   plane or a per-lane phase row) -> ``[T, S]``;
@@ -1134,12 +1136,12 @@ rate_grid_grouped.launches = 0
 # threads
 MAX_HIST_BUCKETS = 1024
 
-# The staged hist kernel's launch plan (csrc/hist_staged.cu): its lane
-# tiles, the small one for a group that fits it (one pass) and the large
-# one for any other (faster than the small one in passes at the
-# north-star widths, PERF.md section 6), the steps a bucket-sum chunk, its
-# ring sizes and four stages, and the most the running [hb, T] sums and
-# counts may take in shared memory.
+# The staged grouped kernels' launch plans (csrc/hist_staged.cu for B5,
+# csrc/grouped_staged.cu for B4): their lane tiles, the small one for a
+# group that fits it (one pass) and the large one for any other (faster
+# than the small one in passes at the north-star widths, PERF.md section
+# 6), their ring sizes and four stages; B5's steps a bucket-sum chunk, and
+# the most its running [hb, T] sums and counts may take in shared memory.
 HIST_TILE_SMALL = 128
 HIST_TILE = 256
 HIST_CHUNK = 16
@@ -1172,19 +1174,30 @@ def ring_stage_rows(ring_bytes: int, word: int, tile: int) -> int:
     return 1 << shift
 
 
+def staged_tile(group_lanes: int) -> int:
+    """The staged grouped kernels' lane tile (B4 and B5): the small one
+    for a group of at most that many lanes (one pass), else the large
+    one."""
+    return HIST_TILE_SMALL if group_lanes <= HIST_TILE_SMALL else HIST_TILE
+
+
+def least_ring(stride: int, kbuckets: int, word: int, tile: int) -> int:
+    """The least of :data:`HIST_RING_BYTES` in which a step's ``stride +
+    K`` rows fit in three of its four stages (0: none does)."""
+    return next((b for b in HIST_RING_BYTES
+                 if stride + kbuckets
+                 <= (_RING_STAGES - 1) * ring_stage_rows(b, word, tile)), 0)
+
+
 def hist_staged_plan(hb: int, group_lanes: int, nsteps: int, kbuckets: int,
                      stride: int, word: int) -> HistPlan:
     """The staged kernel's plan for one class plane of ``word``-byte
-    words: a lane tile of :data:`HIST_TILE_SMALL` for a group of at most
-    that many lanes, else :data:`HIST_TILE`; the least ring in which a
-    step's ``stride + K`` rows fit in three of its four stages (none: the
-    direct kernel), a chunk of at most :data:`HIST_CHUNK` steps, the
-    running sums in shared memory when they take at most
-    :data:`HIST_ACC_SHARED_MAX`."""
-    tile = HIST_TILE_SMALL if group_lanes <= HIST_TILE_SMALL else HIST_TILE
-    ring = next((b for b in HIST_RING_BYTES
-                 if stride + kbuckets
-                 <= (_RING_STAGES - 1) * ring_stage_rows(b, word, tile)), 0)
+    words: the lane tile of :func:`staged_tile`; the ring of
+    :func:`least_ring` (none: the direct kernel), a chunk of at most
+    :data:`HIST_CHUNK` steps, the running sums in shared memory when they
+    take at most :data:`HIST_ACC_SHARED_MAX`."""
+    tile = staged_tile(group_lanes)
+    ring = least_ring(stride, kbuckets, word, tile)
     if not ring:
         return HistPlan(tile, 0, 0, False, 0)
     chunk = min(HIST_CHUNK, nsteps)
@@ -1194,13 +1207,57 @@ def hist_staged_plan(hb: int, group_lanes: int, nsteps: int, kbuckets: int,
                     ring + 8 * chunk * tile + (acc if acc_shared else 0))
 
 
+# the dynamic shared memory a CTA may use beside the ring's 64 bytes of
+# mbarriers (227 KB in all)
+CTA_SHARED_BYTES = 232_448 - 64
+
+
+class GroupPlan(NamedTuple):
+    """One class plane's launch of :func:`rate_grid_grouped_packed` on
+    the card (csrc/grouped_staged.cu)."""
+    tile: int            # consumer threads, and lanes a pass
+    ring_bytes: int      # 0: the direct kernel
+    linear: bool         # a pass's rows lie in the ring without wrapping
+    shared: int          # dynamic shared bytes a CTA
+
+    @property
+    def staged(self) -> bool:
+        return self.ring_bytes > 0
+
+
+def grouped_staged_plan(group_lanes: int, nsteps: int, kbuckets: int,
+                        stride: int, row0: int, word: int) -> GroupPlan:
+    """The staged B4 kernel's plan for one class plane of ``word``-byte
+    words: B5's tile (:func:`staged_tile`); the least ring that holds a
+    step in three stages (:func:`least_ring`) and a pass's ``row0 + (T -
+    1) * stride + K`` rows in its four (the linear layout, read without a
+    mask), else the least that holds the step (a pass wraps the ring);
+    then a row of T partial sums and T partial counts for each consumer
+    warp.  A step that fits no ring, or a plan past
+    :data:`CTA_SHARED_BYTES`, takes the direct kernel."""
+    tile = staged_tile(group_lanes)
+    ring = least_ring(stride, kbuckets, word, tile)
+    part = 8 * (tile // 32) * nsteps
+    if not ring or ring + part > CTA_SHARED_BYTES:
+        return GroupPlan(tile, 0, False, 0)
+    rows = row0 + (nsteps - 1) * stride + kbuckets
+    linear = next((b for b in HIST_RING_BYTES
+                   if b >= ring and b + part <= CTA_SHARED_BYTES
+                   and rows <= _RING_STAGES * ring_stage_rows(b, word, tile)),
+                  0)
+    if linear:
+        return GroupPlan(tile, linear, True, linear + part)
+    return GroupPlan(tile, ring, False, ring + part)
+
+
 def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
                            use_phase: bool, group_lanes: int, hb: int):
     """Launch the grouped packed kernel once per class plane (counted on
     ``wrapper``): ``(sum, count)`` ``[G*hb, T]``, groups in plane order.
-    With buckets (hb > 1) a plane whose step fits a ring takes the staged
-    kernel at :func:`hist_staged_plan`'s plan, any other the direct one
-    (counted on ``wrapper.direct``)."""
+    A plane whose step fits a ring takes the staged kernel at
+    :func:`grouped_staged_plan`'s plan (hb = 1) or
+    :func:`hist_staged_plan`'s (hb > 1), any other the direct one (counted
+    on ``wrapper.direct``)."""
     planes = _grouped_packed_check(packed, q, row0, use_phase, group_lanes,
                                    hb)
     fn_args = _fn_args(q)
@@ -1221,23 +1278,27 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
         args = (kind, nb, n, group_lanes, hb, slot0, row0, q.nsteps,
                 q.kbuckets, q.stride, q.gstep_ms, _OP_CODE[q.op], use_phase,
                 q.dense, q.is_rate)
-        plan = hist_staged_plan(hb, group_lanes, q.nsteps, q.kbuckets,
-                                q.stride, _WORD_BYTES[kind]) \
-            if hb > 1 else None
+        word = _WORD_BYTES[kind]
+        if hb > 1:
+            plan = hist_staged_plan(hb, group_lanes, q.nsteps, q.kbuckets,
+                                    q.stride, word)
+            staged, extra = lib.hist_staged_launch, (
+                plan.tile, plan.ring_bytes, plan.chunk, plan.acc_shared)
+        else:
+            plan = grouped_staged_plan(group_lanes, q.nsteps, q.kbuckets,
+                                       q.stride, row0, word)
+            staged, extra = lib.grouped_staged_launch, (
+                plan.tile, plan.ring_bytes, plan.linear)
         sc = (ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()))
         with torch.cuda.device(dev):
-            if plan is not None and plan.staged:
-                rc = lib.hist_staged_launch(
-                    pp, mp, *sc,
-                    *_int32_args(*args, plan.tile, plan.ring_bytes,
-                                 plan.chunk, plan.acc_shared),
-                    *fn_args, _stream())
+            if plan.staged:
+                rc = staged(pp, mp, *sc, *_int32_args(*args, *extra),
+                            *fn_args, _stream())
             else:
                 rc = lib.grouped_packed_launch(pp, mp, *sc,
                                                *_int32_args(*args),
                                                *fn_args, _stream())
-                if hb > 1:
-                    wrapper.direct += 1
+                wrapper.direct += 1
         wrapper.launches += 1
         _launch_check(rc, wrapper.__name__)
         slot0 += n // group_lanes
@@ -1258,7 +1319,9 @@ def rate_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
     carries no alignment-pad lanes (a ``min_width`` single-class pack
     keeps a uniform workload's lane, and so group, order).  Groups come
     back in packed-plane order.  Any group count: the TPU's rule that
-    each plane hold a multiple of 8 groups is its output tile's.  CPU
+    each plane hold a multiple of 8 groups is its output tile's.  On the
+    card each class plane is one launch: the staged kernel, or the direct
+    one where no ring holds the step (counted in ``.direct``).  CPU
     tensors run :func:`rate_grid_grouped_packed_ref`."""
     planes = _packed_planes(packed)
     if planes and planes[0][0].device.type == "cpu":
@@ -1269,6 +1332,7 @@ def rate_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
 
 
 rate_grid_grouped_packed.launches = 0
+rate_grid_grouped_packed.direct = 0
 
 
 def hist_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
@@ -1525,4 +1589,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    rate_grid_grouped_packed.direct = 0
     hist_grid_grouped_packed.direct = 0

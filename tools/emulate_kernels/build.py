@@ -8,7 +8,7 @@ emulated body from ``cuda_runtime.h`` beside this script, drops the
 ``cp.async.wait_all`` and ``fence.mbarrier_init`` lines, points dynamic
 shared memory at one static buffer, turns each ``kernel<<<grid, block,
 ...>>>(args);`` into ``emu_launch`` (every CUDA thread a ``std::thread``,
-CTAs one at a time), and compiles both sources with g++ into
+CTAs one at a time), and compiles the sources with g++ into
 ``OUT/libemu.so``, which exposes the same C interface as the card's
 library.
 
@@ -22,7 +22,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 CSRC = os.path.join(REPO, "filodb_tpu_torch", "csrc")
-SOURCES = ("grid_kernels.cu", "hist_staged.cu")
+SOURCES = ("grid_kernels.cu", "hist_staged.cu", "grouped_staged.cu")
 
 # each PTX helper's emulated body
 EMU = {

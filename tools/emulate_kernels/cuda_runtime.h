@@ -41,7 +41,6 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline void __trap() { fprintf(stderr, "emu: trap\n"); abort(); }
-inline float __shfl_down_sync(unsigned, float, int) { fprintf(stderr, "emu: shfl\n"); abort(); }
 
 alignas(16) inline unsigned char emu_dyn[256 * 1024];
 
@@ -61,6 +60,33 @@ struct EmuBarrier {
 inline EmuBarrier emu_bar0, emu_bar1;
 inline void __syncthreads() { emu_bar0.wait(blockDim.x); }
 inline void emu_named_sync(int n) { emu_bar1.wait(n); }
+
+// __shfl_down_sync over a full warp: each thread posts its value in its
+// slot, the warp meets, reads lane + off's slot (its own past the warp's
+// end), and meets again before any slot is written anew.
+inline float emu_shfl_slot[1024];
+inline EmuBarrier emu_warp_bar[32];
+inline float __shfl_down_sync(unsigned, float v, int off) {
+  const int t = static_cast<int>(threadIdx.x);
+  emu_shfl_slot[t] = v;
+  emu_warp_bar[t >> 5].wait(32);
+  const float r = (t & 31) + off < 32 ? emu_shfl_slot[t + off] : v;
+  emu_warp_bar[t >> 5].wait(32);
+  return r;
+}
+
+// __ballot_sync over a full warp, the same way.
+inline unsigned emu_vote_slot[1024];
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int t = static_cast<int>(threadIdx.x);
+  emu_vote_slot[t] = pred ? 1u : 0u;
+  emu_warp_bar[t >> 5].wait(32);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= emu_vote_slot[(t & ~31) + l] << l;
+  emu_warp_bar[t >> 5].wait(32);
+  return m;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 struct EmuMbar { int expected = 0, pending = 0, phase = 0; };
 inline std::mutex emu_mb_m;

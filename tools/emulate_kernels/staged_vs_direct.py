@@ -1,6 +1,7 @@
-"""Hold the staged hist_grid_grouped_packed kernel against its direct
-kernel, bit for bit, in the CPU emulation of the CUDA source (build.py),
-and both against the plain PyTorch version.
+"""Hold the staged hist_grid_grouped_packed kernel (B5) or the staged
+rate_grid_grouped_packed kernel (B4) against its direct kernel, bit for
+bit, in the CPU emulation of the CUDA source (build.py), and both against
+the plain PyTorch version.
 
 Every case runs the same class plane twice through the wrapper's
 launcher: once at ``grid.hist_staged_plan``'s plan (the staged kernel:
@@ -15,9 +16,24 @@ rounded, the card's is: rtol 2e-5 here only).  Cases: hb 4, 16, 20 and
 every op the kernel serves.  A protocol fault shows as a wrong sum, or as
 an abort where a wait never ends (the emulated trap).
 
-    python3 tools/emulate_kernels/staged_vs_direct.py [HB,...]
+B4 (``b4``): the sweep's shapes (chip_smoke.b4_packs, B4_GROUPS) cut to
+64 rows and two groups a plane: p8, p16 and p32 planes, groups of 64,
+512 and 1,024 lanes (the 128-lane tile, and the 256-lane tile in 2 and 4
+passes), row0 0, 3 and 40, strides 1 and 2, every op at one span of each
+plane and group and rate, sum, mad and stddev at the others; each case
+through the wrapper's launcher (staged: the producer warp, the ring,
+the warp-shuffle group sum) at its plan and, where the plan takes the
+linear ring layout, again forced to the wrapping one, and once through
+the library's direct entry
+(chip_smoke.grouped_packed_direct).  Sums and counts must have the same
+bits; against the plain version counts are equal and sums within rtol
+2e-5 (the plain version sums a group in another order).
 
-Takes about 10 minutes for every hb, one CPU thread a CUDA thread.
+    python3 tools/emulate_kernels/staged_vs_direct.py [HB,...]
+    python3 tools/emulate_kernels/staged_vs_direct.py b4
+
+Takes about 10 minutes for every hb, and about 12 for B4, one CPU thread
+a CUDA thread.
 """
 import contextlib
 import ctypes
@@ -125,6 +141,73 @@ def main(hbs) -> int:
     return 0
 
 
+# B4's ops at the spans after each plane and group's first
+B4_SPAN_OPS = ("rate", "sum", "mad", "stddev")
+
+
+def launch_b4(pk, q, group_lanes, row0, use_phase, wrap: bool):
+    """One call of the launcher on the staged B4 kernel, at its plan or
+    (``wrap``) forced to the wrapping ring layout; (sum, count) and
+    whether the plan took the linear layout."""
+    fn, real = grid.rate_grid_grouped_packed, grid.grouped_staged_plan
+    plans = []
+
+    def plan(gl, nsteps, k, stride, r0, word):
+        p = real(gl, nsteps, k, stride, 1 << 20 if wrap else r0, word)
+        plans.append(p)
+        return p
+    grid.grouped_staged_plan = plan
+    d0 = fn.direct
+    try:
+        s, c = grid._grouped_packed_launch(fn, pk, q, row0, use_phase,
+                                           group_lanes, 1)
+    finally:
+        grid.grouped_staged_plan = real
+    assert fn.direct == d0 and plans[0].staged, "not staged"
+    return s, c, plans[0].linear
+
+
+def main_b4() -> int:
+    emulate(build.build(os.path.join(build.REPO, "filodb_tpu_torch",
+                                     "_build", "emu")))
+    torch.set_num_threads(1)
+    rows, rng = 64, np.random.default_rng(9)
+    fn = grid.rate_grid_grouped_packed
+    n, t0 = 0, time.time()
+    for gl, spans in cs.B4_GROUPS:
+        # two groups a plane (each CTA is emulated in turn)
+        for word, pk in cs.b4_packs(rng, 2 * gl, rows).items():
+            pk = xorgrid.packed_to_torch(pk, "cpu")
+            for i, (row0, stride, nsteps) in enumerate(spans):
+                nsteps = nsteps or (rows - row0 - cs.K) // stride + 1
+                for use_phase, dense, op in OPS:
+                    if i and op not in B4_SPAN_OPS:
+                        continue
+                    q = cs.sweep_query(op, dense, stride, nsteps)
+                    ds, dc = cs.grouped_packed_direct(pk, q, gl, row0,
+                                                      use_phase)
+                    want = grid.rate_grid_grouped_packed_ref(
+                        pk, 0, q, gl, row0, use_phase)
+                    for wrap in (False, True):
+                        case = (f"{word} group={gl} row0={row0} "
+                                f"stride={stride} T={nsteps} {op} "
+                                f"{'wrapping' if wrap else 'planned'}")
+                        ss, sc, linear = launch_b4(pk, q, gl, row0,
+                                                   use_phase, wrap)
+                        cs.compare_grouped_bits((ss, sc), (ds, dc),
+                                                f"{case} (direct)", "")
+                        cs.compare_grouped((ss, sc), want, case, op)
+                        n += 1
+                        if not linear:
+                            break
+            print(f"{word} group={gl}: {n} cases, {time.time() - t0:.1f} s",
+                  flush=True)
+    print(f"staged B4 == direct B4, bit for bit: {n} cases")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["b4"]:
+        sys.exit(main_b4())
     sys.exit(main([int(x) for x in sys.argv[1].split(",")]
                   if len(sys.argv) > 1 else [4, 16, 20, 160]))
