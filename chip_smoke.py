@@ -9,8 +9,9 @@ Phases, each timed on a line of its own:
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
-   csrc/grid_kernels.cu``, ``csrc/hist_staged.cu`` and
-   ``csrc/grouped_staged.cu`` (one ``nvcc`` a source, in parallel);
+   csrc/grid_kernels.cu``, ``csrc/hist_staged.cu``,
+   ``csrc/grouped_staged.cu`` and ``csrc/dense_staged.cu`` (one ``nvcc``
+   a source, in parallel);
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
    of the TPU kernels, each in every mode the TPU kernel serves it, at
@@ -30,7 +31,12 @@ Phases, each timed on a line of its own:
    grouped kernels at the mid shape, in all 22 ops of their TPU kernels:
    ``rate_grid_grouped`` in every op/mode (gappy lanes, strides 1 and 2,
    512-lane groups, the last one all-NaN, quantile at K=32 and with phi
-   1.5), ``rate_grid_grouped_packed`` over a p8 plane and a p16 plane of
+   1.5) and case by case (b2_sweep: groups of 64, 38, 512 and 1,024
+   lanes, strides 1 and 2, both ring layouts of the staged kernel, every
+   op in every mode, bit for bit against its direct kernel on the same
+   tensors, T = 804 where the direct kernel runs fewer warps, K = 120
+   windows on the direct kernel), ``rate_grid_grouped_packed`` over a p8
+   plane and a p16 plane of
    whole groups (the phase ops and the 14 that read no timestamps, row0
    = 3, stride 2) and case by case (b4_sweep: p8, p16 and p32 planes,
    groups of 64, 512 and 1,024 lanes, row0 0, 3 and 40, strides 1 and
@@ -97,15 +103,17 @@ Phases, each timed on a line of its own:
    rate_grid_grouped, one rate_grid_grouped_packed, one
    hist_grid_grouped_packed and two rate_grid_packed launches); each new
    kernel against its plain version at those widths and timed (the
-   staged rate_grid_grouped_packed and hist_grid_grouped_packed with no
-   launch of their direct kernels on the path); rate_grid_packed at the
+   staged rate_grid_grouped, rate_grid_grouped_packed and
+   hist_grid_grouped_packed with no launch of their direct kernels on the
+   path); rate_grid_packed at the
    topk query's two launches, timed beside the query; the grouped
    kernels in the
    second op set on the same data (13 ops on
    rate_grid_grouped, the 5 that read timestamps over the dense
    variant's ts plane; 8 each on rate_grid_grouped_packed and
    hist_grid_grouped_packed), each against its plain version, its
-   launches counted, and timed; each query's device ms and samples/s.
+   launches counted (none direct), and timed; each query's device ms and
+   samples/s.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -876,9 +884,10 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
     """The grouped kernels at the mid shape, each against its plain
     version on the same card tensors, in every op of their TPU kernels:
     rate_grid_grouped in every op/mode (gappy lanes, strides 1 and 2, a
-    group of all-NaN lanes, quantile at K = 32 and with phi 1.5),
-    rate_grid_grouped_packed over a two-plane pack (phase and free ops,
-    row0 = 3, stride 2) and case by case (:func:`b4_sweep`),
+    group of all-NaN lanes, quantile at K = 32 and with phi 1.5) and case
+    by case (:func:`b2_sweep`), rate_grid_grouped_packed over a two-plane
+    pack (phase and free ops, row0 = 3, stride 2) and case by case
+    (:func:`b4_sweep`),
     hist_grid_grouped_packed case by case (:func:`b5_sweep`); the sweeps
     hold the packed ones refusing the ops that read timestamps."""
     import numpy as np
@@ -954,9 +963,10 @@ def grouped_sweep(device, reps: int, seed: int, report: dict) -> float:
             partial(grid.rate_grid_grouped_packed, *args),
             partial(grid.rate_grid_grouped_packed_ref, *args),
             grouped_packed_work(pk, q, row0, use_phase, S // GL), op)
-    # B4 and B5, case by case (b4_sweep, b5_sweep; each also holds its
-    # kernel's refusal of the ops that read timestamps: a packed plane
-    # has no ts)
+    # B2, B4 and B5, case by case (b2_sweep, b4_sweep, b5_sweep; the
+    # packed ones also hold their kernel's refusal of the ops that read
+    # timestamps: a packed plane has no ts)
+    worst = max(worst, b2_sweep(device, reps, seed, rows, flush))
     worst = max(worst, b4_sweep(device, reps, seed, rows, flush))
     worst = max(worst, b5_sweep(device, reps, seed, rows, flush))
     report["grouped_sweep"] = rows
@@ -1292,6 +1302,220 @@ def b4_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
         f"direct kernel, counts equal, one launch a call, the K = 120 "
         f"cases on the direct kernel and no other, the "
         f"{len(TS_SECOND_OPS)} ops that read timestamps refused")
+    return worst
+
+
+B2_ROWS = 128
+B2_WIDTH = 4096                 # lanes of the planes of 64- to 1,024-lane groups
+B2_ODD = 38                     # a group whose rows are not 16-byte aligned
+# (group lanes, spans (stride, T), T 0 for as many steps as the rows hold):
+# 64 and 38 lanes take the 128-lane tile in one pass, 512 and 1,024 the
+# 256-lane tile in 2 and 4 passes; the full rows lie in the ring without
+# wrapping (the linear layout) on the 128-lane tile and wrap it on the
+# 256-lane one, where the 20-step span is linear
+B2_GROUPS = ((64, ((1, 0), (2, 0))), (B2_ODD, ((1, 0), (2, 0))),
+             (512, ((1, 0), (2, 0), (1, 20))),
+             (1024, ((1, 0), (2, 0), (1, 20))))
+# rate_grid_grouped's (mode, dense, op) cases: every op in each mode the
+# TPU kernel serves it
+B2_OPS = FIRST_OPS_CASES + SECOND_OPS_CASES
+
+
+def b2_planes(rng, width: int, rows: int = B2_ROWS) -> dict:
+    """{gappy: (ts, vals, phase)} numpy planes of :func:`_mid_planes`
+    (their last 512 lanes empty), dense and gappy."""
+    return {g: _mid_planes(rng, rows, width, g) for g in (False, True)}
+
+
+def wrapping_plan(group_lanes: int, nsteps: int, kbuckets: int,
+                  stride: int, reads_ts: bool = False):
+    """rate_grid_grouped's staged plan forced to the ring layout in which
+    a pass wraps the ring (the least ring that holds a step; a ts ring
+    of the same bytes beside it where the launch ``reads_ts``)."""
+    from filodb_tpu_torch.ops import grid
+    plan = grid.grouped_staged_plan(group_lanes, nsteps, kbuckets, stride,
+                                    1 << 20, 4)
+    return plan._replace(shared=plan.shared + plan.ring_bytes) \
+        if reads_ts and plan.staged else plan
+
+
+def grouped_dense_direct(ts, vals, steps0: int, q, group_lanes: int,
+                         phase=None):
+    """rate_grid_grouped's (sum, count) from the direct kernel (the
+    library's rate_grid_grouped_launch) on the wrapper's inputs: what the
+    staged kernel is held to bit for bit."""
+    import ctypes
+    import torch
+    from filodb_tpu_torch.ops import grid, kernels
+    grid._grouped_check(vals, q, group_lanes)
+    nb, ns = vals.shape
+    mode, ts_ptr, ph_ptr = grid._dense_pointers(ts, vals, q, phase)
+    shape = (ns // group_lanes, q.nsteps)
+    s = torch.empty(shape, dtype=torch.float32, device=vals.device)
+    c = torch.empty(shape, dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        rc = kernels.library().rate_grid_grouped_launch(
+            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+            ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()),
+            *grid._int32_args(nb, ns, group_lanes, q.nsteps, q.kbuckets,
+                              q.stride, q.gstep_ms, steps0,
+                              grid._OP_CODE[q.op], grid._MODE_CODE[mode],
+                              q.dense, q.is_rate),
+            *grid._fn_args(q), grid._stream())
+    grid._launch_check(rc, "rate_grid_grouped_launch")
+    return s, c
+
+
+def b2_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
+    """rate_grid_grouped (B2) case by case (:data:`B2_OPS`: every op in
+    every mode it serves, dense and gappy lanes) in groups of 64, 38 (rows
+    not 16-byte aligned: plain loads), 512 and 1,024 lanes
+    (:data:`B2_GROUPS`: both lane tiles of the staged kernel, 1, 2 and 4
+    passes, both ring layouts), strides 1 and 2, each case at its plan
+    and, where that is linear, again forced to the wrapping layout: one
+    launch a call and none on the direct kernel, counts equal to the
+    plain version's and sums within rtol 2e-5 of them
+    (:func:`compare_grouped`), sums and counts bit-equal to the direct
+    kernel's on the same tensors (:func:`grouped_dense_direct`), the
+    all-NaN padding group at count 0; a few cases timed.  Then quantile
+    at K = 32 and with phi 1.5 (nothing counted); T = 804, where
+    group_shape cuts the direct kernel to seven warps (named, and held to
+    it within rtol 2e-5 only); and K = 120 windows, whose step fits no
+    ring (the direct kernel: ``rate_grid_grouped.direct`` counts them,
+    and nothing else).  Raises naming every case that failed."""
+    import contextlib
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.ops import grid
+
+    fn = grid.rate_grid_grouped
+    rng = np.random.default_rng([seed, 10])
+    on_card = {}
+    for width in (B2_WIDTH, B2_ODD * 108):
+        on_card[width] = {g: tuple(torch.as_tensor(a, device=device)
+                                   for a in p)
+                          for g, p in b2_planes(rng, width).items()}
+    worst, failed, ncases = 0.0, [], 0
+    # the cases timed, at the full span
+    timed_cases = {(1024, 1, "phase", "rate"), (1024, 1, "free", "sum"),
+                   (1024, 1, "free", "stddev"), (1024, 1, "ts", "deriv"),
+                   (64, 1, "phase", "rate")}
+
+    @contextlib.contextmanager
+    def forced(plan):
+        real = grid.dense_staged_plan
+        if plan is not None:
+            grid.dense_staged_plan = lambda *a: plan
+        try:
+            yield
+        finally:
+            grid.dense_staged_plan = real
+
+    def run(gl, mode, dense, q, width=B2_WIDTH, planes=None, direct=False,
+            cut=False, timed=False):
+        nonlocal worst, ncases
+        ts, vals, ph = planes or on_card[width][not dense]
+        args = (ts, vals, q.kbuckets * STEP, q, gl)
+        phase = ph if mode == "phase" else None
+        reads_ts = grid._mode_for(q, phase) == "ts"
+        plan = grid.dense_staged_plan(gl, q.nsteps, q.kbuckets, q.stride,
+                                      reads_ts)
+        layouts = [None] + ([wrapping_plan(gl, q.nsteps, q.kbuckets,
+                                           q.stride, reads_ts)]
+                            if plan.linear else [])
+        want = grid.rate_grid_grouped_ref(*args, phase=phase)
+        ref_direct = None if direct else grouped_dense_direct(
+            *args, phase=phase)
+        for force in layouts:
+            layout = ("direct" if direct else
+                      "wrapping" if force or not plan.linear else "linear")
+            case = (f"rate_grid_grouped group={gl} stride={q.stride} "
+                    f"K={q.kbuckets} T={q.nsteps} {mode}-"
+                    f"{'dense' if dense else 'gappy'}-{q.op}"
+                    + (f" phi={q.farg}" if q.op == "quantile" else "")
+                    + f" {layout}")
+            d0, before = fn.direct, fn.launches
+            with forced(force):
+                got = fn(*args, phase=phase)
+            torch.cuda.synchronize()
+            ncases += 1
+            try:
+                if fn.launches - before != 1:
+                    raise AssertionError(f"{case}: {fn.launches - before} "
+                                         f"launches, expected 1")
+                if fn.direct - d0 != int(direct):
+                    raise AssertionError(f"{case}: direct launches "
+                                         f"{fn.direct - d0}, expected "
+                                         f"{int(direct)}")
+                err = compare_grouped(got, want, case, q.op)
+                if cut:
+                    compare_grouped(got, ref_direct, f"{case} (direct, "
+                                    f"cut to fewer warps)", q.op)
+                elif not direct:
+                    compare_grouped_bits(got, ref_direct,
+                                         f"{case} (direct)", "")
+                if gl <= 512 and (got[1][-1].any() or got[0][-1].any()):
+                    raise AssertionError(f"{case}: the all-NaN group "
+                                         f"counted")
+            except AssertionError as e:
+                failed.append(str(e))
+                continue
+            worst = max(worst, err)
+            row = {"kernel": "rate_grid_grouped", "case": case,
+                   "op": q.op, "max_abs_err": err}
+            if timed and force is None:
+                call = partial(fn, *args, phase=phase)
+                bms, by = bound_ms(*grouped_work(vals, q, phase,
+                                                 vals.shape[1] // gl))
+                row.update(
+                    ms=cuda_ms(call, reps, flush),
+                    direct_ms=cuda_ms(partial(grouped_dense_direct, *args,
+                                              phase=phase), reps, flush),
+                    plain_ms=cuda_ms(partial(grid.rate_grid_grouped_ref,
+                                             *args, phase=phase), reps,
+                                     flush),
+                    bound_ms=bms)
+                log(f"{case}: ms {row['ms']:.4f} direct_ms "
+                    f"{row['direct_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                    f"bound_ms {bms:.4f} ({by}) max_abs_err {err:.3e} ok")
+            rows.append(row)
+        return got
+
+    for gl, spans in B2_GROUPS:
+        width = B2_WIDTH if B2_WIDTH % gl == 0 else B2_ODD * 108
+        for stride, nsteps in spans:
+            full = not nsteps
+            nsteps = nsteps or (B2_ROWS - K) // stride + 1
+            for mode, dense, op in B2_OPS:
+                run(gl, mode, dense, sweep_query(op, dense, stride, nsteps),
+                    width,
+                    timed=full and (gl, stride, mode, op) in timed_cases)
+    for gl in (64, 1024):
+        run(gl, "free", True, sweep_query(
+            "quantile", True, 1, B2_ROWS - grid.SORT_OPS_MAX_K + 1,
+            k=grid.SORT_OPS_MAX_K))
+        s, c = run(gl, "free", True, sweep_query(
+            "quantile", True, 1, B2_ROWS - K + 1)._replace(farg=1.5))
+        if c.any() or s.any():
+            failed.append(f"group={gl} quantile phi=1.5 counted an answer")
+    # T = 804: 804 * 8 bytes a warp's partials; group_shape runs 7 warps
+    cut = {g: tuple(torch.as_tensor(a, device=device) for a in p)
+           for g, p in b2_planes(rng, 2048, 808).items()}
+    for mode, op in (("phase", "rate"), ("free", "sum")):
+        run(1024, mode, True, sweep_query(op, True, 1, 804),
+            planes=cut[False], cut=True)
+    for mode, op in (("phase", "rate"), ("free", "last")):
+        run(1024, mode, True, sweep_query(op, True, 1, 6, k=120),
+            direct=True)
+    if failed:
+        raise AssertionError(f"b2 sweep: {len(failed)} of {ncases} cases "
+                             f"failed:\n" + "\n".join(failed))
+    log(f"b2 sweep: {ncases} cases, sums within rtol {RTOL_KERNEL} of the "
+        f"plain version (max_abs_err {worst:.3e}) and bit-equal to the "
+        f"direct kernel (T = 804, where the direct kernel runs fewer warps: "
+        f"within rtol {RTOL_KERNEL}), counts equal, the all-NaN groups at "
+        f"0, one launch a call, the K = 120 cases on the direct kernel and "
+        f"no other")
     return worst
 
 
@@ -2027,7 +2251,8 @@ def northstar_phase(device, seed: int, reps: int, report: dict,
             rows[name] = {"launches": launched}
         totals = grid.launch_counts()
         log(f"northstar path launches {totals}")
-        for name, fn in (("packed", grid.rate_grid_grouped_packed),
+        for name, fn in (("dense", grid.rate_grid_grouped),
+                         ("packed", grid.rate_grid_grouped_packed),
                          ("hist", grid.hist_grid_grouped_packed)):
             if fn.direct:
                 raise AssertionError(f"northstar {name}: {fn.direct} "
@@ -2123,7 +2348,7 @@ def northstar_second_ops(cases, reps: int, flush) -> list:
     ops (the five that read timestamps over the dense variant's ts plane),
     rate_grid_grouped_packed and hist_grid_grouped_packed in the 8 that
     read none; each once against its plain version (its launches counted
-    on that call), then timed."""
+    on that call, none of them on a direct kernel), then timed."""
     from filodb_tpu_torch import northstar as ns
     from filodb_tpu_torch.ops import grid
 
@@ -2159,9 +2384,12 @@ def northstar_second_ops(cases, reps: int, flush) -> list:
     for fn, ref, args, work in runs:
         kname = fn.__name__
         op = next(a for a in args if isinstance(a, grid.GridQuery)).op
-        before = fn.launches
+        before, d0 = fn.launches, fn.direct
         got = fn(*args)
         launched = fn.launches - before
+        if fn.direct != d0:
+            raise AssertionError(f"northstar {kname} {op}: the direct "
+                                 f"kernel ran, expected the staged one")
         err = compare_grouped(got, ref(*args), f"northstar {kname} {op}", op)
         ms = cuda_ms(partial(fn, *args), reps, flush)
         pms = cuda_ms(partial(ref, *args), reps, flush)
@@ -2270,6 +2498,7 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
         "filodb_tpu_torch/csrc/hist_staged.cu"
     sources["rate_grid_grouped_packed"] = \
         "filodb_tpu_torch/csrc/grouped_staged.cu"
+    sources["rate_grid_grouped"] = "filodb_tpu_torch/csrc/dense_staged.cu"
     entries = []
     for kname in replaces:
         row = path_rows[kname]

@@ -2,11 +2,12 @@
 // cursor, the window-op paths lane_windows and lane_windows_ext with
 // their families, the grouped kernels' sinks, and the shared-memory
 // ring (mbarriers, cp.async, consumer_sync, stage_rows, SmemPackedSrc,
-// RingWaits, RingStoreSink).  grid_kernels.cu (B1-B3, B6, and the
-// direct paths of B4 and B5), hist_staged.cu (B5 staged) and
-// grouped_staged.cu (B4 staged) each include it and are compiled as
-// separate translation units, in parallel (ops/kernels.py); the designs
-// are noted in those files.
+// RingWaits, RingStoreSink, and the warp-shuffle group sum's GroupPlan,
+// SmemLinearSrc, SmemDenseSrc, RingWarpSumSink).  grid_kernels.cu (B1-B3,
+// B6, and the direct paths of B2, B4 and B5), hist_staged.cu (B5
+// staged), grouped_staged.cu (B4 staged) and dense_staged.cu (B2 staged)
+// each include it and are compiled as separate translation units, in
+// parallel (ops/kernels.py); the designs are noted in those files.
 
 #pragma once
 
@@ -294,13 +295,43 @@ struct BucketSink {
   }
 };
 
+// A template argument that is never deduced (C++20's type_identity_t):
+// the window paths take their timestamps as a const int* unless a caller
+// names another accessor.
+template <class T>
+struct same_type {
+  using type = T;
+};
+
+// Row r of a lane's timestamps: p[r * ld], in device memory or in a ring
+// whose rows lie in order (the staged kernels' linear layout).
+__device__ __forceinline__ int ts_at(const int* p, int r, long ld) {
+  return p[r * ld];
+}
+
+// A lane's timestamps in a ring of Tile-word rows whose rows wrap (the
+// staged kernels' wrapping layout): plane row r at ring row (r0 + r) &
+// mask.
+template <int Tile>
+struct RingTs {
+  const int* col;
+  int mask;
+  int r0;
+};
+
+template <int Tile>
+__device__ __forceinline__ int ts_at(const RingTs<Tile>& t, int r, long) {
+  return t.col[((t.r0 + r) & t.mask) * Tile];
+}
+
 // The shared window-op path: every output step of one lane, handed to
 // sink(t, value, ok) where ok says whether the group reduce takes the
 // value: the lane's row-0 liveness in phase mode, finiteness otherwise.
-template <class Src, class Sink>
-__device__ void lane_windows(Src src, const int* ts, long ts_ld,
-                             float phase, int mode, const Params& P,
-                             Sink& sink) {
+// Timestamps are read as ts_at(ts, row, ts_ld).
+template <class Src, class Sink, class Ts = const int*>
+__device__ void lane_windows(Src src, typename same_type<Ts>::type ts,
+                             long ts_ld, float phase, int mode,
+                             const Params& P, Sink& sink) {
   const int K = P.K;
   if (mode == PHASE) {
     const bool correct = P.op != DELTA;
@@ -327,8 +358,8 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
         a.advance_to(base + 1, correct, false);
         b.advance_to(base + K, correct, false);
         nf = isfinite(a.raw) ? static_cast<float>(K) : 0.f;
-        t1 = ts[base * ts_ld];
-        t2 = ts[(base + K - 1) * ts_ld];
+        t1 = ts_at(ts, base, ts_ld);
+        t2 = ts_at(ts, base + K - 1, ts_ld);
         v1 = a.val;
         v2 = b.val;
       } else {
@@ -340,7 +371,7 @@ __device__ void lane_windows(Src src, const int* ts, long ts_ld,
         for (int d = 0; d < K; ++d) {
           c.step(correct, true);
           if (isfinite(c.raw)) {
-            const int tt = ts[(base + d) * ts_ld];
+            const int tt = ts_at(ts, base + d, ts_ld);
             if (nf == 0.f) {
               t1 = tt;
               v1 = c.val;
@@ -589,9 +620,10 @@ __device__ float sort_op_regs(Cursor<Src>& c, const Params& P,
   return interp_regs(dev, P);
 }
 
-template <int Fam, class Src, class Sink>
-__device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
-                                 const Params& P, Sink& sink) {
+template <int Fam, class Src, class Sink, class Ts = const int*>
+__device__ void lane_windows_ext(Src src,
+                                 typename same_type<Ts>::type ts,
+                                 long ts_ld, const Params& P, Sink& sink) {
   const int K = P.K;
   Cursor<Src> a(src), b(src);
   for (int t = 0; t < P.T; ++t) {
@@ -602,8 +634,8 @@ __device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
         a.advance_to(base + K - 1, false, false);   // row base+K-2
         b.advance_to(base + K, false, false);       // row base+K-1
         const float v1 = a.raw, v2 = b.raw;
-        const int t1 = ts[(base + K - 2) * ts_ld];
-        const int t2 = ts[(base + K - 1) * ts_ld];
+        const int t1 = ts_at(ts, base + K - 2, ts_ld);
+        const int t2 = ts_at(ts, base + K - 1, ts_ld);
         float delta = v2 - v1;
         if (P.op == IRATE && v2 < v1) delta = v2;   // adjacent-pair reset
         const float dts = static_cast<float>(t2 - t1) / 1000.0f;
@@ -615,13 +647,13 @@ __device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
       int sel = kIBig;
       if (P.dense) {
         a.advance_to(base + 1, false, false);       // liveness: row base
-        if (isfinite(a.raw)) sel = ts[(base + K - 1) * ts_ld];
+        if (isfinite(a.raw)) sel = ts_at(ts, base + K - 1, ts_ld);
       } else {
         a.advance_to(base, false, false);
         Cursor<Src> c = a;
         for (int d = 0; d < K; ++d) {                // last finite wins
           c.step(false, false);
-          if (isfinite(c.raw)) sel = ts[(base + d) * ts_ld];
+          if (isfinite(c.raw)) sel = ts_at(ts, base + d, ts_ld);
         }
       }
       if (sel != kIBig)
@@ -638,7 +670,7 @@ __device__ void lane_windows_ext(Src src, const int* ts, long ts_ld,
         c.step(false, false);
         if (!isfinite(c.raw)) continue;
         if (n == 0.f) y0 = c.raw;           // y from the first finite value
-        const float x = (static_cast<float>(ts[(base + d) * ts_ld]) - hi)
+        const float x = (static_cast<float>(ts_at(ts, base + d, ts_ld)) - hi)
             / 1000.0f + shift;
         const float y = c.raw - y0;
         n = n + 1.f;
@@ -906,6 +938,159 @@ struct RingStoreSink : RingWaits {
     ready_below(row0 + (t + 1) * stride + K);
   }
 };
+
+constexpr int kGroupTileMax = 256;    // consumer threads a CTA, at most
+// the dynamic shared memory a CTA may use beside its static barriers
+constexpr int kGroupSharedCta = 232448 - static_cast<int>(sizeof(RingBars));
+
+// The staged grouped kernels with the warp-shuffle group sum (B4,
+// grouped_staged.cu; B2, dense_staged.cu): a CTA a group, Tile consumer
+// threads walking it in passes of Tile lanes and a producer warp.
+//
+// A launch's plan (grid.grouped_staged_plan, grid.dense_staged_plan):
+// consumer threads and lanes a pass, ring bytes, and whether a pass's
+// rows lie in the ring without wrapping (linear).
+struct GroupPlan {
+  int tile, ring_bytes, linear;
+};
+
+// Dynamic shared bytes of a plan: the ring, then a row of T partial sums
+// and T partial counts for each consumer warp.
+inline long group_shared_bytes(const GroupPlan& p, int T) {
+  return static_cast<long>(p.ring_bytes) + 8L * (p.tile / 32) * T;
+}
+
+// Ring chunks a pass takes in the linear layout: its own, rounded up to a
+// divisor of kStages, so that every pass starts on a stage where the last
+// one's chunks ended and none wraps the ring.
+__host__ __device__ inline int linear_chunks(int nchunks) {
+  return nchunks <= 1 ? 1 : nchunks <= 2 ? 2 : kStages;
+}
+
+// One lane of an XOR-class plane in the linear layout: its column of the
+// ring from the pass's first row on, read with no wrap (a pointer step a
+// row, where SmemPackedSrc masks the row into the ring).  It never waits,
+// as SmemPackedSrc does not.
+template <typename W, int Tile>
+struct SmemLinearSrc {
+  const W* p;
+  uint32_t shift;
+  uint32_t first;
+  uint32_t x;
+  __device__ float next() {
+    const uint32_t u = static_cast<uint32_t>(*p) << shift;
+    p += Tile;
+    x ^= u;
+    return __uint_as_float(x ^ first);
+  }
+};
+
+// One lane of a decoded f32 plane in the ring (DenseSrc's interface, so
+// that Cursor copies it): in the linear layout its column from the pass's
+// first row on, a pointer step a row; else (Linear false) ring row r & mask,
+// r the plane row plus the rows of the earlier passes over the ring.  It
+// never waits, as SmemPackedSrc does not.
+template <int Tile, bool Linear>
+struct SmemDenseSrc {
+  const float* col;
+  int mask;          // ring rows - 1 (the wrapping layout)
+  int r;
+  __device__ float next() {
+    if constexpr (Linear) {
+      const float v = *col;
+      col += Tile;
+      return v;
+    } else {
+      const float v = col[(r & mask) * Tile];
+      ++r;
+      return v;
+    }
+  }
+};
+
+// WarpSumSink on the consumer's side of the ring.  part is this warp's
+// row of partials; finish() meets the consumers only, and counts Tile /
+// 32 warps (blockDim also holds the producer warp).  Two things take
+// fewer instructions a step than WarpSumSink and RingStoreSink, with the
+// same bits:
+// - with Ballot, a warp's count is the popcount of its ballot of taken
+//   lanes: an integer of at most 32, which WarpSumSink's shuffle tree of
+//   0/1 floats also sums exactly.  The base family takes it (2% off rate
+//   at the north-star widths); it made the second op set's families 1-2%
+//   slower, and they keep WarpSumSink's (PERF.md section 6);
+// - a step compares its rows with two thresholds, the row from which the
+//   next stage is freed and the row below which the ring has landed, and
+//   calls RingWaits only where one is crossed (about once a stage).
+template <int Tile, bool Ballot>
+struct RingWarpSumSink : RingWaits, WarpSumSink {
+  int free_row;      // (freed + 1) << cshift
+  int ready_row;     // ready << cshift, or kIBig once every row has landed
+
+  __device__ void begin(int first_col, int group_lanes) {
+    WarpSumSink::begin(first_col, group_lanes);
+    freed = ready = 0;
+  }
+  // Free the stages below row lo, await those below row hi, and move the
+  // thresholds on.
+  __device__ void sync_rows(int lo, int hi) {
+    free_below(lo);
+    ready_below(hi);
+    free_row = (freed + 1) << cshift;
+    ready_row = (ready << cshift) < rows ? ready << cshift : kIBig;
+  }
+  // After a pass's last step: free its remaining stages.
+  __device__ void end(int nchunks) {
+    free_below(nchunks << cshift);
+    base += nchunks;
+  }
+  __device__ void operator()(int t, float v, bool ok) {
+    if constexpr (Ballot) {
+      ok = ok && active;
+      float x = ok ? v : 0.f;
+      for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_down_sync(0xffffffffu, x, off);
+      const float c =
+          static_cast<float>(__popc(__ballot_sync(0xffffffffu, ok)));
+      if ((threadIdx.x & 31) == 0) {
+        part[t] = part[t] + x;
+        part[T + t] = part[T + t] + c;
+      }
+    } else {
+      WarpSumSink::operator()(t, v, ok);
+    }
+    const int lo = row0 + t * stride, hi = lo + stride + K;
+    if (lo >= free_row || hi > ready_row) sync_rows(lo, hi);
+  }
+  __device__ void finish(float* sum, float* cnt) {
+    consumer_sync(Tile);
+    const float* parts = part - warp() * 2 * T;
+    for (int t = threadIdx.x; t < T; t += Tile) {
+      float s = 0.f, n = 0.f;
+      for (int w = 0; w < Tile / 32; ++w) {
+        s = s + parts[w * 2 * T + t];
+        n = n + parts[w * 2 * T + T + t];
+      }
+      sum[t] = s;
+      cnt[t] = n;
+    }
+  }
+};
+
+// Whether a plan is one the staged kernels take: a tile of 128 or 256
+// lanes, a ring of 16, 32 or 64 KB in which the step fits three stages
+// (and, in the linear layout, a pass's rows its four), and shared bytes
+// within a CTA's.
+inline bool group_plan_ok(const GroupPlan& p, int word, int row0,
+                          const Params& P) {
+  const int rows = row0 + (P.T - 1) * P.stride + P.K;
+  return (p.tile == kTile || p.tile == kGroupTileMax)
+      && (p.ring_bytes == kRingMin || p.ring_bytes == 2 * kRingMin
+          || p.ring_bytes == kRingMax)
+      && step_fits(p.ring_bytes, word, P.stride, P.K, p.tile)
+      && (!p.linear
+          || rows <= kStages << stage_shift(p.ring_bytes, word, p.tile))
+      && group_shared_bytes(p, P.T) <= kGroupSharedCta;
+}
 
 // The producer warp (threads [Tile, Tile + 32) of the CTA): rows [0,
 // rows) of the nl lanes from lane0 into a ring of Tile-word rows, a stage

@@ -79,116 +79,6 @@
 
 namespace {
 
-constexpr int kGroupTileMax = 256;    // consumer threads a CTA, at most
-// the dynamic shared memory a CTA may use beside its static barriers
-constexpr int kGroupSharedCta = 232448 - static_cast<int>(sizeof(RingBars));
-
-// The launch's plan (grid.grouped_staged_plan): consumer threads and
-// lanes a pass, ring bytes, and whether a pass's rows lie in the ring
-// without wrapping (linear).
-struct GroupPlan {
-  int tile, ring_bytes, linear;
-};
-
-// Dynamic shared bytes of a plan: the ring, then a row of T partial sums
-// and T partial counts for each consumer warp.
-inline long group_shared_bytes(const GroupPlan& p, int T) {
-  return static_cast<long>(p.ring_bytes) + 8L * (p.tile / 32) * T;
-}
-
-// Ring chunks a pass takes in the linear layout: its own, rounded up to a
-// divisor of kStages, so that every pass starts on a stage where the last
-// one's chunks ended and none wraps the ring.
-__host__ __device__ inline int linear_chunks(int nchunks) {
-  return nchunks <= 1 ? 1 : nchunks <= 2 ? 2 : kStages;
-}
-
-// One lane of an XOR-class plane in the linear layout: its column of the
-// ring from the pass's first row on, read with no wrap (a pointer step a
-// row, where SmemPackedSrc masks the row into the ring).  It never waits,
-// as SmemPackedSrc does not.
-template <typename W, int Tile>
-struct SmemLinearSrc {
-  const W* p;
-  uint32_t shift;
-  uint32_t first;
-  uint32_t x;
-  __device__ float next() {
-    const uint32_t u = static_cast<uint32_t>(*p) << shift;
-    p += Tile;
-    x ^= u;
-    return __uint_as_float(x ^ first);
-  }
-};
-
-// WarpSumSink on the consumer's side of the ring.  part is this warp's
-// row of partials; finish() meets the consumers only, and counts Tile /
-// 32 warps (blockDim also holds the producer warp).  Two things take
-// fewer instructions a step than WarpSumSink and RingStoreSink, with the
-// same bits:
-// - with Ballot, a warp's count is the popcount of its ballot of taken
-//   lanes: an integer of at most 32, which WarpSumSink's shuffle tree of
-//   0/1 floats also sums exactly.  The base family takes it (2% off rate
-//   at the north-star widths); it made the second op set's families 1-2%
-//   slower, and they keep WarpSumSink's (PERF.md section 6);
-// - a step compares its rows with two thresholds, the row from which the
-//   next stage is freed and the row below which the ring has landed, and
-//   calls RingWaits only where one is crossed (about once a stage).
-template <int Tile, bool Ballot>
-struct RingWarpSumSink : RingWaits, WarpSumSink {
-  int free_row;      // (freed + 1) << cshift
-  int ready_row;     // ready << cshift, or kIBig once every row has landed
-
-  __device__ void begin(int first_col, int group_lanes) {
-    WarpSumSink::begin(first_col, group_lanes);
-    freed = ready = 0;
-  }
-  // Free the stages below row lo, await those below row hi, and move the
-  // thresholds on.
-  __device__ void sync_rows(int lo, int hi) {
-    free_below(lo);
-    ready_below(hi);
-    free_row = (freed + 1) << cshift;
-    ready_row = (ready << cshift) < rows ? ready << cshift : kIBig;
-  }
-  // After a pass's last step: free its remaining stages.
-  __device__ void end(int nchunks) {
-    free_below(nchunks << cshift);
-    base += nchunks;
-  }
-  __device__ void operator()(int t, float v, bool ok) {
-    if constexpr (Ballot) {
-      ok = ok && active;
-      float x = ok ? v : 0.f;
-      for (int off = 16; off > 0; off >>= 1)
-        x += __shfl_down_sync(0xffffffffu, x, off);
-      const float c =
-          static_cast<float>(__popc(__ballot_sync(0xffffffffu, ok)));
-      if ((threadIdx.x & 31) == 0) {
-        part[t] = part[t] + x;
-        part[T + t] = part[T + t] + c;
-      }
-    } else {
-      WarpSumSink::operator()(t, v, ok);
-    }
-    const int lo = row0 + t * stride, hi = lo + stride + K;
-    if (lo >= free_row || hi > ready_row) sync_rows(lo, hi);
-  }
-  __device__ void finish(float* sum, float* cnt) {
-    consumer_sync(Tile);
-    const float* parts = part - warp() * 2 * T;
-    for (int t = threadIdx.x; t < T; t += Tile) {
-      float s = 0.f, n = 0.f;
-      for (int w = 0; w < Tile / 32; ++w) {
-        s = s + parts[w * 2 * T + t];
-        n = n + parts[w * 2 * T + T + t];
-      }
-      sum[t] = s;
-      cnt[t] = n;
-    }
-  }
-};
-
 // One pass of a consumer thread: the XOR prefix, a stage at a time, then
 // the lane's windows into the sink.
 template <int Fam, class Src, class Sink>
@@ -343,21 +233,6 @@ int staged_family(const W* plane, const int* meta, float* sum, float* cnt,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Whether a plan is one the kernel takes: a tile of 128 or 256 lanes, a
-// ring of 16, 32 or 64 KB in which the step fits three stages (and, in
-// the linear layout, a pass's rows its four), and shared bytes within a
-// CTA's.
-bool group_plan_ok(const GroupPlan& p, int word, int row0, const Params& P) {
-  const int rows = row0 + (P.T - 1) * P.stride + P.K;
-  return (p.tile == kTile || p.tile == kGroupTileMax)
-      && (p.ring_bytes == kRingMin || p.ring_bytes == 2 * kRingMin
-          || p.ring_bytes == kRingMax)
-      && step_fits(p.ring_bytes, word, P.stride, P.K, p.tile)
-      && (!p.linear
-          || rows <= kStages << stage_shift(p.ring_bytes, word, p.tile))
-      && group_shared_bytes(p, P.T) <= kGroupSharedCta;
 }
 
 }  // namespace

@@ -1103,12 +1103,23 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
     :func:`rate_grid`) sums every lane live at row 0 and counts the live
     lanes.  Any G >= 1: the TPU's rule that G be a multiple of 8 is its
     output tile's, and does not apply here.  CPU tensors run
-    :func:`rate_grid_grouped_ref`; CUDA tensors launch the CUDA kernel
-    once or raise."""
+    :func:`rate_grid_grouped_ref`; CUDA tensors launch a CUDA kernel once
+    or raise: the staged one at :func:`dense_staged_plan`'s plan, or the
+    direct one where no ring holds the step (counted in ``.direct``)."""
     if vals.device.type == "cpu":
         return rate_grid_grouped_ref(ts, vals, steps0, q, group_lanes,
                                      phase=phase)
-    dev = _cuda_device(vals, "rate_grid_grouped")
+    _cuda_device(vals, "rate_grid_grouped")
+    return _grouped_dense_launch(ts, vals, steps0, q, group_lanes, phase)
+
+
+def _grouped_dense_launch(ts, vals, steps0: int, q: GridQuery,
+                          group_lanes: int, phase):
+    """One launch of :func:`rate_grid_grouped`'s kernel on ``vals``'
+    device (counted on the wrapper): the staged kernel
+    (csrc/dense_staged.cu) where :func:`dense_staged_plan` stages the
+    step, else the direct one (``.direct``)."""
+    dev = vals.device
     _grouped_check(vals, q, group_lanes)
     fn_args = _fn_args(q)
     nb, ns = vals.shape
@@ -1117,31 +1128,40 @@ def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
     s = torch.empty(shape, dtype=torch.float32, device=dev)
     c = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        rc = lib.rate_grid_grouped_launch(
-            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+    plan = dense_staged_plan(group_lanes, q.nsteps, q.kbuckets, q.stride,
+                             mode == "ts")
+    args = (ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
             ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(c.data_ptr()),
             *_int32_args(nb, ns, group_lanes, q.nsteps, q.kbuckets,
                          q.stride, q.gstep_ms, steps0, _OP_CODE[q.op],
-                         _MODE_CODE[mode], q.dense, q.is_rate),
-            *fn_args, _stream())
+                         _MODE_CODE[mode], q.dense, q.is_rate))
+    with torch.cuda.device(dev):
+        if plan.staged:
+            rc = lib.dense_staged_launch(
+                *args, *_int32_args(plan.tile, plan.ring_bytes, plan.linear),
+                *fn_args, _stream())
+        else:
+            rc = lib.rate_grid_grouped_launch(*args, *fn_args, _stream())
+            rate_grid_grouped.direct += 1
     rate_grid_grouped.launches += 1
     _launch_check(rc, "rate_grid_grouped")
     return s, c
 
 
 rate_grid_grouped.launches = 0
+rate_grid_grouped.direct = 0
 
 # the direct bucket kernel's thread j sums bucket j: at most a CTA's
 # threads
 MAX_HIST_BUCKETS = 1024
 
 # The staged grouped kernels' launch plans (csrc/hist_staged.cu for B5,
-# csrc/grouped_staged.cu for B4): their lane tiles, the small one for a
-# group that fits it (one pass) and the large one for any other (faster
-# than the small one in passes at the north-star widths, PERF.md section
-# 6), their ring sizes and four stages; B5's steps a bucket-sum chunk, and
-# the most its running [hb, T] sums and counts may take in shared memory.
+# csrc/grouped_staged.cu for B4, csrc/dense_staged.cu for B2): their lane
+# tiles, the small one for a group that fits it (one pass) and the large
+# one for any other (faster than the small one in passes at the
+# north-star widths, PERF.md section 6), their ring sizes and four
+# stages; B5's steps a bucket-sum chunk, and the most its running [hb, T]
+# sums and counts may take in shared memory.
 HIST_TILE_SMALL = 128
 HIST_TILE = 256
 HIST_CHUNK = 16
@@ -1214,7 +1234,8 @@ CTA_SHARED_BYTES = 232_448 - 64
 
 class GroupPlan(NamedTuple):
     """One class plane's launch of :func:`rate_grid_grouped_packed` on
-    the card (csrc/grouped_staged.cu)."""
+    the card (csrc/grouped_staged.cu), or one of
+    :func:`rate_grid_grouped` (csrc/dense_staged.cu)."""
     tile: int            # consumer threads, and lanes a pass
     ring_bytes: int      # 0: the direct kernel
     linear: bool         # a pass's rows lie in the ring without wrapping
@@ -1248,6 +1269,31 @@ def grouped_staged_plan(group_lanes: int, nsteps: int, kbuckets: int,
     if linear:
         return GroupPlan(tile, linear, True, linear + part)
     return GroupPlan(tile, ring, False, ring + part)
+
+
+def dense_staged_plan(group_lanes: int, nsteps: int, kbuckets: int,
+                      stride: int, reads_ts: bool = False) -> GroupPlan:
+    """The staged B2 kernel's plan (csrc/dense_staged.cu) for groups of
+    ``group_lanes`` lanes of a decoded f32 plane: B4's
+    (:func:`grouped_staged_plan`) for 4-byte words whose windows start at
+    plane row 0.  At the north-star widths (1,024-lane groups, T = 55,
+    K = 5) the 256-lane tile, and a pass's 59 rows linear in the 64 KB
+    ring.  A launch that ``reads_ts`` stages the ts rows in a second ring
+    of the same bytes, so it takes the least ring that holds a step
+    (:func:`least_ring`), linear only where that ring holds a pass: the
+    two 64 KB rings of the linear layout would leave one CTA an SM."""
+    plan = grouped_staged_plan(group_lanes, nsteps, kbuckets, stride, 0, 4)
+    if not reads_ts or not plan.staged:
+        return plan
+    tile = plan.tile
+    ring = least_ring(stride, kbuckets, 4, tile)
+    shared = 2 * ring + 8 * (tile // 32) * nsteps
+    if shared > CTA_SHARED_BYTES:
+        return GroupPlan(tile, 0, False, 0)
+    rows = (nsteps - 1) * stride + kbuckets
+    return GroupPlan(tile, ring,
+                     rows <= _RING_STAGES * ring_stage_rows(ring, 4, tile),
+                     shared)
 
 
 def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
@@ -1589,5 +1635,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    rate_grid_grouped.direct = 0
     rate_grid_grouped_packed.direct = 0
     hist_grid_grouped_packed.direct = 0

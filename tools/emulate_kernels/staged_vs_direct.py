@@ -1,7 +1,8 @@
-"""Hold the staged hist_grid_grouped_packed kernel (B5) or the staged
-rate_grid_grouped_packed kernel (B4) against its direct kernel, bit for
-bit, in the CPU emulation of the CUDA source (build.py), and both against
-the plain PyTorch version.
+"""Hold the staged hist_grid_grouped_packed kernel (B5), the staged
+rate_grid_grouped_packed kernel (B4) or the staged rate_grid_grouped
+kernel (B2) against its direct kernel, bit for bit, in the CPU emulation
+of the CUDA source (build.py), and both against the plain PyTorch
+version.
 
 Every case runs the same class plane twice through the wrapper's
 launcher: once at ``grid.hist_staged_plan``'s plan (the staged kernel:
@@ -29,8 +30,21 @@ the library's direct entry
 bits; against the plain version counts are equal and sums within rtol
 2e-5 (the plain version sums a group in another order).
 
+B2 (``b2``): decoded f32 planes (chip_smoke._mid_planes, dense and
+gappy lanes, a scrape phase a lane, ts rows) of 64 rows and two groups a
+plane: groups of 64 and 38 lanes (the 128-lane tile; 38 lanes' rows are
+not 16-byte aligned, so the producer copies them by plain loads) and of
+512 and 1,024 lanes (the 256-lane tile in 2 and 4 passes), strides 1 and
+2, a 20-step span, every op in every mode it serves (phase, free, ts:
+chip_smoke.B2_OPS) at each group's first span and rate, sum, mad, stddev
+and deriv at the others; each case through the wrapper's launcher at its
+plan and, where that is linear, again forced to the wrapping layout, and
+once through the library's direct entry (chip_smoke.grouped_dense_direct):
+the same bits, and within rtol 2e-5 of the plain version.
+
     python3 tools/emulate_kernels/staged_vs_direct.py [HB,...]
     python3 tools/emulate_kernels/staged_vs_direct.py b4
+    python3 tools/emulate_kernels/staged_vs_direct.py b2
 
 Takes about 10 minutes for every hb, and about 12 for B4, one CPU thread
 a CUDA thread.
@@ -206,8 +220,80 @@ def main_b4() -> int:
     return 0
 
 
+# B2's (group lanes, spans (stride, T)), T 0 for as many steps as the rows
+# hold, and the ops at the spans after each group's first
+B2_GROUPS = ((64, ((1, 0), (2, 0))), (38, ((1, 0), (2, 0))),
+             (512, ((1, 0), (2, 0), (1, 20))),
+             (1024, ((1, 0), (2, 0), (1, 20))))
+B2_SPAN_OPS = ("rate", "sum", "mad", "stddev", "deriv")
+
+
+def launch_b2(ts, vals, q, group_lanes, phase, wrap: bool):
+    """One call of the launcher on the staged B2 kernel, at its plan or
+    (``wrap``) forced to the wrapping ring layout; (sum, count) and
+    whether the plan took the linear layout."""
+    fn, real = grid.rate_grid_grouped, grid.dense_staged_plan
+    plans = []
+
+    def plan(*a):
+        p = cs.wrapping_plan(*a) if wrap else real(*a)
+        plans.append(p)
+        return p
+    grid.dense_staged_plan = plan
+    d0 = fn.direct
+    try:
+        s, c = grid._grouped_dense_launch(ts, vals, q.kbuckets * cs.STEP, q,
+                                          group_lanes, phase)
+    finally:
+        grid.dense_staged_plan = real
+    assert fn.direct == d0 and plans[0].staged, "not staged"
+    return s, c, plans[0].linear
+
+
+def main_b2() -> int:
+    emulate(build.build(os.path.join(build.REPO, "filodb_tpu_torch",
+                                     "_build", "emu")))
+    torch.set_num_threads(1)
+    rows, rng = 64, np.random.default_rng(10)
+    n, t0 = 0, time.time()
+    for gl, spans in B2_GROUPS:
+        # two groups a plane, every lane live but the gappy lanes' holes
+        planes = {g: tuple(torch.as_tensor(a[..., :2 * gl].copy())
+                           for a in cs._mid_planes(rng, rows, 2 * gl + 512,
+                                                   g))
+                  for g in (False, True)}
+        for i, (stride, nsteps) in enumerate(spans):
+            nsteps = nsteps or (rows - cs.K) // stride + 1
+            for mode, dense, op in cs.B2_OPS:
+                if i and op not in B2_SPAN_OPS:
+                    continue
+                q = cs.sweep_query(op, dense, stride, nsteps)
+                ts, vals, ph = planes[not dense]
+                phase = ph if mode == "phase" else None
+                args = (ts, vals, q.kbuckets * cs.STEP, q, gl)
+                direct = cs.grouped_dense_direct(*args, phase=phase)
+                want = grid.rate_grid_grouped_ref(*args, phase=phase)
+                for wrap in (False, True):
+                    case = (f"group={gl} stride={stride} T={nsteps} {mode}-"
+                            f"{'dense' if dense else 'gappy'}-{op} "
+                            f"{'wrapping' if wrap else 'planned'}")
+                    ss, sc, linear = launch_b2(ts, vals, q, gl, phase, wrap)
+                    cs.compare_grouped_bits((ss, sc), direct,
+                                            f"{case} (direct)", "")
+                    cs.compare_grouped((ss, sc), want, case, op)
+                    n += 1
+                    if not linear:
+                        break
+            print(f"group={gl} stride={stride} T={nsteps}: {n} cases, "
+                  f"{time.time() - t0:.1f} s", flush=True)
+    print(f"staged B2 == direct B2, bit for bit: {n} cases")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["b4"]:
         sys.exit(main_b4())
+    if sys.argv[1:] == ["b2"]:
+        sys.exit(main_b2())
     sys.exit(main([int(x) for x in sys.argv[1].split(",")]
                   if len(sys.argv) > 1 else [4, 16, 20, 160]))
