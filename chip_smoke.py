@@ -10,14 +10,21 @@ Phases, each timed on a line of its own:
    ``nvidia-smi``;
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
    csrc/grid_kernels.cu``, ``csrc/hist_staged.cu``,
-   ``csrc/grouped_staged.cu`` and ``csrc/dense_staged.cu`` (one ``nvcc``
-   a source, in parallel);
+   ``csrc/grouped_staged.cu``, ``csrc/dense_staged.cu`` and
+   ``csrc/series_staged.cu`` (one ``nvcc`` a source, in parallel);
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
    of the TPU kernels, each in every mode the TPU kernel serves it, at
    strides 1 and 2 (``rate_grid_packed`` over the 14 ops that read no
    timestamps), plus quantile at K=32 with phi 0.9, 0.5 and 1.5 and
-   irate at K=1024 over a 1,100-row plane; ``m4_grid`` at
+   irate at K=1024 over a 1,100-row plane (the direct kernel: no ring
+   holds its step); then kernels.b1_sweep: ``rate_grid`` case by case
+   over planes of 4,196 and 1,030 lanes (last tiles of 100 and 6 lanes,
+   rows 16-byte aligned and not), every op in every mode, dense and
+   gappy, strides 1 and 2, T = 1 and 2, each case at the wrapper's plan,
+   the staged kernel's for the ops the plan sends to the direct kernel,
+   and the largest ring, bit for bit against the direct kernel on the
+   same tensors, K = 120 windows on the direct kernel; ``m4_grid`` at
    [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
    zeros of both signs, all-NaN bins, an all-NaN series); then
    kernels.b3_sweep: ``rate_grid_packed`` case by case over 256-row packs
@@ -70,13 +77,16 @@ Phases, each timed on a line of its own:
      Q6 stddev_over_time, deriv and timestamp over jit_total (gappy
         lanes) -> rate_grid; the 7 dense-only functions answer None there.
    Launch counters show each query went through its kernel (exactly one
-   rate_grid_packed launch a packed query, every class plane in it); each
+   rate_grid_packed launch a packed query, every class plane in it; a
+   rate_grid launch on the direct kernel only where its plan stages
+   nothing); each
    query's rows for the first 8 pods are held against a CPU store that ingests
    only those pods (rtol 1e-5; deriv, idelta and zscore, which cross 0,
    of each series' largest answer); one warm run of Q1-Q4 is profiled
    (torch.profiler); each warm query's median of 20 is printed with its
    p10 and p90; each kernel is then held against its plain version
-   on the inputs the main path gave it, and timed;
+   on the inputs the main path gave it, and timed (rate_grid beside its
+   direct kernel on the same inputs, with the route its plan takes);
 5. engine  — the same store through the query engine's entry point
    (PromQL -> query_range_to_logical_plan -> SingleClusterPlanner ->
    ExecPlan.execute), launch counters reset just before and read just
@@ -1519,6 +1529,183 @@ def b2_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
     return worst
 
 
+B1_ROWS = 128
+# lanes of the sweep's planes: 4,196 (16-byte rows, a last tile of 100
+# lanes) and 1,030 (rows that are not 16-byte multiples: the producer's
+# plain loads, a last tile of 6 lanes); the last 512 lanes of each empty
+B1_WIDTHS = (4196, 1030)
+# rate_grid's (mode, dense, op) cases: every op in each mode the TPU
+# kernel serves it
+B1_OPS = FIRST_OPS_CASES + SECOND_OPS_CASES
+# the ops also run at T = 1 and T = 2
+B1_SHORT_OPS = (("phase", True, "rate"), ("ts", False, "rate"),
+                ("ts", True, "irate"), ("ts", False, "deriv"),
+                ("free", False, "sum"), ("free", True, "stddev"))
+
+
+def b1_planes(rng, rows: int, width: int, gappy: bool):
+    """(ts, vals, phase) numpy planes of :func:`_mid_planes` whose lane
+    11 resets at row 1 and whose lane 12 misses row 0: the counter
+    correction and the forward fill from a lane's first rows."""
+    ts, vals, phase = _mid_planes(rng, rows, width, gappy)
+    vals[1:, 11] -= vals[1, 11]
+    vals[0, 12] = float("nan")
+    return ts, vals, phase
+
+
+def series_direct(ts, vals, steps0: int, q, phase=None):
+    """rate_grid's [T, S] from the direct kernel (the library's
+    rate_grid_launch) on the wrapper's inputs: what the staged kernel is
+    held to bit for bit."""
+    import ctypes
+    import torch
+    from filodb_tpu_torch.ops import grid, kernels
+    nb, ns = vals.shape
+    mode, ts_ptr, ph_ptr = grid._dense_pointers(ts, vals, q, phase)
+    out = torch.empty((q.nsteps, ns), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        rc = kernels.library().rate_grid_launch(
+            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+            ctypes.c_void_p(out.data_ptr()),
+            *grid._int32_args(nb, ns, q.nsteps, q.kbuckets, q.stride,
+                              q.gstep_ms, steps0, grid._OP_CODE[q.op],
+                              grid._MODE_CODE[mode], q.dense, q.is_rate),
+            *grid._fn_args(q), grid._stream())
+    grid._launch_check(rc, "rate_grid_launch")
+    return out
+
+
+def b1_plans(ns: int, q, mode: str) -> list:
+    """The (name, plan) pairs a B1 case runs: the wrapper's plan
+    ("planned", or "direct" where it stages nothing); where a ring holds
+    the step, the staged kernel at it ("staged", where the wrapper sends
+    the op to the direct kernel) and at the largest ring ("ring64": four
+    stages of 32 rows, where the plan's ring is smaller)."""
+    from filodb_tpu_torch.ops import grid
+    plan = grid.series_staged_plan(ns, q.nsteps, q.kbuckets, q.stride, mode,
+                                   q.op)
+    out = [("planned" if plan.staged else "direct", plan)]
+    if not plan.staged:
+        plan = grid.series_ring_plan(q.kbuckets, q.stride, mode)
+        if not plan.staged:
+            return out
+        out.append(("staged", plan))
+    top = max(grid.SERIES_RING_BYTES)
+    if plan.ring_bytes < top:
+        out.append(("ring64", grid.SeriesPlan(
+            top, plan.shared // plan.ring_bytes * top)))
+    return out
+
+
+def b1_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
+    """rate_grid (B1) case by case (:data:`B1_OPS`: every op in every
+    mode it serves, dense and gappy lanes) over planes of 4,196 and 1,030
+    lanes (:data:`B1_WIDTHS`: last tiles of 100 and 6 lanes, rows 16-byte
+    aligned and not; :func:`b1_planes`: a reset at row 1, a missed row
+    0), strides 1 and 2 at the full span, and T = 1 and 2
+    (:data:`B1_SHORT_OPS`); each case at every plan of :func:`b1_plans`
+    (the wrapper's, the staged one for the direct ops, the largest ring;
+    every plane of 128 rows wraps the plan's ring): one launch a
+    call and none on the direct kernel, within rtol 2e-5 of the plain
+    version with the same NaN cells (:func:`compare`), and bit-equal to
+    the direct kernel on the same tensors (:func:`series_direct`); a few
+    cases timed.  Then K = 120 windows, whose step fits no ring (the
+    direct kernel: ``rate_grid.direct`` counts them, and nothing else).
+    Raises naming every case that failed."""
+    import contextlib
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.ops import grid
+
+    fn = grid.rate_grid
+    rng = np.random.default_rng([seed, 11])
+    on_card = {w: {g: tuple(torch.as_tensor(a, device=device)
+                            for a in b1_planes(rng, B1_ROWS, w, g))
+                   for g in (False, True)}
+               for w in B1_WIDTHS}
+    worst, failed, ncases = 0.0, [], 0
+    timed_cases = {("phase", "rate"), ("ts", "deriv"), ("free", "stddev")}
+
+    @contextlib.contextmanager
+    def forced(plan):
+        real = grid.series_staged_plan
+        grid.series_staged_plan = lambda *a, **k: plan
+        try:
+            yield
+        finally:
+            grid.series_staged_plan = real
+
+    def run(width, mode, dense, q, timed=False):
+        nonlocal worst, ncases
+        ts, vals, ph = on_card[width][not dense]
+        phase = ph if mode == "phase" else None
+        args = (ts, vals, q.kbuckets * STEP, q)
+        want = grid.rate_grid_ref(*args, phase=phase)
+        ref_direct = series_direct(*args, phase=phase)
+        for which, plan in b1_plans(width, q, grid._mode_for(q, phase)):
+            case = (f"rate_grid S={width} stride={q.stride} K={q.kbuckets} "
+                    f"T={q.nsteps} {mode}-{'dense' if dense else 'gappy'}-"
+                    f"{q.op} {which}")
+            d0, before = fn.direct, fn.launches
+            with forced(plan):
+                got = fn(*args, phase=phase)
+            torch.cuda.synchronize()
+            ncases += 1
+            try:
+                if fn.launches - before != 1:
+                    raise AssertionError(f"{case}: {fn.launches - before} "
+                                         f"launches, expected 1")
+                direct = int(which == "direct")
+                if fn.direct - d0 != direct:
+                    raise AssertionError(f"{case}: direct launches "
+                                         f"{fn.direct - d0}, expected "
+                                         f"{direct}")
+                err = compare(got, want, q.op, RTOL_KERNEL,
+                              0 if q.op in CROSSING else None)
+                compare_bits(got, ref_direct, f"{case} (direct)")
+            except AssertionError as e:
+                failed.append(str(e))
+                continue
+            worst = max(worst, err)
+            row = {"kernel": "rate_grid", "case": case, "op": q.op,
+                   "max_abs_err": err}
+            if timed and which == "planned":
+                call = partial(fn, *args, phase=phase)
+                bms, by = bound_ms(*grid_work(ts, vals, q, phase))
+                row.update(
+                    ms=cuda_ms(call, reps, flush),
+                    direct_ms=cuda_ms(partial(series_direct, *args,
+                                              phase=phase), reps, flush),
+                    plain_ms=cuda_ms(partial(grid.rate_grid_ref, *args,
+                                             phase=phase), reps, flush),
+                    bound_ms=bms)
+                log(f"{case}: ms {row['ms']:.4f} direct_ms "
+                    f"{row['direct_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                    f"bound_ms {bms:.4f} ({by}) max_abs_err {err:.3e} ok")
+            rows.append(row)
+
+    for width in B1_WIDTHS:
+        for mode, dense, op in B1_OPS:
+            for stride in (1, 2):
+                q = sweep_query(op, dense, stride,
+                                (B1_ROWS - K) // stride + 1)
+                run(width, mode, dense, q, timed=width == B1_WIDTHS[0]
+                    and stride == 1 and (mode, op) in timed_cases)
+        for mode, dense, op in B1_SHORT_OPS:
+            for nsteps in (1, 2):
+                run(width, mode, dense, sweep_query(op, dense, 1, nsteps))
+    for mode, dense, op in (("phase", True, "rate"), ("free", True, "last")):
+        run(B1_WIDTHS[0], mode, dense, sweep_query(op, dense, 1, 6, k=120))
+    if failed:
+        raise AssertionError(f"b1 sweep: {len(failed)} of {ncases} cases "
+                             f"failed:\n" + "\n".join(failed))
+    log(f"b1 sweep: {ncases} cases, within rtol {RTOL_KERNEL} of the plain "
+        f"version (max_abs_err {worst:.3e}) and bit-equal to the direct "
+        f"kernel, one launch a call, the K = 120 cases on the direct kernel "
+        f"and no other")
+    return worst
+
+
 def check_m4(vals, pixels: int) -> float:
     """m4_grid against its plain version on the same card tensor: the
     same NaN cells, and every other cell the same 32 bits (so +0.0 and
@@ -1649,6 +1836,13 @@ def queries():
     return out
 
 
+# rate_grid launches a query makes on the direct kernel: irate's and
+# stddev_over_time's (grid.SERIES_DIRECT_OPS); every other launch of
+# rate_grid on the main path and the engine's takes the staged kernel
+MAIN_DIRECT = {"Q5:irate": 1, "Q6:stddev_over_time": 1}
+ENGINE_DIRECT = {"E3": 1}
+
+
 def run_query(shard, kind, func, span, looked, fargs=(), served=True):
     """One query through the shard's grid seam; ``looked`` is the
     metric's :func:`lookup` (the part of planning that resolves series
@@ -1760,9 +1954,15 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             b = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             a.record()
+            d0 = grid.rate_grid.direct
             out = run_query(shard, kind, func, span, looked[metric], fargs)
+            direct = grid.rate_grid.direct - d0
             b.record()
             b.synchronize()
+            if direct != MAIN_DIRECT.get(name, 0):
+                raise AssertionError(f"{name}: {direct} rate_grid launches "
+                                     f"on the direct kernel, expected "
+                                     f"{MAIN_DIRECT.get(name, 0)}")
             wall = (time.perf_counter() - t0) * 1e3
             dev_ms = a.elapsed_time(b)
             launched = {
@@ -1790,18 +1990,22 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                               ref_looked[metric], span[1], device)
             log(f"{name}: first run (block builds included) wall_ms "
                 f"{wall:.3f} events_ms {dev_ms:.3f} launches {launched} "
-                f"cpu-store check ok (max_abs_err {err:.3e})")
+                f"(rate_grid direct {direct}) cpu-store check ok "
+                f"(max_abs_err {err:.3e})")
             qrows.append({"query": name, "kernel": kern,
                           "cold_wall_ms": wall, "cold_events_ms": dev_ms,
-                          "launches": launched, "cpu_check_err": err})
+                          "launches": launched, "rate_grid_direct": direct,
+                          "cpu_check_err": err})
             qlaunch[name] = launched
         totals = {"rate_grid": grid.rate_grid.launches,
                   "rate_grid_packed": grid.rate_grid_packed.launches}
+        direct_total = grid.rate_grid.direct
         for k, n in totals.items():
             if n < 1:
                 raise AssertionError(f"{k} never launched on the main "
                                      f"path")
-        log(f"main path launches {totals}")
+        log(f"main path launches {totals}, rate_grid on its direct kernel "
+            f"{direct_total}")
     with Phase("main.dense_only_on_gappy_lanes"):
         from filodb_tpu_torch.query.logical import RangeFunctionId as F
         q2 = next(q for q in queries() if q[0] == "Q2")[4]
@@ -1863,26 +2067,41 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 fn = partial(grid.rate_grid, ts, vals, s0, q, phase=ph)
                 ref = partial(grid.rate_grid_ref, ts, vals, s0, q, phase=ph)
                 work = grid_work(ts, vals, q, ph)
-                shape = f"[{vals.shape[0]}, {vals.shape[1]}]"
+                mode = grid._mode_for(q, ph)
+                splan = grid.series_staged_plan(vals.shape[1], q.nsteps,
+                                                q.kbuckets, q.stride, mode,
+                                                q.op)
+                route = "staged" if splan.staged else "direct"
+                shape = (f"[{vals.shape[0]}, {vals.shape[1]}] {mode} "
+                         f"{route} {tuple(splan)}")
             got = fn()
             want = ref()
             torch.cuda.synchronize()
             err = compare(got, want, plan.q.op, RTOL_KERNEL,
                           0 if plan.q.op in CROSSING else None)
+            extra = {}
+            if kname == "rate_grid":
+                # the direct kernel on the same inputs: bit for bit, timed
+                direct = partial(series_direct, ts, vals, s0, q, phase=ph)
+                compare_bits(got, direct(), f"{name} rate_grid (direct)")
+                extra = {"route": route, "plan": list(splan),
+                         "direct_ms": cuda_ms(direct, reps, flush)}
             ms = cuda_ms(fn, reps, flush)
             pms = cuda_ms(ref, reps, flush)
             bms, by = bound_ms(*work)
             log(f"{name} {kname} {shape} op={plan.q.op} T={plan.q.nsteps}"
-                f": ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
-                f"({by}, {work[0]} bytes) max_abs_err {err:.3e} ok")
+                f": ms {ms:.4f}"
+                + (f" direct_ms {extra['direct_ms']:.4f}" if extra else "")
+                + f" plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, "
+                f"{work[0]} bytes) max_abs_err {err:.3e} ok")
             row = {"query": name, "op": plan.q.op, "ms": ms,
                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                    "bytes": work[0], "max_abs_err": err,
-                   "launches": qlaunch[name][kname]}
+                   "launches": qlaunch[name][kname], **extra}
             kern_rows.setdefault(kname, []).append(row)
     report["kernels_at_path_shapes"] = kern_rows
-    return {"launches": totals, "rows": kern_rows,
-            "stores": (_ms, shard, _rms, looked)}
+    return {"launches": totals, "rate_grid_direct": direct_total,
+            "rows": kern_rows, "stores": (_ms, shard, _rms, looked)}
 
 
 # ------------------------------------------------------------- phase 5
@@ -2024,17 +2243,17 @@ class AggregatorDevices:
 
 
 def warm_engine(ms, query: str, span, pixels, reps: int):
-    """Median wall ms of ``reps`` warm runs, and the median of each
-    ExecContext stage (scan: lookup + grid or scan_batch; device_compute:
-    the grid seam's calls) in ms."""
+    """Median wall ms of ``reps`` warm runs, their (p10, p90), and the
+    median of each ExecContext stage (scan: lookup + grid or scan_batch;
+    device_compute: the grid seam's calls) in ms."""
     walls, stages = [], {}
     for _ in range(reps):
         res, _host, wall = run_engine(ms, query, span, pixels)
         walls.append(wall)
         for k, v in res.stats.timings.items():
             stages.setdefault(k, []).append(v * 1e3)
-    return statistics.median(walls), {k: round(statistics.median(v), 3)
-                                      for k, v in stages.items()}
+    return statistics.median(walls), spread(walls), {
+        k: round(statistics.median(v), 3) for k, v in stages.items()}
 
 
 def engine_phase(device, stores, reps: int, report: dict) -> dict:
@@ -2054,15 +2273,21 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
 
     cold_runs = []
     grid.reset_launch_counts()              # the engine path's run
-    for _name, query, span, pixels, _kern in engine_queries():
-        before = counts()
+    for name, query, span, pixels, _kern in engine_queries():
+        before, d0 = counts(), grid.rate_grid.direct
         with AggregatorDevices() as agg_devices, GroupReduces() as reduces:
             res, host, cold = run_engine(ms, query, span, pixels)
         cold_runs.append((res, engine_rows(res, host), cold,
                           {k: v - before[k] for k, v in counts().items()},
                           agg_devices.seen, reduces.ops))
+        direct = grid.rate_grid.direct - d0
+        if direct != ENGINE_DIRECT.get(name, 0):
+            raise AssertionError(f"{name}: {direct} rate_grid launches on "
+                                 f"the direct kernel, expected "
+                                 f"{ENGINE_DIRECT.get(name, 0)}")
     totals = counts()
-    log(f"engine path launches {totals}")
+    log(f"engine path launches {totals}, rate_grid on its direct kernel "
+        f"{grid.rate_grid.direct}")
 
     rows_out = []
     for (name, query, span, pixels, kern), \
@@ -2113,7 +2338,8 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
                                          f"direct scan_grid_grouped answer")
             log("E1: equals the direct scan_grid_grouped answer bit for bit "
                 f"({len(rows)} pods)")
-        warm, stages = warm_engine(ms, query, span, pixels, reps)
+        warm, warm_spread, stages = warm_engine(ms, query, span, pixels,
+                                                reps)
         log(f"{name} {query!r} steps={span[1]}"
             f"{f' downsample={pixels}' if pixels else ''}: {len(rows)} "
             f"series, result on {where}, aggregation on "
@@ -2121,17 +2347,19 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
             f"reduces {reduce_ops or 'none'}, launches {launched}, cold "
             f"wall_ms "
             f"{cold:.3f} (stages {res.stats.timings}), warm wall_ms (median "
-            f"of {reps}) {warm:.3f} (stage ms {stages}), cpu-store check "
+            f"of {reps}) {warm:.3f} (p10 {warm_spread[0]:.3f}, p90 "
+            f"{warm_spread[1]:.3f}; stage ms {stages}), cpu-store check "
             f"ok (max_abs_err {err:.3e})")
         row = {"query": name, "promql": query, "steps": span[1],
                "pixels": pixels, "launches": launched,
                "group_reduces": reduce_ops, "cold_wall_ms": cold,
                "cold_stage_seconds": res.stats.timings, "warm_wall_ms": warm,
-               "warm_stage_ms": stages, "cpu_check_err": err}
+               "warm_wall_p10_p90": warm_spread, "warm_stage_ms": stages,
+               "cpu_check_err": err}
         if pixels:
             # the same query without ?downsample=: the difference is the
             # DownsampleMapper (upload, m4_grid, readback, host selection)
-            row["warm_wall_ms_without_downsample"], _ = warm_engine(
+            row["warm_wall_ms_without_downsample"], _, _ = warm_engine(
                 ms, query, span, None, reps)
             log(f"{name} without downsample: warm wall_ms "
                 f"{row['warm_wall_ms_without_downsample']:.3f}")
@@ -2443,6 +2671,11 @@ def main() -> int:
         report["build_log"] = kernels.build_log
     with Phase("kernels"):
         sweep_err = kernel_sweep(device, REPS, args.seed, report)
+        with Phase("kernels.b1_sweep"):
+            report["b1_sweep"] = []
+            sweep_err = max(sweep_err, b1_sweep(
+                device, REPS, args.seed, report["b1_sweep"],
+                make_flush(device)))
         with Phase("kernels.b3_sweep"):
             sweep_err = max(sweep_err, b3_sweep(device, args.seed, report))
         sweep_err = max(sweep_err, grouped_sweep(device, REPS, args.seed,
@@ -2491,15 +2724,22 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     launches = {**main["launches"],
                 "m4_grid": engine["launches"]["m4_grid"],
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
-    sweep = (report["kernel_sweep"] + report["b3_sweep"]
+    sweep = (report["kernel_sweep"] + report["b1_sweep"] + report["b3_sweep"]
              + report["grouped_sweep"] + northstar["second_ops"])
     sources = {k: "filodb_tpu_torch/csrc/grid_kernels.cu" for k in replaces}
+    sources["rate_grid"] = "filodb_tpu_torch/csrc/series_staged.cu"
     sources["hist_grid_grouped_packed"] = \
         "filodb_tpu_torch/csrc/hist_staged.cu"
     sources["rate_grid_grouped_packed"] = \
         "filodb_tpu_torch/csrc/grouped_staged.cu"
     sources["rate_grid_grouped"] = "filodb_tpu_torch/csrc/dense_staged.cu"
     entries = []
+    # rate_grid's launches split by kernel: the staged kernel's, and the
+    # direct kernel's (grid_kernels.cu) where its plan sends them
+    split = {"rate_grid": {
+        "launches_staged": launches["rate_grid"] - main["rate_grid_direct"],
+        "launches_direct": main["rate_grid_direct"],
+        "source_direct": "filodb_tpu_torch/csrc/grid_kernels.cu"}}
     for kname in replaces:
         row = path_rows[kname]
         errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
@@ -2512,7 +2752,7 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
             "max_abs_err": max(errs + [row["max_abs_err"]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "library_ms": None, **split.get(kname, {})})
     return entries
 
 

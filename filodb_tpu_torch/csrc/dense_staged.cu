@@ -96,21 +96,6 @@ inline long dense_shared_bytes(const GroupPlan& p, int T, bool ts) {
   return group_shared_bytes(p, T) + (ts ? p.ring_bytes : 0);
 }
 
-// One lane's windows from its ring sources into the sink: the phase ops
-// and the first nine in lane_windows, the second op set in
-// lane_windows_ext<Fam>; the lane's timestamps as ts_at(ts, row, ts_ld).
-template <int Fam, class Src, class Ts, class Sink>
-__device__ void dense_windows(Src src, Ts ts, long ts_ld, const int* phase,
-                              long lane, const Params& P, int mode,
-                              Sink& sink) {
-  if constexpr (Fam == F_BASE) {
-    const float ph = (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
-    lane_windows<Src, Sink, Ts>(src, ts, ts_ld, ph, mode, P, sink);
-  } else {
-    lane_windows_ext<Fam, Src, Sink, Ts>(src, ts, ts_ld, P, sink);
-  }
-}
-
 // One CTA per group of group_lanes contiguous lanes of vals [nb, ns] (its
 // f32 bits); the group's (sum, count) row at sum/cnt + blockIdx.x * T.
 // Threads [0, Tile) consume, [Tile, Tile + 32) produce.  At most 56

@@ -3,11 +3,12 @@
 // their families, the grouped kernels' sinks, and the shared-memory
 // ring (mbarriers, cp.async, consumer_sync, stage_rows, SmemPackedSrc,
 // RingWaits, RingStoreSink, and the warp-shuffle group sum's GroupPlan,
-// SmemLinearSrc, SmemDenseSrc, RingWarpSumSink).  grid_kernels.cu (B1-B3,
-// B6, and the direct paths of B2, B4 and B5), hist_staged.cu (B5
-// staged), grouped_staged.cu (B4 staged) and dense_staged.cu (B2 staged)
-// each include it and are compiled as separate translation units, in
-// parallel (ops/kernels.py); the designs are noted in those files.
+// SmemLinearSrc, SmemDenseSrc, RingWarpSumSink).  grid_kernels.cu (B3,
+// B6, and the direct paths of B1, B2, B4 and B5), series_staged.cu (B1
+// staged), hist_staged.cu (B5 staged), grouped_staged.cu (B4 staged) and
+// dense_staged.cu (B2 staged) each include it and are compiled as
+// separate translation units, in parallel (ops/kernels.py); the designs
+// are noted in those files.
 
 #pragma once
 
@@ -1134,6 +1135,22 @@ __device__ int stage_rows(const W* plane, long n, int lane0, int nl,
     }
   }
   return nchunks;
+}
+
+// One lane's windows of a decoded f32 plane from its sources into the
+// sink: the phase ops and the first nine in lane_windows, the second op
+// set in lane_windows_ext<Fam>; the lane's timestamps as ts_at(ts, row,
+// ts_ld), its phase phase[lane] (phase mode).
+template <int Fam, class Src, class Ts, class Sink>
+__device__ void dense_windows(Src src, Ts ts, long ts_ld, const int* phase,
+                              long lane, const Params& P, int mode,
+                              Sink& sink) {
+  if constexpr (Fam == F_BASE) {
+    const float ph = (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
+    lane_windows<Src, Sink, Ts>(src, ts, ts_ld, ph, mode, P, sink);
+  } else {
+    lane_windows_ext<Fam, Src, Sink, Ts>(src, ts, ts_ld, P, sink);
+  }
 }
 
 // One lane's windows from its own decoding source into the [T, n] out.

@@ -27,8 +27,9 @@
 // are bound by operations.
 //
 // rate_grid_packed stages its rows in shared memory (the note above
-// rate_grid_packed_kernel); rate_grid reads device memory
-// directly, as described next.
+// rate_grid_packed_kernel), and so does rate_grid's staged kernel
+// (series_staged.cu); rate_grid_kernel, its direct path, reads device
+// memory directly, as described next.
 //
 // Design.  The TPU kernels turn the per-lane sequential parts (counter-
 // correction prefix, forward fill, prefix-XOR decode) into log-step roll

@@ -994,13 +994,24 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
     ``phase`` ([S] int32 within-bucket scrape offsets in (0, gstep])
     selects the uniform-phase mode for phase-eligible queries; then and
     for TS_FREE ops ``ts`` may be None.  CPU tensors run
-    :func:`rate_grid_ref`; CUDA tensors launch the CUDA kernel
-    (f32 values, int32 ts/phase) or raise."""
+    :func:`rate_grid_ref`; CUDA tensors (f32 values, int32 ts/phase)
+    launch a CUDA kernel once or raise: the staged one at
+    :func:`series_staged_plan`'s plan, or the direct one where the plan
+    stages nothing (counted in ``.direct``)."""
     if vals.device.type == "cpu":
         return rate_grid_ref(ts, vals, steps0, q, phase=phase)
+    _cuda_device(vals, "rate_grid")
+    return _series_launch(ts, vals, steps0, q, phase)
+
+
+def _series_launch(ts, vals, steps0: int, q: GridQuery, phase):
+    """One launch of :func:`rate_grid`'s kernel on ``vals``' device
+    (counted on the wrapper): the staged kernel (csrc/series_staged.cu)
+    where :func:`series_staged_plan` stages the launch, else the direct
+    one (``.direct``)."""
     _check_op(q)
     fn_args = _fn_args(q)
-    dev = _cuda_device(vals, "rate_grid")
+    dev = vals.device
     nb, ns = vals.shape
     if nb < _rows_needed(q):
         raise ValueError(f"grid has {nb} rows; need (nsteps-1)*stride+K = "
@@ -1010,20 +1021,27 @@ def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
     if ns == 0:
         return out
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        rc = lib.rate_grid_launch(
-            ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
+    plan = series_staged_plan(ns, q.nsteps, q.kbuckets, q.stride, mode, q.op)
+    args = (ctypes.c_void_p(vals.data_ptr()), ts_ptr, ph_ptr,
             ctypes.c_void_p(out.data_ptr()),
-            *_int32_args(nb, ns, q.nsteps, q.kbuckets, q.stride,
-                         q.gstep_ms, steps0, _OP_CODE[q.op],
-                         _MODE_CODE[mode], q.dense, q.is_rate),
-            *fn_args, _stream())
+            *_int32_args(nb, ns, q.nsteps, q.kbuckets, q.stride, q.gstep_ms,
+                         steps0, _OP_CODE[q.op], _MODE_CODE[mode], q.dense,
+                         q.is_rate))
+    with torch.cuda.device(dev):
+        if plan.staged:
+            rc = lib.series_staged_launch(
+                *args, *_int32_args(plan.ring_bytes),
+                *fn_args, _stream())
+        else:
+            rc = lib.rate_grid_launch(*args, *fn_args, _stream())
+            rate_grid.direct += 1
     rate_grid.launches += 1
     _launch_check(rc, "rate_grid")
     return out
 
 
 rate_grid.launches = 0
+rate_grid.direct = 0
 
 
 class PlaneEntry(NamedTuple):
@@ -1294,6 +1312,51 @@ def dense_staged_plan(group_lanes: int, nsteps: int, kbuckets: int,
     return GroupPlan(tile, ring,
                      rows <= _RING_STAGES * ring_stage_rows(ring, 4, tile),
                      shared)
+
+
+# The staged B1 kernel's launch plans (csrc/series_staged.cu): its lane
+# tile (a CTA's lanes), its ring a plane (8 KB: four stages of 4 rows of
+# 128 lanes, up to 64 KB: 32 rows; the least holding a step, so that
+# seven CTAs share an SM and the store's 800-864 tiles run in one wave),
+# and the ops the direct kernel serves faster (PERF.md section 6).
+SERIES_TILE = 128
+SERIES_RING_BYTES = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
+SERIES_DIRECT_OPS = frozenset(("irate", "stddev", "stdvar", "zscore"))
+
+
+class SeriesPlan(NamedTuple):
+    """One launch of :func:`rate_grid` on the card."""
+    ring_bytes: int      # a plane's ring; 0: the direct kernel
+    shared: int          # dynamic shared bytes a CTA
+
+    @property
+    def staged(self) -> bool:
+        return self.ring_bytes > 0
+
+
+def series_ring_plan(kbuckets: int, stride: int, mode: str) -> SeriesPlan:
+    """The staged B1 kernel's plan for a step of ``stride + K`` rows: a
+    ring for the values and, in ts mode, one for the timestamps, each
+    the least of :data:`SERIES_RING_BYTES` in whose four stages three
+    hold the step.  Direct (``ring_bytes`` 0) where no ring holds it."""
+    ring = next((b for b in SERIES_RING_BYTES
+                 if stride + kbuckets
+                 <= (_RING_STAGES - 1) * ring_stage_rows(b, 4, SERIES_TILE)),
+                0)
+    return SeriesPlan(ring, (2 if mode == "ts" else 1) * ring)
+
+
+def series_staged_plan(ns: int, nsteps: int, kbuckets: int, stride: int,
+                       mode: str, op: str) -> SeriesPlan:
+    """The plan of one :func:`rate_grid` launch over ``ns`` lanes and
+    ``nsteps`` steps on the card: the direct kernel for the ops of
+    :data:`SERIES_DIRECT_OPS` and where the launch has no lanes, else
+    :func:`series_ring_plan`'s ring.  The lane count and T do not
+    choose yet: every launch the store makes has 102,400-110,592 lanes,
+    the widths at which the direct ops were timed."""
+    if ns < 1 or op in SERIES_DIRECT_OPS:
+        return SeriesPlan(0, 0)
+    return series_ring_plan(kbuckets, stride, mode)
 
 
 def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
@@ -1635,6 +1698,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    rate_grid.direct = 0
     rate_grid_grouped.direct = 0
     rate_grid_grouped_packed.direct = 0
     hist_grid_grouped_packed.direct = 0

@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels (``csrc/grid_kernels.cu``:
-``rate_grid``, ``rate_grid_packed``, ``rate_grid_grouped``'s direct path,
+``rate_grid``'s direct path, ``rate_grid_packed``,
+``rate_grid_grouped``'s direct path,
 the grouped packed kernel behind ``rate_grid_grouped_packed`` and
 ``hist_grid_grouped_packed``'s direct path, and ``m4_grid``;
 ``csrc/hist_staged.cu``: the staged kernel of
 ``hist_grid_grouped_packed``; ``csrc/grouped_staged.cu``: the staged
 kernel of ``rate_grid_grouped_packed``; ``csrc/dense_staged.cu``: the
-staged kernel of ``rate_grid_grouped``; all on
+staged kernel of ``rate_grid_grouped``; ``csrc/series_staged.cu``: the
+staged kernel of ``rate_grid``; all on
 ``csrc/grid_device.cuh``).
 
 Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
@@ -33,7 +35,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("grid_kernels.cu", "hist_staged.cu", "grouped_staged.cu",
-           "dense_staged.cu")
+           "dense_staged.cu", "series_staged.cu")
 HEADERS = ("grid_device.cuh",)
 _BUILD = os.path.join(_PKG, "_build")
 
@@ -165,13 +167,18 @@ def library() -> ctypes.CDLL:
             #  ring_bytes, linear; function arguments; stream)
             lib.dense_staged_launch.argtypes = \
                 [ptr] * 5 + [i32] * 15 + fn_args + [ptr]
+            # (vals, ts, phase, out; nb, ns, T, K, stride, g, steps0, op,
+            #  mode, dense, is_rate, ring_bytes; function arguments;
+            #  stream)
+            lib.series_staged_launch.argtypes = \
+                [ptr] * 4 + [i32] * 12 + fn_args + [ptr]
             # (vals, out; T, S, P, W; stream)
             lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             for fn in (lib.rate_grid_launch, lib.rate_grid_packed_launch,
                        lib.rate_grid_grouped_launch,
                        lib.grouped_packed_launch, lib.hist_staged_launch,
                        lib.grouped_staged_launch, lib.dense_staged_launch,
-                       lib.m4_grid_launch):
+                       lib.series_staged_launch, lib.m4_grid_launch):
                 fn.restype = i32
             lib.grid_error_string.restype = ctypes.c_char_p
             lib.grid_error_string.argtypes = [i32]

@@ -23,7 +23,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 CSRC = os.path.join(REPO, "filodb_tpu_torch", "csrc")
 SOURCES = ("grid_kernels.cu", "hist_staged.cu", "grouped_staged.cu",
-           "dense_staged.cu")
+           "dense_staged.cu", "series_staged.cu")
 
 # each PTX helper's emulated body
 EMU = {

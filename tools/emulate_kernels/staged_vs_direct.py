@@ -1,6 +1,7 @@
 """Hold the staged hist_grid_grouped_packed kernel (B5), the staged
-rate_grid_grouped_packed kernel (B4) or the staged rate_grid_grouped
-kernel (B2) against its direct kernel, bit for bit, in the CPU emulation
+rate_grid_grouped_packed kernel (B4), the staged rate_grid_grouped
+kernel (B2) or the staged rate_grid kernel (B1) against its direct
+kernel, bit for bit, in the CPU emulation
 of the CUDA source (build.py), and both against the plain PyTorch
 version.
 
@@ -42,9 +43,23 @@ plan and, where that is linear, again forced to the wrapping layout, and
 once through the library's direct entry (chip_smoke.grouped_dense_direct):
 the same bits, and within rtol 2e-5 of the plain version.
 
+B1 (``b1``): decoded f32 planes (chip_smoke.b1_planes, dense and gappy
+lanes, a scrape phase a lane, ts rows, a reset at row 1, a missed row 0,
+a dead lane) of 64 rows and 100
+lanes (one tile cut by the lane count, 16-byte rows) and 130 lanes (a
+full tile and one of 2 lanes, rows that are not 16-byte multiples: the
+producer's plain loads), every op in every mode it serves
+(chip_smoke.B1_OPS) at strides 1 and 2, and a few ops at T = 1 and 2
+(chip_smoke.B1_SHORT_OPS); each case through the wrapper's launcher at
+every plan of chip_smoke.b1_plans (the wrapper's, the staged kernel's
+for the ops the wrapper sends to the direct kernel, the largest ring),
+held bit for bit against the library's direct entry
+(chip_smoke.series_direct) and within rtol 2e-5 of the plain version.
+
     python3 tools/emulate_kernels/staged_vs_direct.py [HB,...]
     python3 tools/emulate_kernels/staged_vs_direct.py b4
     python3 tools/emulate_kernels/staged_vs_direct.py b2
+    python3 tools/emulate_kernels/staged_vs_direct.py b1
 
 Takes about 10 minutes for every hb, and about 12 for B4, one CPU thread
 a CUDA thread.
@@ -290,7 +305,67 @@ def main_b2() -> int:
     return 0
 
 
+# B1's lane counts and rows
+B1_WIDTHS = (100, 130)
+B1_ROWS = 64
+
+
+def launch_b1(ts, vals, q, phase, plan):
+    """One call of rate_grid's launcher at ``plan``: on the staged B1
+    kernel, or the direct one where the plan stages nothing."""
+    fn, real = grid.rate_grid, grid.series_staged_plan
+    grid.series_staged_plan = lambda *a, **k: plan
+    d0 = fn.direct
+    try:
+        out = grid._series_launch(ts, vals, q.kbuckets * cs.STEP, q, phase)
+    finally:
+        grid.series_staged_plan = real
+    assert fn.direct - d0 == int(not plan.staged), "not the plan's kernel"
+    return out
+
+
+def main_b1() -> int:
+    emulate(build.build(os.path.join(build.REPO, "filodb_tpu_torch",
+                                     "_build", "emu")))
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(11)
+    n, t0 = 0, time.time()
+    for width in B1_WIDTHS:
+        planes = {}
+        for g in (False, True):
+            ts, vals, ph = (a[..., :width].copy() for a in cs.b1_planes(
+                rng, B1_ROWS, width + 512, g))
+            vals[:, 7] = np.nan                       # a dead lane
+            planes[g] = tuple(torch.as_tensor(a) for a in (ts, vals, ph))
+        cases = [(mode, dense, op, stride, (B1_ROWS - cs.K) // stride + 1)
+                 for mode, dense, op in cs.B1_OPS for stride in (1, 2)]
+        cases += [(mode, dense, op, 1, nsteps)
+                  for mode, dense, op in cs.B1_SHORT_OPS
+                  for nsteps in (1, 2)]
+        for mode, dense, op, stride, nsteps in cases:
+            q = cs.sweep_query(op, dense, stride, nsteps)
+            ts, vals, ph = planes[not dense]
+            phase = ph if mode == "phase" else None
+            args = (ts, vals, q.kbuckets * cs.STEP, q)
+            direct = cs.series_direct(*args, phase=phase)
+            want = grid.rate_grid_ref(*args, phase=phase)
+            for which, plan in cs.b1_plans(width, q,
+                                            grid._mode_for(q, phase)):
+                case = (f"S={width} stride={stride} T={nsteps} {mode}-"
+                        f"{'dense' if dense else 'gappy'}-{op} {which}")
+                got = launch_b1(ts, vals, q, phase, plan)
+                cs.compare_bits(got, direct, f"{case} (direct)")
+                cs.compare(got, want, op, cs.RTOL_KERNEL,
+                           0 if op in cs.CROSSING else None)
+                n += 1
+        print(f"S={width}: {n} cases, {time.time() - t0:.1f} s", flush=True)
+    print(f"staged B1 == direct B1, bit for bit: {n} cases")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["b1"]:
+        sys.exit(main_b1())
     if sys.argv[1:] == ["b4"]:
         sys.exit(main_b4())
     if sys.argv[1:] == ["b2"]:
