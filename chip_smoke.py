@@ -75,14 +75,26 @@ Phases, each timed on a line of its own:
         predict_linear and timestamp -> rate_grid over the decoded planes
         and the rebuilt uniform-phase ts plane;
      Q6 stddev_over_time, deriv and timestamp over jit_total (gappy
-        lanes) -> rate_grid; the 7 dense-only functions answer None there.
+        lanes) -> rate_grid; the 7 dense-only functions answer None there;
+     Q7 rate(lat[5m]) per series over Q1's span, and increase,
+        sum_over_time and the instant selector: the histogram metric
+        ``lat`` (100 pods x 640 series x 16 cumulative buckets, 1,024,000
+        bucket columns, 260 rows, a reset of every bucket in 1% of
+        series; encoded in bulk by worker processes, its bytes checked
+        against RecordBuilder's) served from the hist grid cache, block 1
+        packed at stride 16 -> packed kernel, [S, T, 16];
+     Q8 sum by (pod)(rate(lat[5m])) over Q2's span -> XOR decode +
+        rate_grid over 1,024,000 columns, then the 1,600-slot bucket-wise
+        group sum (one-hot matmul; timed alone with its peak memory).
    Launch counters show each query went through its kernel (exactly one
    rate_grid_packed launch a packed query, every class plane in it; a
    rate_grid launch on the direct kernel only where its plan stages
    nothing); each
    query's rows for the first 8 pods are held against a CPU store that ingests
-   only those pods (rtol 1e-5; deriv, idelta and zscore, which cross 0,
-   of each series' largest answer); one warm run of Q1-Q4 is profiled
+   only those pods of the counters and every pod of ``lat`` (rtol 1e-5;
+   deriv, idelta and zscore, which cross 0, of each series' largest
+   answer); each hist query is served by the hist cache (its hits rise);
+   warm runs build no block; one warm run of Q1-Q4, Q7 and Q8 is profiled
    (torch.profiler); each warm query's median of 20 is printed with its
    p10 and p90; each kernel is then held against its plain version
    on the inputs the main path gave it, and timed (rate_grid beside its
@@ -101,6 +113,10 @@ Phases, each timed on a line of its own:
         the fused "moments" group reduce on the card;
      E5 quantile_over_time(0.9, req_total[5m]) -> the packed kernel;
      E6 predict_linear(req_total[5m], 600) -> rate_grid;
+     E7 histogram_quantile(0.99, sum(rate(lat[5m]))) -> the packed kernel
+        over the hist cache, the 16-slot bucket-wise sum on the card; its
+        bucket sums within 1e-5 of the CPU store's (all 64,000 series),
+        each quantile within the bound that 1e-5 on the buckets gives it;
    each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
    and selected positions equal), cold and warm wall ms; every result but
    E2's downsampled one, and every aggregation, on the card; then m4_grid
@@ -158,6 +174,16 @@ REQ_PODS = 100
 JIT_PODS = 8
 JIT_MISSED = 0.05               # jit_total's share of missed scrapes
 CHECK_PODS = 8
+# the histogram metric ``lat`` (prom-histogram): 100 pods x 640 series x
+# 16 cumulative buckets = 1,024,000 bucket columns, the JAX package's own
+# device-histogram size (benches/bench_histogram_device.py:47)
+HIST_PODS = 100
+HIST_SERIES = 640
+# Prometheus-style latency buckets in seconds, the last one +Inf
+HIST_TOPS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             25.0, 50.0, 100.0, 250.0, float("inf"))
+HIST_Q = 0.99                   # E7's quantile
+HIST_WORKERS = 6                # processes that encode the hist pods
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -1778,16 +1804,239 @@ def build_store(device, seed: int, req_pods: int, jit_pods: int):
     return ms, shard, samples
 
 
-def lookup(shard, metric: str):
-    """(part ids, group id per series by pod, pod names, tags)."""
+def hist_counts(rng, n_series: int):
+    """``[n_series, N_ROWS, 16]`` cumulative bucket counts, cumulative in
+    ``le`` and over time like Prometheus buckets: each minute a series
+    observes Poisson(5-60) requests, spread over the buckets by a bell
+    over the bucket index (its centre between the 10 ms and 250 ms
+    buckets); a series starts from up to 50,000 earlier observations (so
+    every count stays below 2**16: an f32 count that crosses 2**16 within
+    a block would take the 32-bit class of the stride-16 pack); 1% of
+    series reset every bucket once."""
+    import numpy as np
+    j = np.arange(len(HIST_TOPS))
+    centre = rng.uniform(1.5, 5.0, n_series)[:, None]
+    width = rng.uniform(1.0, 2.0, n_series)[:, None]
+    p = np.exp(-0.5 * ((j[None, :] - centre) / width) ** 2)
+    p /= p.sum(axis=1, keepdims=True)
+    cdf = np.minimum(np.cumsum(p, axis=1), 1.0)
+    lam = rng.uniform(5.0, 60.0, n_series)[:, None, None]
+    inc = rng.poisson(lam * p[:, None, :], (n_series, N_ROWS, len(j)))
+    base = np.floor(rng.integers(0, 50_000, n_series)[:, None] * cdf)
+    vals = base.astype(np.int64)[:, None, :] \
+        + np.cumsum(np.cumsum(inc, axis=2), axis=1)
+    reset = np.flatnonzero(rng.random(n_series) < 0.01)
+    at = rng.integers(1, N_ROWS, n_series)
+    for s in reset:
+        vals[s, at[s]:] -= vals[s, at[s] - 1]
+    return vals
+
+
+def _bit_length(v):
+    """Bit lengths of non-negative integers below 2**52 (exact through
+    f64's exponent)."""
+    import numpy as np
+    return np.frexp(v.astype(np.float64))[1].astype(np.int64)
+
+
+def nibble_group_bytes(u):
+    """The bytes ``codecs.nibblepack.pack`` writes for each group of 8
+    u64 values in ``u`` ``[..., 8]``: a bitmask byte, and for a group
+    with a nonzero value a header byte and its nibbles."""
+    import numpy as np
+    nz = u != 0
+    nnz = nz.sum(axis=-1)
+    low = u & (~u + np.uint64(1))
+    tz = np.where(nz, _bit_length(low) - 1, 64).min(axis=-1)
+    lz = np.where(nz, 64 - _bit_length(u), 64).min(axis=-1)
+    nib = np.maximum(1, 16 - lz // 4 - tz // 4)
+    return np.where(nnz == 0, 1, 2 + (nnz * nib + 1) // 2)
+
+
+def hist_tags(pod: int, s: int) -> dict:
+    return {"__name__": "lat", "pod": f"pod-{pod:03d}",
+            "instance": f"i-{s:04d}", "_ws_": "demo", "_ns_": "app"}
+
+
+def hist_pod_containers(seed: int, pod: int, n_series: int,
+                        container_size: int = 1024 * 1024):
+    """One pod's ``lat`` series as RecordContainer bytes, encoded in bulk:
+    the same bytes as ``RecordBuilder.add`` with one
+    ``histcodec.encode_hist_value`` blob a row (two Python calls a row,
+    too slow for 16.6 M rows in this script's time limit), checked
+    against it by :func:`check_hist_encoder`.
+    Each row's 16 zigzag bucket deltas are two NibblePack groups, so one
+    ``nibblepack.pack`` over all rows packs every row; each row's share
+    of it comes from :func:`nibble_group_bytes`.  Returns (containers,
+    counts, phases)."""
+    import struct
+
+    import numpy as np
+    from filodb_tpu_torch.codecs import nibblepack
+    from filodb_tpu_torch.codecs.wire import WireType
+    from filodb_tpu_torch.core.histogram import CustomBuckets
+    from filodb_tpu_torch.core.record import (canonical_partkey,
+                                              partition_hash,
+                                              shard_key_hash)
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetOptions
+
+    rng = np.random.default_rng([seed, 2, pod])
+    S, R, hb = n_series, N_ROWS, len(HIST_TOPS)
+    vals = hist_counts(rng, S)
+    phase = rng.integers(1, STEP, S)
+    deltas = np.diff(vals, axis=2, prepend=0)
+    zz = ((deltas << 1) ^ (deltas >> 63)).astype(np.uint64)
+    if int(zz.max()) >= 2**52:
+        raise AssertionError("hist deltas too wide for the bulk encoder")
+    packed = np.frombuffer(nibblepack.pack(zz.ravel()), np.uint8)
+    row_len = nibble_group_bytes(zz.reshape(S * R, hb // 8, 8)).sum(axis=1)
+    if int(row_len.sum()) != len(packed):
+        raise AssertionError("NibblePack row lengths do not add up")
+    opts = DatasetOptions()
+    blob_head = (bytes([WireType.HIST_BLOB]) + struct.pack("<H", hb)
+                 + CustomBuckets(np.asarray(HIST_TOPS)).serialize())
+    keys = []
+    for s in range(S):
+        tags = hist_tags(pod, s)
+        tags[opts.metric_column] = tags.pop("__name__")
+        pk = canonical_partkey(tags)
+        keys.append((shard_key_hash(tags, opts), partition_hash(tags, opts),
+                     struct.pack("<H", len(pk)) + pk))
+    tail_len = len(keys[0][2])
+    if any(len(k[2]) != tail_len for k in keys):
+        raise AssertionError("hist part keys differ in length")
+    # a record: this fixed head, the row's packed deltas, the part key
+    head = np.dtype([("schema", "<u2"), ("shash", "<u4"), ("phash", "<u4"),
+                     ("ts", "<i8"), ("sum", "<f8"), ("count", "<f8"),
+                     ("blob_len", "<u2"), ("blob_head", f"V{len(blob_head)}")])
+    pre = np.zeros((S, R), head)
+    pre["schema"] = DEFAULT_SCHEMAS["prom-histogram"].schema_hash
+    pre["shash"] = np.array([k[0] for k in keys])[:, None]
+    pre["phash"] = np.array([k[1] for k in keys])[:, None]
+    pre["ts"] = T0 + np.arange(R)[None, :] * STEP + phase[:, None]
+    pre["sum"] = pre["count"] = vals[:, :, -1]
+    pre["blob_len"] = (len(blob_head) + row_len).reshape(S, R)
+    pre["blob_head"] = np.frombuffer(blob_head, f"V{len(blob_head)}")[0]
+    tails = np.frombuffer(b"".join(k[2] for k in keys),
+                          np.uint8).reshape(S, tail_len)
+    P = head.itemsize
+    rec_len = P + row_len + tail_len
+    end = np.cumsum(rec_len)
+    start = end - rec_len
+    buf = np.empty(int(end[-1]), np.uint8)
+    buf[start[:, None] + np.arange(P)] = \
+        pre.reshape(-1).view(np.uint8).reshape(-1, P)
+    buf[np.repeat(start + P - (np.cumsum(row_len) - row_len), row_len)
+        + np.arange(len(packed))] = packed
+    buf[(start + P + row_len)[:, None] + np.arange(tail_len)] = \
+        np.repeat(tails, R, axis=0)
+    # RecordBuilder's framing: as many whole records as fit a container
+    out, lo = [], 0
+    while lo < len(start):
+        hi = max(int(np.searchsorted(end, start[lo] + container_size,
+                                     "right")), lo + 1)
+        body = buf[start[lo]:end[hi - 1]].tobytes()
+        out.append(struct.pack("<I", len(body)) + body)
+        lo = hi
+    return out, vals, phase
+
+
+def check_hist_encoder(seed: int) -> None:
+    """The bulk encoder's bytes equal ``RecordBuilder.add``'s for the
+    first 24 series of pod 0, container by container."""
+    import numpy as np
+    from filodb_tpu_torch.codecs import histcodec
+    from filodb_tpu_torch.core.histogram import CustomBuckets
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+
+    size = 64 * 1024
+    got, vals, phase = hist_pod_containers(seed, 0, 24,
+                                           container_size=size)
+    b = RecordBuilder(DEFAULT_SCHEMAS["prom-histogram"], container_size=size)
+    buckets = CustomBuckets(np.asarray(HIST_TOPS))
+    for s in range(24):
+        for t in range(N_ROWS):
+            total = float(vals[s, t, -1])
+            b.add(T0 + t * STEP + int(phase[s]),
+                  (total, total, histcodec.encode_hist_value(buckets,
+                                                             vals[s, t])),
+                  hist_tags(0, s))
+    want = b.containers()
+    # the builder's last container is partial; every full one must match
+    if len(want) < 2 or got[:len(want) - 1] != want[:-1] \
+            or not got[len(want) - 1][4:].startswith(want[-1][4:]):
+        raise AssertionError("the bulk hist encoder's bytes differ from "
+                             "RecordBuilder's")
+
+
+def _hist_pod_task(seed: int, n_series: int, pod: int) -> list:
+    return hist_pod_containers(seed, pod, n_series)[0]
+
+
+def ingest_hist(shards, seed: int, pods: int):
+    """Encode ``pods`` pods of ``lat`` in a pool of worker processes (one
+    pod a task, seeded by pod) and ingest each pod's containers into
+    every shard of ``shards`` as it arrives; then flush.  Returns the
+    samples one shard ingested, and the seconds each shard spent in
+    ``ingest_container`` with the seconds of the flushes last."""
+    import multiprocessing
+
+    samples = 0
+    offset = 10**6                  # past the counter metrics' offsets
+    seconds = [0.0] * (len(shards) + 1)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(HIST_WORKERS, pods)) as pool:
+        for conts in pool.imap(partial(_hist_pod_task, seed, HIST_SERIES),
+                               range(pods)):
+            for c in conts:
+                n = []
+                for i, sh in enumerate(shards):
+                    t0 = time.perf_counter()
+                    n.append(sh.ingest_container(c, offset))
+                    seconds[i] += time.perf_counter() - t0
+                if len(set(n)) != 1:
+                    raise AssertionError(f"stores ingested {n} samples")
+                samples += n[0]
+                offset += 1
+        pool.close()
+        pool.join()
+    t0 = time.perf_counter()
+    for sh in shards:
+        sh.flush_all()
+    seconds[-1] = time.perf_counter() - t0
+    return samples, seconds
+
+
+def lookup(shard, metric: str, pods=None):
+    """(part ids, group id per series by pod, pod names, tags); with
+    ``pods``, only the series of the first ``pods`` pods."""
+    import numpy as np
     from filodb_tpu_torch.core.filters import ColumnFilter, Equals
 
     res = shard.lookup_partitions(
         [ColumnFilter("_metric_", Equals(metric))], 0, 2**62)
-    tags = [shard.partitions[int(p)].tags for p in res.part_ids]
-    pods = sorted({t["pod"] for t in tags})
-    gix = {p: i for i, p in enumerate(pods)}
-    return res.part_ids, [gix[t["pod"]] for t in tags], pods, tags
+    ids = res.part_ids
+    tags = [shard.partitions[int(p)].tags for p in ids]
+    names = sorted({t["pod"] for t in tags})
+    if pods is not None:
+        keep = [i for i, t in enumerate(tags) if t["pod"] in names[:pods]]
+        ids = np.asarray(ids)[keep]
+        tags = [tags[i] for i in keep]
+        names = names[:pods]
+    gix = {p: i for i, p in enumerate(names)}
+    return ids, [gix[t["pod"]] for t in tags], names, tags
+
+
+def grid_cache(shard, hist: bool):
+    """The shard's grid cache of the counter metrics or of ``lat``."""
+    return next(c for c in shard.device_caches.values() if c.hist == hist)
+
+
+def hist_hits(shard) -> int:
+    """The hits of the shard's histogram grid caches: how many queries
+    they served."""
+    return sum(c.hits for c in shard.device_caches.values() if c.hist)
 
 
 # the range functions of the grid's second op set: (function name,
@@ -1801,7 +2050,7 @@ SECOND_FUNCS = (
     ("MAD_OVER_TIME", (), False), ("HOLT_WINTERS", (0.3, 0.6), False))
 DENSE_ONLY_FUNCS = ("IRATE", "IDELTA", "CHANGES", "RESETS",
                     "QUANTILE_OVER_TIME", "MAD_OVER_TIME", "HOLT_WINTERS")
-PROFILED = ("Q1", "Q2", "Q3", "Q4")
+PROFILED = ("Q1", "Q2", "Q3", "Q4", "Q7", "Q8")
 
 
 def queries():
@@ -1833,6 +2082,17 @@ def queries():
     for fname in ("STDDEV_OVER_TIME", "DERIV", "TIMESTAMP"):
         out.append((f"Q6:{fname.lower()}", "jit_total", "series",
                     getattr(F, fname), q2, "rate_grid", ()))
+    # Q7: the histogram metric per series over Q1's span (block 1 of the
+    # hist cache, packed at stride 16), in each function a hist cache
+    # serves; Q8: sum by (pod) of its bucket rates across blocks 0-1
+    out += [("Q7", "lat", "series", F.RATE, q1, "rate_grid_packed", ()),
+            ("Q7:increase", "lat", "series", F.INCREASE, q1,
+             "rate_grid_packed", ()),
+            ("Q7:sum_over_time", "lat", "series", F.SUM_OVER_TIME, q1,
+             "rate_grid_packed", ()),
+            ("Q7:instant", "lat", "series", None, q1, "rate_grid_packed",
+             ()),
+            ("Q8", "lat", "grouped", F.RATE, q2, "rate_grid", ())]
     return out
 
 
@@ -1869,6 +2129,9 @@ def check_query(name, kind, func, out, looked, ref_out, ref_looked,
     import torch
     _ids, _gids, pods, tags = looked
     _rids, _rgids, ref_pods, ref_tags = ref_looked
+    if kind == "grouped" and "hist_sum" in out:
+        return check_hist_grouped(name, out, pods, ref_out, ref_pods,
+                                  nsteps, device)
     if kind == "grouped":
         for key in ("sum", "count"):
             if out[key].shape != (len(pods), nsteps):
@@ -1886,8 +2149,12 @@ def check_query(name, kind, func, out, looked, ref_out, ref_looked,
             raise AssertionError(f"{name}: count differs from the CPU "
                                  f"store")
         return compare(out["sum"][:n], ref_out["sum"][:n], "sum", RTOL_CPU)
-    _t, vals, _tops = out
-    if vals.shape != (len(tags), nsteps) or vals.device != device:
+    _t, vals, tops = out
+    shape = (len(tags), nsteps)
+    if tops is not None:
+        check_tops(name, tops)
+        shape += (len(HIST_TOPS),)
+    if vals.shape != shape or vals.device != device:
         raise AssertionError(f"{name}: shape {vals.shape} on {vals.device}")
     keep = [i for i, t in enumerate(tags) if t["pod"] in ref_pods]
     key = [(tags[i]["pod"], tags[i]["instance"]) for i in keep]
@@ -1899,6 +2166,37 @@ def check_query(name, kind, func, out, looked, ref_out, ref_looked,
     from filodb_tpu_torch.memstore import devicestore
     op = devicestore._GRID_OPS[func]
     return compare(got, want, op, RTOL_CPU, 1 if op in CROSSING else None)
+
+
+def check_tops(name: str, tops) -> None:
+    import numpy as np
+    if not np.array_equal(np.asarray(tops), np.asarray(HIST_TOPS)):
+        raise AssertionError(f"{name}: bucket tops {tops}")
+
+
+def check_hist_grouped(name, out, pods, ref_out, ref_pods, nsteps,
+                       device) -> float:
+    """A hist cache's bucket-wise sum state: ``[G, T, 16]`` sums and
+    ``[G, T]`` counts on the card, finite, and the first CHECK_PODS pods
+    against the CPU store's (counts equal, sums rtol 1e-5)."""
+    import torch
+    check_tops(name, out["bucket_tops"])
+    shapes = {"hist_sum": (len(pods), nsteps, len(HIST_TOPS)),
+              "count": (len(pods), nsteps)}
+    for key, shape in shapes.items():
+        if out[key].shape != shape or out[key].device != device:
+            raise AssertionError(f"{name}: {key} shape {out[key].shape} "
+                                 f"on {out[key].device}")
+    if not bool(torch.isfinite(out["hist_sum"]).all()):
+        raise AssertionError(f"{name}: non-finite bucket sums")
+    n = len(ref_pods)
+    if pods[:n] != ref_pods:
+        raise AssertionError(f"{name}: pod order differs")
+    if not torch.equal(out["count"][:n].cpu().double(),
+                       ref_out["count"].double()):
+        raise AssertionError(f"{name}: count differs from the CPU store")
+    return compare(out["hist_sum"][:n], ref_out["hist_sum"], "sum",
+                   RTOL_CPU)
 
 
 def profile_queries(shard, looked) -> None:
@@ -1931,16 +2229,34 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             f"{ingest_s:.3f} s ({samples / ingest_s:.4g} samples/s)")
     with Phase("main.reference_cpu_store"):
         _rms, ref_shard, _n = build_store("cpu", seed, CHECK_PODS, JIT_PODS)
+    with Phase("main.hist_ingest"):
+        # the CPU store takes every pod too: E7's sum runs over them all
+        check_hist_encoder(seed)
+        t0 = time.perf_counter()
+        hist_samples, ingest_times = ingest_hist([shard, ref_shard], seed,
+                                                 HIST_PODS)
+        log(f"hist ingest: {hist_samples} samples a store "
+            f"({HIST_PODS} pods x {HIST_SERIES} series x {N_ROWS} rows x "
+            f"{len(HIST_TOPS)} buckets) in {time.perf_counter() - t0:.3f} s "
+            f"(encoding in {HIST_WORKERS} processes); the card's store "
+            f"ingested them in {ingest_times[0]:.3f} s "
+            f"({hist_samples / ingest_times[0]:.4g} samples/s), flushed "
+            f"in {ingest_times[2]:.3f} s")
+        report["hist_ingest"] = {"samples": hist_samples,
+                                 "card_store_seconds": ingest_times[0],
+                                 "cpu_store_seconds": ingest_times[1],
+                                 "flush_seconds": ingest_times[2]}
 
     with Phase("main.lookup"):
         looked, ref_looked = {}, {}
-        for metric in ("req_total", "jit_total"):
+        for metric in ("req_total", "jit_total", "lat"):
             t0 = time.perf_counter()
             looked[metric] = lookup(shard, metric)
             log(f"lookup {metric}: {len(looked[metric][0])} series, "
                 f"{len(looked[metric][2])} pods in "
                 f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-            ref_looked[metric] = lookup(ref_shard, metric)
+            # the CPU store's check rows: the first CHECK_PODS pods
+            ref_looked[metric] = lookup(ref_shard, metric, pods=CHECK_PODS)
 
     plans = {}
     qrows = []
@@ -1948,8 +2264,13 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
     with Phase("main.queries"):
         grid.reset_launch_counts()            # the main path's run
         for name, metric, kind, func, span, kern, fargs in queries():
+            hist = metric == "lat"
+            hits0 = hist_hits(shard)
             before = (grid.rate_grid.launches,
                       grid.rate_grid_packed.launches)
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -1959,6 +2280,7 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
             direct = grid.rate_grid.direct - d0
             b.record()
             b.synchronize()
+            peak = torch.cuda.max_memory_allocated() - mem0
             if direct != MAIN_DIRECT.get(name, 0):
                 raise AssertionError(f"{name}: {direct} rate_grid launches "
                                      f"on the direct kernel, expected "
@@ -1978,7 +2300,10 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 raise AssertionError(f"{name}: expected {kern} only (one "
                                      f"rate_grid_packed launch), launched "
                                      f"{launched}")
-            cache = next(iter(shard.device_caches.values()))
+            if hist and hist_hits(shard) <= hits0:
+                raise AssertionError(f"{name}: the hist cache's hits did "
+                                     f"not rise from {hits0}")
+            cache = grid_cache(shard, hist)
             plans[name] = plan = list(cache._plan_memo.values())[-1]
             if name == "Q2" and not any(isinstance(v, dict)
                                         for v in plan.val_parts):
@@ -1990,12 +2315,13 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                               ref_looked[metric], span[1], device)
             log(f"{name}: first run (block builds included) wall_ms "
                 f"{wall:.3f} events_ms {dev_ms:.3f} launches {launched} "
-                f"(rate_grid direct {direct}) cpu-store check ok "
+                f"(rate_grid direct {direct}) peak device memory above "
+                f"the resident {peak} bytes, cpu-store check ok "
                 f"(max_abs_err {err:.3e})")
             qrows.append({"query": name, "kernel": kern,
                           "cold_wall_ms": wall, "cold_events_ms": dev_ms,
                           "launches": launched, "rate_grid_direct": direct,
-                          "cpu_check_err": err})
+                          "cold_peak_bytes": peak, "cpu_check_err": err})
             qlaunch[name] = launched
         totals = {"rate_grid": grid.rate_grid.launches,
                   "rate_grid_packed": grid.rate_grid_packed.launches}
@@ -2017,6 +2343,7 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
         log(f"jit_total (gappy lanes): {len(DENSE_ONLY_FUNCS)} dense-only "
             f"functions not served by either store")
     with Phase("main.warm_queries"):
+        builds = {c: c.builds for c in shard.device_caches.values()}
         for row, (name, metric, kind, func, span, _k, fargs) in zip(
                 qrows, queries()):
             walls, evs = [], []
@@ -2041,6 +2368,12 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                 f"{row['warm_events_ms']:.3f} (p10 "
                 f"{row['warm_events_p10_p90'][0]:.3f}, p90 "
                 f"{row['warm_events_p10_p90'][1]:.3f})")
+        for c, n in builds.items():
+            if c.builds != n:
+                raise AssertionError(f"{c.owner}: warm queries rebuilt "
+                                     f"{c.builds - n} blocks")
+        log(f"warm queries rebuilt no block ({sum(builds.values())} "
+            f"builds in all)")
     report["queries"] = qrows
     with Phase("main.profile"):
         profile_queries(shard, looked)
@@ -2100,8 +2433,51 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                    "launches": qlaunch[name][kname], **extra}
             kern_rows.setdefault(kname, []).append(row)
     report["kernels_at_path_shapes"] = kern_rows
+    with Phase("main.hist_reduce"):
+        report["hist_reduce"] = hist_reduce(device, shard, plans["Q8"],
+                                            looked["lat"], reps, flush)
     return {"launches": totals, "rate_grid_direct": direct_total,
             "rows": kern_rows, "stores": (_ms, shard, _rms, looked)}
+
+
+def hist_reduce(device, shard, plan, looked, reps: int, flush) -> dict:
+    """Q8's group reduce alone (``_grouped_reduce_impl`` over its B1
+    output, 1,600 bucket slots: the one-hot f32 matmul), timed, with the
+    device memory it takes above what was allocated before it; its
+    state equals the query's, bit for bit."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.memstore import devicestore
+
+    ids, gids, pods, _tags = looked
+    hb = grid_cache(shard, True).hb
+    slots = len(pods) * hb
+    garr = np.full(plan.ncols, slots, np.int32)
+    devicestore.hist_slot_garr(garr, plan.lane_idx,
+                               np.asarray(gids, np.int32), hb)
+    garr = torch.as_tensor(garr, device=device)
+    stepped = devicestore.series_program(plan)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    both = devicestore._grouped_reduce_impl(stepped, garr, slots, "sum")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    state = devicestore.hist_state_from_planes(both, len(pods), hb, None)
+    q8 = next(q for q in queries() if q[0] == "Q8")
+    want = run_query(shard, "grouped", q8[3], q8[4], looked)
+    for key in ("hist_sum", "count"):
+        if not torch.equal(state[key], want[key]):
+            raise AssertionError(f"Q8's reduce alone differs from the "
+                                 f"query's {key}")
+    ms = cuda_ms(lambda: devicestore._grouped_reduce_impl(
+        stepped, garr, slots, "sum"), reps, flush)
+    log(f"Q8 group reduce: [{stepped.shape[0]}, {stepped.shape[1]}] -> "
+        f"{slots} slots (one-hot matmul: {slots + 1 <= 2048}) ms {ms:.4f}, "
+        f"peak device memory above the resident {peak} bytes, equal to "
+        f"the query's state")
+    return {"columns": int(stepped.shape[1]), "steps": int(stepped.shape[0]),
+            "slots": slots, "ms": ms, "peak_bytes": peak}
 
 
 # ------------------------------------------------------------- phase 5
@@ -2124,6 +2500,10 @@ def engine_queries():
         ("E5", "quantile_over_time(0.9, req_total[5m])", q1, None,
          "rate_grid_packed"),
         ("E6", "predict_linear(req_total[5m], 600)", q1, None, "rate_grid"),
+        # BASELINE config 2's query over the 64,000 histogram series:
+        # the packed kernel, then the 16-slot bucket-wise group sum
+        ("E7", f"histogram_quantile({HIST_Q}, sum(rate(lat[5m])))", q1,
+         None, "rate_grid_packed"),
     ]
 
 
@@ -2181,6 +2561,64 @@ def check_engine(name, rows, ref_rows, pixels, rtol) -> float:
         raise AssertionError(f"{name}: more than 4 points per pixel bin")
     return compare(torch.as_tensor(got), torch.as_tensor(want), "engine",
                    rtol)
+
+
+def quantile_bound(tops, hist, q: float):
+    """The most each step's ``histogram_quantile(q)`` over the CPU
+    store's bucket sums ``hist`` ``[T, B]`` (f64) may move when every
+    bucket sum moves by up to RTOL_CPU of the total: the rank ``q*total``
+    and the counts below and at the quantile's bucket then move by at
+    most RTOL_CPU*total each, so the interpolated fraction of the bucket
+    by at most 3*RTOL_CPU*total over the bucket's count; times the
+    bucket's width.  A quantile in the +Inf bucket is its lower edge,
+    exactly."""
+    import numpy as np
+    tops = np.asarray(tops, np.float64)
+    total = hist[:, -1]
+    idx = np.minimum((hist < (q * total)[:, None]).sum(axis=1),
+                     len(tops) - 1)
+    at = np.take_along_axis(hist, idx[:, None], axis=1)[:, 0]
+    below = np.where(idx > 0, np.take_along_axis(
+        hist, np.maximum(idx - 1, 0)[:, None], axis=1)[:, 0], 0.0)
+    width = tops[idx] - np.where(idx > 0, tops[np.maximum(idx - 1, 0)], 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        bound = width * 3 * RTOL_CPU * total / (at - below)
+    return np.where(np.isinf(width), 0.0, bound)
+
+
+def check_hist_quantile(name, ms, rms, query, span, rows, ref_rows) -> float:
+    """E7 against the CPU store: its bucket-wise sum (the query without
+    ``histogram_quantile``) within RTOL_CPU bucket by bucket, and each
+    step's quantile within :func:`quantile_bound` of the CPU store's."""
+    import numpy as np
+    import torch
+    inner = query[query.index(",") + 1:query.rindex(")")].strip()
+    hists = []
+    for store in (ms, rms):
+        res = run_engine(store, inner, span, None)[0]
+        (b,) = res.batches
+        check_tops(name, b.bucket_tops)
+        hists.append(torch.as_tensor(b.hist)[:1].double().cpu())
+    plane_err = compare(hists[0], hists[1], "sum", RTOL_CPU)
+    ((key, got),) = rows.items()
+    want = ref_rows[key]
+    bound = quantile_bound(HIST_TOPS, hists[1][0].numpy(), HIST_Q)
+    if not np.array_equal(np.isnan(got), np.isnan(want)) \
+            or not np.isfinite(want).any():
+        raise AssertionError(f"{name}: NaN steps differ from the CPU store "
+                             f"or none is finite")
+    fin = np.isfinite(want)
+    diff = np.abs(got[fin] - want[fin])
+    if not (diff <= bound[fin]).all():
+        raise AssertionError(f"{name}: quantile off by {diff.max():.3e}, "
+                             f"beyond its bound")
+    log(f"{name}: bucket sums within rtol {RTOL_CPU} of the CPU store "
+        f"(max_abs_err {plane_err:.3e}); quantiles {want[fin].min():.4g}-"
+        f"{want[fin].max():.4g} s, off by at most {diff.max():.3e} "
+        f"against a bound of {bound[fin].min():.3e}-"
+        f"{bound[fin].max():.3e} (relative "
+        f"{(bound[fin] / want[fin]).max():.3e})")
+    return float(diff.max())
 
 
 class GroupReduces:
@@ -2272,11 +2710,16 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
         return {k: getattr(grid, k).launches for k in kernels}
 
     cold_runs = []
+    served = {}                 # histogram query -> hist cache hits
+    hist_cache = grid_cache(shard, True)
     grid.reset_launch_counts()              # the engine path's run
     for name, query, span, pixels, _kern in engine_queries():
         before, d0 = counts(), grid.rate_grid.direct
+        hits0 = hist_hits(shard)
         with AggregatorDevices() as agg_devices, GroupReduces() as reduces:
             res, host, cold = run_engine(ms, query, span, pixels)
+        if "lat" in query:
+            served[name] = hist_hits(shard) - hits0
         cold_runs.append((res, engine_rows(res, host), cold,
                           {k: v - before[k] for k, v in counts().items()},
                           agg_devices.seen, reduces.ops))
@@ -2308,6 +2751,12 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
         if query.startswith("stdvar") and reduce_ops != ["moments"]:
             raise AssertionError(f"{name}: group reduces {reduce_ops}, "
                                  f"expected the fused moments reduce")
+        if name in served:
+            # the histogram query was served by the hist cache's grid
+            if reduce_ops != ["sum"] or served[name] < 1:
+                raise AssertionError(f"{name}: hist cache hits "
+                                     f"{served[name]}, group reduces "
+                                     f"{reduce_ops}")
         # every result but the downsampled one (a host array after the
         # host selection) stays on the card, and so does the aggregation
         where = {getattr(b.values, "device", "host") for b in res.batches}
@@ -2321,9 +2770,12 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
             if v.shape != (span[1],):
                 raise AssertionError(f"{name}: row {k} shape {v.shape}")
         rtol = RTOL_MOMENTS if query.startswith("stdvar") else RTOL_CPU
-        err = check_engine(name, rows,
-                           engine_rows(*run_engine(rms, query, span,
-                                                   pixels)[:2]), pixels, rtol)
+        ref_rows = engine_rows(*run_engine(rms, query, span, pixels)[:2])
+        if name in served:
+            err = check_hist_quantile(name, ms, rms, query, span, rows,
+                                      ref_rows)
+        else:
+            err = check_engine(name, rows, ref_rows, pixels, rtol)
         if name == "E1":
             direct = run_query(shard, "grouped", F.RATE, span,
                                looked["req_total"])
@@ -2338,8 +2790,11 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
                                          f"direct scan_grid_grouped answer")
             log("E1: equals the direct scan_grid_grouped answer bit for bit "
                 f"({len(rows)} pods)")
+        builds = hist_cache.builds
         warm, warm_spread, stages = warm_engine(ms, query, span, pixels,
                                                 reps)
+        if hist_cache.builds != builds:
+            raise AssertionError(f"{name}: warm runs rebuilt hist blocks")
         log(f"{name} {query!r} steps={span[1]}"
             f"{f' downsample={pixels}' if pixels else ''}: {len(rows)} "
             f"series, result on {where}, aggregation on "

@@ -35,6 +35,11 @@ Each query runs one of four programs, all plain functions on tensors:
 and ``series_packed``/``grouped_packed`` over one packed block
 (:func:`rate_grid_packed` kernel); the grouped ones reduce lanes to
 ``[G, T]`` partials on the device before the one readback.
+
+Histogram columns (``hist=True`` caches) give each partition ``hb``
+adjacent device columns, one a cumulative bucket, and run the same
+kernels over them: column ``lane*hb + j`` is series ``lane``'s bucket
+``j``, packed at series granularity (``xorgrid.pack_vals(stride=hb)``).
 """
 
 from __future__ import annotations
@@ -89,6 +94,11 @@ _REBASE_OPS = {"timestamp"}
 # (GridQuery.farg / farg2)
 _ARG_OPS = {"predict_linear": 1, "quantile": 1, "holt_winters": 2}
 
+# the range functions defined on histogram columns, bucket by bucket (the
+# general path's histogram functions, query/rangefns.py); a hist cache
+# declines every other one
+_HIST_GRID_FNS = {F.RATE, F.INCREASE, F.SUM_OVER_TIME, None}
+
 # cross-series aggregates the grouped programs reduce on the device;
 # "moments" is stddev/stdvar's (sum, count, sum of squares)
 GROUPED_OPS = frozenset(("sum", "avg", "count", "min", "max", "moments"))
@@ -141,6 +151,34 @@ def _seg_ts_device(seg):
     rows = torch.arange(BLOCK_BUCKETS, dtype=torch.int32,
                         device=seg["phase"].device)[:, None]
     return rows * seg["g"] + seg["base"] + seg["phase"][None, :]
+
+
+def hist_slot_garr(garr: np.ndarray, lane_idx: np.ndarray,
+                   gid_arr: np.ndarray, hb: int) -> None:
+    """Fill the host group map ``garr`` in place with the histogram
+    slot layout: series lane ``s``, bucket ``j`` (column ``s*hb + j``)
+    goes to group slot ``gid*hb + j``, so the plain group reduce sums
+    each bucket on its own."""
+    cols = lane_idx[:, None] * hb + np.arange(hb)[None, :]
+    garr[cols] = gid_arr[:, None] * hb + np.arange(hb)
+
+
+def hist_planes_split(both: torch.Tensor, num_groups: int, hb: int):
+    """``[2, G*hb, T]`` sum and count planes -> ``(hist_sum [G, T, hb],
+    count [G, T])``, the count taken from the top (total) bucket."""
+    G, T = num_groups, both.shape[-1]
+    hist_sum = both[0].reshape(G, hb, T).permute(0, 2, 1)
+    count = both[1].reshape(G, hb, T)[:, -1, :]
+    return hist_sum, count
+
+
+def hist_state_from_planes(both: torch.Tensor, num_groups: int, hb: int,
+                           tops) -> dict:
+    """``[2, G*hb, T]`` sum and count planes -> the histogram sum's
+    partial state: ``{"hist_sum": [G, T, hb], "count": [G, T],
+    "bucket_tops": tops}``."""
+    hist_sum, count = hist_planes_split(both, num_groups, hb)
+    return {"hist_sum": hist_sum, "count": count, "bucket_tops": tops}
 
 
 def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
@@ -303,7 +341,8 @@ class DeviceGridCache:
     """Per-(shard, schema, value-column) device grid with eviction."""
 
     def __init__(self, shard, schema_hash: int, column_id: int,
-                 budget_bytes: int, gstep_ms: Optional[int] = None):
+                 budget_bytes: int, gstep_ms: Optional[int] = None,
+                 hist: bool = False):
         self._shard = shard
         self.device: torch.device = shard.device
         self.schema_hash = schema_hash
@@ -312,6 +351,12 @@ class DeviceGridCache:
         self.owner = (f"grid:{getattr(shard, 'dataset', '?')}/"
                       f"{getattr(shard, 'shard_num', '?')}:c{column_id}")
         self.gstep = gstep_ms          # None until detected
+        # histogram columns: each partition's slot spans ``hb`` device
+        # columns, one a cumulative bucket, and the scalar kernels compute
+        # each bucket's window function
+        self.hist = hist
+        self.hb: Optional[int] = None          # bucket columns a slot
+        self.bucket_tops: Optional[np.ndarray] = None
         self.epoch0: Optional[int] = None
         self.lane_of: dict[int, int] = {}
         self._next_lane = 0
@@ -392,6 +437,11 @@ class DeviceGridCache:
         self.blocks.clear()
         self._tails.clear()
         self._plan_memo.clear()
+        # re-probe the bucket scheme on the next attempt: a widened
+        # histogram must not disable the cache for good once the narrow
+        # chunks age out
+        self.hb = None
+        self.bucket_tops = None
 
     # ---------------------------------------------------------------- serving
 
@@ -399,22 +449,27 @@ class DeviceGridCache:
                   nsteps: int, step_ms: int, window_ms: int,
                   fargs: tuple = ()):
         """Serve a _GRID_OPS window function on the query step grid from
-        device-resident blocks.  Returns ``(vals [S_req, T], None)`` with
-        ``vals`` a tensor on the store's device (nothing is read back), or
-        None when the fast path cannot serve the query.  ``timestamp``
-        comes back as absolute seconds in f64."""
+        device-resident blocks.  Returns ``(vals [S_req, T], None)`` —
+        ``(vals [S_req, T, hb], bucket_tops)`` for a histogram column —
+        with ``vals`` a tensor on the store's device (nothing is read
+        back), or None when the fast path cannot serve the query.
+        ``timestamp`` comes back as absolute seconds in f64."""
         if func not in _GRID_OPS:
+            return None
+        if self.hist and func not in _HIST_GRID_FNS:
             return None
         if len(fargs) != _ARG_OPS.get(_GRID_OPS[func], 0):
             return None        # unexpected / missing function argument
         with self._lock:
             plan = self._plan_locked(part_ids, func, steps0, nsteps,
                                      step_ms, window_ms, fargs)
-        if plan is None:
-            return None
+            if plan is None:
+                return None
+            # snapshot under the lock: a concurrent _disable drops them
+            hb, tops = self.hb, self.bucket_tops
         # dispatch + readback outside the lock: the plan holds live
         # references to its tensors
-        return self._dispatch_series(plan), None
+        return self._dispatch_series(plan, hb), tops
 
     def scan_rate_grouped(self, part_ids: Sequence[int], func,
                           steps0: int, nsteps: int, step_ms: int,
@@ -424,10 +479,13 @@ class DeviceGridCache:
         """Fused ``agg by (g)(<grid window fn>(...))``: the kernel's
         ``[T, lanes]`` output is reduced to ``[G, T]`` on the device.
         Returns the mergeable partial state ({"sum","count"} /
-        {"count"} / {"min"} / {"max"} / {"sum","count","sumsq"}) as
-        ``[G, T]`` tensors on the store's device, or None."""
+        {"count"} / {"min"} / {"max"} / {"sum","count","sumsq"}; a
+        histogram column's sum {"hist_sum" [G, T, hb], "count",
+        "bucket_tops"}) as tensors on the store's device, or None."""
         if func not in _GRID_OPS or op not in GROUPED_OPS:
             return None
+        if self.hist and (func not in _HIST_GRID_FNS or op != "sum"):
+            return None        # only the bucket-wise sum is defined
         if _GRID_OPS[func] in _REBASE_OPS:
             return None        # re-based ops skip the fused reduce
         if len(fargs) != _ARG_OPS.get(_GRID_OPS[func], 0):
@@ -437,22 +495,29 @@ class DeviceGridCache:
                                      step_ms, window_ms, fargs)
             if plan is None:
                 return None
-            garr = np.full(plan.ncols, num_groups, dtype=np.int32)
-            garr[plan.lane_idx] = np.asarray(group_ids, dtype=np.int32)
+            stride = self.hb if self.hist else 1
+            tops = self.bucket_tops
+            slots = num_groups * stride          # the drop slot's index
+            garr = np.full(plan.ncols, slots, dtype=np.int32)
+            gid_arr = np.asarray(group_ids, dtype=np.int32)
+            if self.hist:
+                hist_slot_garr(garr, plan.lane_idx, gid_arr, stride)
+            else:
+                garr[plan.lane_idx] = gid_arr
         if plan.packed is not None:
-            # packed lane order: scatter the group map through inv;
-            # pack pad lanes keep the drop bucket
+            # packed column order: scatter the group map through inv;
+            # pack pad columns keep the drop slot
             n_pk = int(plan.packed["first"].shape[0])
-            garr_pk = np.full(n_pk, num_groups, dtype=np.int32)
+            garr_pk = np.full(n_pk, slots, dtype=np.int32)
             garr_pk[plan.packed_inv] = garr
-            out = grouped_packed_program(
+            both = grouped_packed_program(
                 plan, torch.as_tensor(garr_pk, device=self.device),
-                num_groups, op)
+                slots, op)
         else:
-            out = grouped_program(
-                plan, torch.as_tensor(garr, device=self.device),
-                num_groups, op)
-        both = out
+            both = grouped_program(
+                plan, torch.as_tensor(garr, device=self.device), slots, op)
+        if self.hist:
+            return hist_state_from_planes(both, num_groups, stride, tops)
         if op == "count":
             return {"count": both[1]}
         if op in ("sum", "avg"):
@@ -461,17 +526,31 @@ class DeviceGridCache:
             return {"sum": both[0], "count": both[1], "sumsq": both[2]}
         return {op: both}
 
-    def _dispatch_series(self, plan: _GridPlan) -> torch.Tensor:
+    def _dispatch_series(self, plan: _GridPlan, hb) -> torch.Tensor:
+        """The plan's program and the requested series out of its
+        ``[T, columns]`` answer: ``[S_req, T]``, or ``[S_req, T, hb]``
+        for a histogram cache (``hb`` its bucket columns a slot)."""
         if plan.packed is not None:
             stepped = series_packed_program(plan)
-            lanes_req = plan.packed_inv[plan.lane_idx]
         else:
             stepped = series_program(plan)
-            lanes_req = plan.lane_idx
+        dev = stepped.device
+        if self.hist:
+            # column-granular indirection: a series' columns are
+            # lane*hb + bucket, and the pack's inv maps columns, so it
+            # composes with the expanded column map, not the lane map
+            cols = plan.lane_idx[:, None] * hb + np.arange(hb)[None, :]
+            if plan.packed is not None:
+                cols = plan.packed_inv[cols]
+            idx = torch.as_tensor(cols.ravel(), dtype=torch.int64,
+                                  device=dev)
+            return stepped.index_select(1, idx).reshape(
+                stepped.shape[0], *cols.shape).permute(1, 0, 2)
+        lanes_req = plan.lane_idx if plan.packed is None \
+            else plan.packed_inv[plan.lane_idx]
         # the requested lanes, series-major: a transposed view of the
         # time-major [T, S_req] selection
-        idx = torch.as_tensor(lanes_req, dtype=torch.int64,
-                              device=stepped.device)
+        idx = torch.as_tensor(lanes_req, dtype=torch.int64, device=dev)
         out = stepped.index_select(1, idx).T
         if plan.q.op in _REBASE_OPS:
             # absolute window-end seconds, re-based in f64 on the
@@ -568,6 +647,17 @@ class DeviceGridCache:
                 blk.last_used = self._seq
             self.hits += 1
             return cached
+        if self.hist and self.hb is None:
+            # the bucket scheme, probed on a narrow leading slice: a read
+            # of the whole history would decode every chunk under the lock
+            e0 = first.earliest_timestamp
+            _pts, pvals = first.read_range(e0, e0 + 64 * g, self.column_id)
+            buckets = pvals[0] if isinstance(pvals, tuple) else None
+            if buckets is None or buckets.num_buckets == 0:
+                self._disable()
+                return None
+            self.hb = int(buckets.num_buckets)
+            self.bucket_tops = np.asarray(buckets.bucket_tops(), np.float64)
         if self.epoch0 is None:
             parts0 = (shard.grid_partition(int(pid)) for pid in part_ids)
             earliest = [p.earliest_timestamp for p in parts0 if p is not None]
@@ -617,6 +707,9 @@ class DeviceGridCache:
         # dense-lane proof over the REQUESTED lanes: dense in every
         # covered block, or empty in every one
         req = prep["lane_idx"]
+        if self.hist:
+            req = (req[:, None] * self.hb
+                   + np.arange(self.hb)[None, :]).ravel()
         # phase proof piggybacks on the dense walk: every requested lane
         # uniform-phase in each covered block with the SAME phase across
         # blocks; tail blocks are excluded
@@ -767,12 +860,13 @@ class DeviceGridCache:
     def _build(self, bi: int, lanes: int, compress: bool = True):
         """Host staging + one upload for block ``bi``."""
         g = self.gstep
+        stride = self.hb if self.hist else 1
         # block bi holds buckets [bi*BB, bi*BB+BB-1]; bucket c covers
         # (epoch0+(c-1)*g, epoch0+c*g]
         b_lo_ms = self.epoch0 + (bi * BLOCK_BUCKETS - 1) * g
         b_hi_ms = b_lo_ms + BLOCK_BUCKETS * g
-        ts_stage = np.zeros((BLOCK_BUCKETS, lanes), np.int32)
-        val_stage = np.full((BLOCK_BUCKETS, lanes), np.nan,
+        ts_stage = np.zeros((BLOCK_BUCKETS, lanes * stride), np.int32)
+        val_stage = np.full((BLOCK_BUCKETS, lanes * stride), np.nan,
                             self._val_dtype())
         dropped_lane = False
         for pid, lane in list(self.lane_of.items()):
@@ -788,15 +882,32 @@ class DeviceGridCache:
             ts, vals = part.read_range(b_lo_ms + 1, b_hi_ms, self.column_id)
             if len(ts) == 0:
                 continue
-            if not isinstance(vals, np.ndarray):
+            if self.hist:
+                _buckets, rows = vals
+                if rows.size == 0:
+                    continue
+                if rows.shape[1] > self.hb:
+                    self._disable()             # bucket scheme widened
+                    return None
+                arr = rows.astype(self._val_dtype())
+                if arr.shape[1] < self.hb:
+                    # a narrower cumulative histogram: its top bucket is
+                    # the total, so it edge-pads (as scan_batch does)
+                    arr = np.pad(arr, ((0, 0), (0, self.hb - arr.shape[1])),
+                                 mode="edge")
+            elif not isinstance(vals, np.ndarray):
                 self._disable()                 # string column
                 return None
+            else:
+                arr = vals[:, None]
             buckets = (ts - self.epoch0 + g - 1) // g - bi * BLOCK_BUCKETS
             if len(np.unique(buckets)) != len(buckets):
                 self._disable()                 # >1 sample per bucket
                 return None
-            ts_stage[buckets, lane] = (ts - self.epoch0).astype(np.int32)
-            val_stage[buckets, lane] = vals
+            col0 = lane * stride
+            ts_stage[buckets, col0:col0 + stride] = \
+                (ts - self.epoch0).astype(np.int32)[:, None]
+            val_stage[buckets, col0:col0 + stride] = arr
         if dropped_lane:
             return None
         self.builds += 1
@@ -834,7 +945,9 @@ class DeviceGridCache:
             ts_dev = LEDGER.device_put(ts_stage, dev, owner=self.owner,
                                        fmt="dense")
             nbytes += ts_stage.nbytes
-        packed = xorgrid.pack_vals(val_stage, phase=phase) \
+        # a histogram cache packs at series granularity (stride hb): a
+        # series' bucket columns classify together and stay adjacent
+        packed = xorgrid.pack_vals(val_stage, phase=phase, stride=stride) \
             if do_compress else None
         pack_inv = None
         if packed is not None:
@@ -850,7 +963,8 @@ class DeviceGridCache:
             nbytes += val_stage.nbytes
         return _Block(ts_dev, vals_dev, lanes, self._seq, (fmin, fmax, fcnt),
                       (pmin, pmax), staged_hi=self._next_lane,
-                      nbytes=nbytes, width=lanes, ts_desc=ts_desc,
+                      nbytes=nbytes, width=val_stage.shape[1],
+                      ts_desc=ts_desc,
                       pack_inv=pack_inv)
 
     def _reclaim(self, target_bytes: int,  # holds-lock: _lock

@@ -390,22 +390,23 @@ class TimeSeriesShard:
             if shash == cs.schema_hash or cs.schema_hash == 0:
                 cache.note_freeze(cs)
 
-    def device_cache(self, schema_hash: int, column_id: int
-                     ) -> DeviceGridCache:
+    def device_cache(self, schema_hash: int, column_id: int,
+                     hist: bool = False) -> DeviceGridCache:
         cache = self.device_caches.get((schema_hash, column_id))
         if cache is None:
             cache = DeviceGridCache(self, schema_hash, column_id,
                                     self.config.device_cache_bytes,
-                                    self.config.grid_step_ms)
+                                    self.config.grid_step_ms, hist=hist)
             self.device_caches[(schema_hash, column_id)] = cache
         return cache
 
     def _grid_cache_for(self, part_ids: Sequence[int],
                         column_id: Optional[int]):
         """Resolve the value column off the first partition, require a
-        DOUBLE column, fetch the cache.  The ORIGINAL ``part_ids`` object
-        goes to the cache, which memoizes its lane preparation on that
-        object's identity (the lookup cache keeps it alive)."""
+        DOUBLE or HISTOGRAM column, fetch the cache.  The ORIGINAL
+        ``part_ids`` object goes to the cache, which memoizes its lane
+        preparation on that object's identity (the lookup cache keeps it
+        alive)."""
         if len(part_ids) == 0:
             return None
         first = self.grid_partition(int(part_ids[0]))
@@ -413,17 +414,22 @@ class TimeSeriesShard:
             return None
         cid = first.schema.data.value_column_id if column_id is None \
             else column_id
-        if first.schema.data.columns[cid].ctype != ColumnType.DOUBLE:
+        ctype = first.schema.data.columns[cid].ctype
+        if ctype not in (ColumnType.DOUBLE, ColumnType.HISTOGRAM):
             return None
-        return self.device_cache(first.schema.schema_hash, cid)
+        return self.device_cache(first.schema.schema_hash, cid,
+                                 hist=ctype == ColumnType.HISTOGRAM)
 
     def scan_grid(self, part_ids: Sequence[int], func, steps0: int,
                   nsteps: int, step_ms: int, window_ms: int,
                   column_id: Optional[int] = None, fargs: tuple = ()):
         """Serve a windowed range function from the device-resident grid.
-        Returns ``(tags_list, vals [S, T], None)`` with ``vals`` a tensor
-        on the store's device, or None when the fast path cannot serve
-        this query ("not served here": the caller scans another way)."""
+        Returns ``(tags_list, vals, bucket_tops)``: ``vals`` a tensor on
+        the store's device, ``[S, T]`` with ``bucket_tops`` None for a
+        scalar column, ``[S, T, hb]`` a bucket with the column's bucket
+        tops for a histogram column; or None when the fast path cannot
+        serve this query ("not served here": the caller scans another
+        way)."""
         cache = self._grid_cache_for(part_ids, column_id)
         if cache is None:
             return None
@@ -446,8 +452,9 @@ class TimeSeriesShard:
                           op: str, column_id: Optional[int] = None,
                           fargs: tuple = ()):
         """Fused ``agg by (g)(fn(...))`` from the device grid: only
-        ``[G, T]`` partials come out.  Returns the mergeable state dict
-        (tensors on the store's device) or None."""
+        ``[G, T]`` partials come out (``[G, T, hb]`` bucket sums and
+        ``bucket_tops`` for a histogram column).  Returns the mergeable
+        state dict (tensors on the store's device) or None."""
         cache = self._grid_cache_for(part_ids, column_id)
         if cache is None:
             return None

@@ -473,7 +473,13 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                fargs=tuple(mapper.function_args))
         if got is None:
             return None
-        tags, vals, _tops = got
+        tags, vals, tops = got
+        if vals.ndim == 3:      # histogram column: [S, T, hb] bucket planes
+            return [PeriodicBatch(tags, report,
+                                  torch.full(vals.shape[:2], float("nan"),
+                                             dtype=vals.dtype,
+                                             device=vals.device),
+                                  hist=vals, bucket_tops=tops)]
         return [PeriodicBatch(tags, report, vals)]
 
     def _try_grid_aggregated(self, shard, part_ids, column_id, mapper,
@@ -504,8 +510,10 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         ctx = active_exec_ctx()
         if ctx is not None:
             ctx.note_counts(samples=len(part_ids) * steps.num_steps)
+        tops = state.pop("bucket_tops", None)
         return [AggPartialBatch(mapred.operator, (),
-                                [dict(k) for k in union], report, state)]
+                                [dict(k) for k in union], report, state,
+                                bucket_tops=tops)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""The port's query engine against the JAX package's on the schemas the
-port's device grid does not serve: histogram columns (``prom-histogram``,
-``prom-hist-max`` with its max-column rewrite) and counters with resets
-through the functions the grid lacks.  One shard each, the same
+"""The port's query engine against the JAX package's on histogram
+columns (``prom-histogram``, whose rate/increase/sum_over_time and bare
+selector both packages serve from their hist grid caches, and
+``prom-hist-max`` with its max-column rewrite) and on counters with
+resets through the functions the grid lacks.  One shard each, the same
 containers; values compared at rtol 1e-9 / atol 1e-12 with NaN
-positions equal, histogram planes included."""
+positions equal, histogram planes included.  The hist grid itself is
+held against the JAX package's in ``tests/test_torch_hist_grid.py``."""
 
 import numpy as np
 import pytest
