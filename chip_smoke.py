@@ -95,7 +95,7 @@ Phases, each timed on a line of its own:
    deriv, idelta and zscore, which cross 0, of each series' largest
    answer); each hist query is served by the hist cache (its hits rise);
    warm runs build no block; one warm run of Q1-Q4, Q7 and Q8 is profiled
-   (torch.profiler); each warm query's median of 20 is printed with its
+   (torch.profiler); each warm query's median of 10 is printed with its
    p10 and p90; each kernel is then held against its plain version
    on the inputs the main path gave it, and timed (rate_grid beside its
    direct kernel on the same inputs, with the route its plan takes);
@@ -139,7 +139,30 @@ Phases, each timed on a line of its own:
    variant's ts plane; 8 each on rate_grid_grouped_packed and
    hist_grid_grouped_packed), each against its plain version, its
    launches counted (none direct), and timed; each query's device ms and
-   samples/s.
+   samples/s;
+7. durable — persistence, integrity and flush, after every other phase
+   (none of them may see its quarantine): ``req_total`` (100 pods x
+   1,024 series, 260 rows, the main store's data) encoded as one
+   container set a pod an hour of rows (60, 60, 60, 60, 20), in
+   DURABLE_WORKERS processes started before the build (the encoding
+   overlaps the ``nvcc`` runs), streamed time-major into store A
+   (``DiskColumnStore``/``DiskMetaStore`` over sqlite files, StoreConfig
+   at its defaults) through ``ingest_stream``'s FlushScheduler (1 h, 2
+   threads); A crashes after hour 3 (the scheduler drains and closes
+   without flushing what is buffered); ``read_raw_partitions`` over every part key must decode to
+   exactly the samples each group's checkpoint covers, the checkpoints
+   must be the offsets the flushes snapshotted, and ``verify_chunks``
+   must pass every row; store B recovers (``recover_index``,
+   ``prepare_recovery``, the stream from the resume offset through a new
+   scheduler) and serves D1, ``sum by (pod)(rate(req_total[5m]))`` and
+   per-series ``rate`` over the last hour on ``rate_grid`` (blocks 0-1
+   of the recovered grid), against a CPU twin that runs the first
+   CHECK_PODS pods through the same sequence (its chunk rows equal the
+   card's); a byte of one of B's chunks is flipped on disk, the
+   read-back drops and quarantines it, the next query (D2) evicts the
+   grid's blocks and re-stages without it (``rate_grid`` again), pod 0
+   loses that series' samples in the chunk's span, and the engine
+   counts ``corrupt_chunks_excluded`` 1 inside the window and 0 outside.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -149,6 +172,7 @@ them; without a CUDA device the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -184,6 +208,7 @@ HIST_TOPS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
              25.0, 50.0, 100.0, 250.0, float("inf"))
 HIST_Q = 0.99                   # E7's quantile
 HIST_WORKERS = 6                # processes that encode the hist pods
+DURABLE_WORKERS = 3             # ... the durable stream, beside the build
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -1757,6 +1782,25 @@ def pod_containers(schema, metric: str, pod: int, seed: int,
     import numpy as np
     from filodb_tpu_torch.core.record import RecordBuilder
 
+    ts, vals, keep = pod_series(pod, seed, jitter)
+    b = RecordBuilder(schema)
+    for s in range(POD_SERIES):
+        k = keep[s]
+        b.add_series(ts[s][k], [vals[s][k].astype(np.float64)],
+                     series_tags(metric, pod, s))
+    return b.containers()
+
+
+def series_tags(metric: str, pod: int, s: int) -> dict:
+    return {"__name__": metric, "pod": f"pod-{pod:03d}",
+            "instance": f"i-{s:04d}", "_ws_": "demo", "_ns_": "app"}
+
+
+def pod_series(pod: int, seed: int, jitter: bool):
+    """One pod's 1,024 series: timestamps and values ``[S, N_ROWS]`` and
+    the mask of the rows that are scraped."""
+    import numpy as np
+
     rng = np.random.default_rng([seed, int(jitter), pod])
     rows = np.arange(N_ROWS, dtype=np.int64)
     phase = rng.integers(1, STEP, POD_SERIES)
@@ -1773,14 +1817,7 @@ def pod_containers(schema, metric: str, pod: int, seed: int,
         keep[:, 1:] = rng.random((POD_SERIES, N_ROWS - 1)) >= JIT_MISSED
     else:
         ts = T0 + rows[None, :] * STEP + phase[:, None]
-    b = RecordBuilder(schema)
-    for s in range(POD_SERIES):
-        k = keep[s]
-        b.add_series(ts[s][k], [vals[s][k].astype(np.float64)],
-                     {"__name__": metric, "pod": f"pod-{pod:03d}",
-                      "instance": f"i-{s:04d}", "_ws_": "demo",
-                      "_ns_": "app"})
-    return b.containers()
+    return ts, vals, keep
 
 
 def build_store(device, seed: int, req_pods: int, jit_pods: int):
@@ -2218,7 +2255,6 @@ def profile_queries(shard, looked) -> None:
 
 def main_path(device, seed: int, reps: int, report: dict) -> dict:
     import torch
-    from filodb_tpu_torch.memstore import devicestore
     from filodb_tpu_torch.ops import grid
 
     with Phase("main.ingest"):
@@ -2385,52 +2421,8 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
     kern_rows = {}
     with Phase("main.kernels_at_path_shapes"):
         for name, plan in plans.items():
-            if plan.packed is not None:
-                args = (plan.packed, plan.steps0_rel, plan.q,
-                        plan.packed_row0, plan.packed_use_phase)
-                kname = "rate_grid_packed"
-                fn = partial(grid.rate_grid_packed, *args)
-                ref = partial(grid.rate_grid_packed_ref, *args)
-                work = packed_work(plan.packed, plan.q, plan.packed_row0,
-                                   plan.packed_use_phase)
-                shape = f"packed {grid.packed_width(plan.packed)} lanes"
-            else:
-                ts, vals, s0, q, ph = devicestore.series_inputs(plan)
-                kname = "rate_grid"
-                fn = partial(grid.rate_grid, ts, vals, s0, q, phase=ph)
-                ref = partial(grid.rate_grid_ref, ts, vals, s0, q, phase=ph)
-                work = grid_work(ts, vals, q, ph)
-                mode = grid._mode_for(q, ph)
-                splan = grid.series_staged_plan(vals.shape[1], q.nsteps,
-                                                q.kbuckets, q.stride, mode,
-                                                q.op)
-                route = "staged" if splan.staged else "direct"
-                shape = (f"[{vals.shape[0]}, {vals.shape[1]}] {mode} "
-                         f"{route} {tuple(splan)}")
-            got = fn()
-            want = ref()
-            torch.cuda.synchronize()
-            err = compare(got, want, plan.q.op, RTOL_KERNEL,
-                          0 if plan.q.op in CROSSING else None)
-            extra = {}
-            if kname == "rate_grid":
-                # the direct kernel on the same inputs: bit for bit, timed
-                direct = partial(series_direct, ts, vals, s0, q, phase=ph)
-                compare_bits(got, direct(), f"{name} rate_grid (direct)")
-                extra = {"route": route, "plan": list(splan),
-                         "direct_ms": cuda_ms(direct, reps, flush)}
-            ms = cuda_ms(fn, reps, flush)
-            pms = cuda_ms(ref, reps, flush)
-            bms, by = bound_ms(*work)
-            log(f"{name} {kname} {shape} op={plan.q.op} T={plan.q.nsteps}"
-                f": ms {ms:.4f}"
-                + (f" direct_ms {extra['direct_ms']:.4f}" if extra else "")
-                + f" plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, "
-                f"{work[0]} bytes) max_abs_err {err:.3e} ok")
-            row = {"query": name, "op": plan.q.op, "ms": ms,
-                   "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                   "bytes": work[0], "max_abs_err": err,
-                   "launches": qlaunch[name][kname], **extra}
+            kname, row = plan_kernel_times(name, plan, reps, flush)
+            row["launches"] = qlaunch[name][kname]
             kern_rows.setdefault(kname, []).append(row)
     report["kernels_at_path_shapes"] = kern_rows
     with Phase("main.hist_reduce"):
@@ -2438,6 +2430,63 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                                             looked["lat"], reps, flush)
     return {"launches": totals, "rate_grid_direct": direct_total,
             "rows": kern_rows, "stores": (_ms, shard, _rms, looked)}
+
+
+def plan_kernel_times(name: str, plan, reps: int, flush) -> tuple:
+    """The kernel a grid plan launches (rate_grid_packed for a packed
+    plan, else rate_grid) against its plain version on the plan's own
+    inputs, timed, with its bound; rate_grid also against its direct
+    kernel, bit for bit, and timed.  Returns (kernel, row)."""
+    import torch
+    from filodb_tpu_torch.memstore import devicestore
+    from filodb_tpu_torch.ops import grid
+
+    q = plan.q
+    extra = {}
+    if plan.packed is not None:
+        args = (plan.packed, plan.steps0_rel, q, plan.packed_row0,
+                plan.packed_use_phase)
+        kname = "rate_grid_packed"
+        fn = partial(grid.rate_grid_packed, *args)
+        ref = partial(grid.rate_grid_packed_ref, *args)
+        work = packed_work(plan.packed, q, plan.packed_row0,
+                           plan.packed_use_phase)
+        shape = f"packed {grid.packed_width(plan.packed)} lanes"
+    else:
+        ts, vals, s0, q, ph = devicestore.series_inputs(plan)
+        kname = "rate_grid"
+        fn = partial(grid.rate_grid, ts, vals, s0, q, phase=ph)
+        ref = partial(grid.rate_grid_ref, ts, vals, s0, q, phase=ph)
+        direct = partial(series_direct, ts, vals, s0, q, phase=ph)
+        work = grid_work(ts, vals, q, ph)
+        mode = grid._mode_for(q, ph)
+        splan = grid.series_staged_plan(vals.shape[1], q.nsteps, q.kbuckets,
+                                        q.stride, mode, q.op)
+        route = "staged" if splan.staged else "direct"
+        shape = (f"[{vals.shape[0]}, {vals.shape[1]}] {mode} {route} "
+                 f"{tuple(splan)} dense={q.dense}")
+        extra = {"mode": mode, "dense": q.dense, "route": route,
+                 "plan": list(splan)}
+    got = fn()
+    want = ref()
+    torch.cuda.synchronize()
+    err = compare(got, want, q.op, RTOL_KERNEL,
+                  0 if q.op in CROSSING else None)
+    if kname == "rate_grid":
+        # the direct kernel on the same inputs: bit for bit, timed
+        compare_bits(got, direct(), f"{name} rate_grid (direct)")
+        extra["direct_ms"] = cuda_ms(direct, reps, flush)
+    ms = cuda_ms(fn, reps, flush)
+    pms = cuda_ms(ref, reps, flush)
+    bms, by = bound_ms(*work)
+    log(f"{name} {kname} {shape} op={q.op} T={q.nsteps}: ms {ms:.4f}"
+        + (f" direct_ms {extra['direct_ms']:.4f}" if "direct_ms" in extra
+           else "")
+        + f" plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}, {work[0]} bytes)"
+        f" max_abs_err {err:.3e} ok")
+    return kname, {"query": name, "kernel": kname, "op": q.op, "ms": ms,
+                   "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                   "bytes": work[0], "max_abs_err": err, **extra}
 
 
 def hist_reduce(device, shard, plan, looked, reps: int, flush) -> dict:
@@ -3086,6 +3135,597 @@ def northstar_second_ops(cases, reps: int, flush) -> list:
     return rows
 
 
+# ------------------------------------------------------------- phase 7
+
+DURABLE_HOURS = (60, 60, 60, 60, 20)   # rows of each hour's container set
+DURABLE_CRASH = 3                      # hours store A ingests before its crash
+DURABLE_SPAN = (T0 + 201 * STEP, 60)   # the last hour: windows end at rows 200-259
+
+
+def pod_hour_containers(schema, pod: int, seed: int) -> list:
+    """``req_total``'s pod ``pod`` (``pod_series``' data, as
+    ``pod_containers`` encodes it) cut into hours of rows: one
+    RecordContainer set an hour of ``DURABLE_HOURS``, the order in which
+    a Kafka partition delivers a shard's records."""
+    import numpy as np
+    from filodb_tpu_torch.core.record import RecordBuilder
+
+    ts, vals, _keep = pod_series(pod, seed, False)
+    out, r0 = [], 0
+    for n in DURABLE_HOURS:
+        b = RecordBuilder(schema)
+        for s in range(POD_SERIES):
+            b.add_series(ts[s, r0:r0 + n],
+                         [vals[s, r0:r0 + n].astype(np.float64)],
+                         series_tags("req_total", pod, s))
+        out.append(b.containers())
+        r0 += n
+    return out
+
+
+def _pod_hours_task(seed: int, pod: int) -> list:
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    return pod_hour_containers(DEFAULT_SCHEMAS["prom-counter"], pod, seed)
+
+
+class PodHours:
+    """{pod: [hour -> containers]} of ``pods`` pods, encoded in a pool of
+    DURABLE_WORKERS processes (one pod a task) that starts at once: the
+    script starts it before the build, so the encoding runs beside the
+    ``nvcc`` processes, and the durable phase collects it."""
+
+    def __init__(self, seed: int, pods: int):
+        import multiprocessing
+
+        self.t0 = time.perf_counter()
+        self._pool = multiprocessing.get_context("spawn").Pool(
+            DURABLE_WORKERS)
+        self._res = self._pool.map_async(partial(_pod_hours_task, seed),
+                                         range(pods))
+        self._pool.close()
+
+    def get(self) -> tuple:
+        """(hours, seconds from the start until every pod was encoded,
+        seconds waited here)."""
+        t0 = time.perf_counter()
+        hours = dict(enumerate(self._res.get()))
+        waited = time.perf_counter() - t0
+        self._pool.join()
+        return hours, time.perf_counter() - self.t0, waited
+
+    def close(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
+
+
+def durable_stream(hours: dict, pods) -> tuple:
+    """The time-major stream of ``pods``' hourly container sets: every
+    pod's hour 0, then every pod's hour 1, ...; offsets 0, 1, 2, ...
+    Returns ``[(offset, container)]`` and, for each (hour, pod), the
+    first offset and the cumulative record counts of its containers
+    (records are fixed-size, series-major within a set)."""
+    import numpy as np
+
+    stream, layout = [], {}
+    for h, n in enumerate(DURABLE_HOURS):
+        for pod in pods:
+            conts = hours[pod][h]
+            body = [len(c) - 4 for c in conts]
+            rec, rem = divmod(sum(body), POD_SERIES * n)
+            if rem or any(b % rec for b in body):
+                raise AssertionError(f"pod {pod} hour {h}: records are not "
+                                     f"of one size")
+            layout[h, pod] = (len(stream), np.concatenate(
+                ([0], np.cumsum([b // rec for b in body]))))
+            stream += [(len(stream) + i, c) for i, c in enumerate(conts)]
+    return stream, layout
+
+
+def row_offsets(layout, hour: int, pod: int):
+    """``[POD_SERIES, rows]``: the stream offset of each series' rows in
+    ``hour``."""
+    import numpy as np
+
+    first, cum = layout[hour, pod]
+    n = DURABLE_HOURS[hour]
+    rec = np.arange(POD_SERIES * n).reshape(POD_SERIES, n)
+    return first + np.searchsorted(cum, rec, side="right") - 1
+
+
+def durable_store(device, root: str):
+    """A memstore over the sqlite files in ``root``, StoreConfig at its
+    defaults (flush-interval 1 h, 60 groups, 400-row chunks)."""
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.core.storeconfig import StoreConfig
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.store.persistence import (DiskColumnStore,
+                                                    DiskMetaStore)
+
+    ms = TimeSeriesMemStore(DiskColumnStore(os.path.join(root, "chunks.db")),
+                            DiskMetaStore(os.path.join(root, "meta.db")),
+                            device=device)
+    shard = ms.setup("prom", DEFAULT_SCHEMAS, 0, StoreConfig())
+    return ms, shard
+
+
+def drive(ms, shard, stream, flush_remaining: bool) -> dict:
+    """Ingest ``stream`` through ``ingest_stream``'s scheduled mode, at
+    the store's flush-interval and flush-task-parallelism, ending with
+    or without a flush of what is buffered (without: a crash).  Records
+    the offset each flush task snapshotted, by group."""
+    snapped: dict = {}
+    tasks = []
+    prepare = shard.prepare_flush_group
+
+    def recording(group, ingestion_time=None):
+        task = prepare(group, ingestion_time)
+        snapped[group] = task.offset
+        tasks.append(group)
+        return task
+
+    shard.prepare_flush_group = recording
+    t0 = time.perf_counter()
+    try:
+        samples = ms.ingest_stream(
+            shard.dataset, shard.shard_num, stream,
+            flush_interval_ms=shard.config.flush_interval_ms,
+            flush_parallelism=shard.config.flush_task_parallelism,
+            flush_remaining=flush_remaining)
+    finally:
+        del shard.prepare_flush_group
+    return {"samples": samples, "seconds": time.perf_counter() - t0,
+            "flush_tasks": len(tasks), "snapped": snapped}
+
+
+def recover(device, root: str, stream) -> tuple:
+    """Store B over store A's files, recovered the way the reference's
+    node does (filodb_tpu/coordinator/node.py:173-215): the index from
+    the persisted part keys, the group watermarks from the checkpoints,
+    then the stream from the resume offset through a new scheduler,
+    flushing what remains at its end."""
+    ms, shard = durable_store(device, root)
+    t0 = time.perf_counter()
+    n_index = ms.recover_index("prom", 0)
+    resume, highest = ms.prepare_recovery("prom", 0)
+    if resume is None:
+        raise AssertionError("recovery found no checkpoint")
+    run = drive(ms, shard, stream[resume:], flush_remaining=True)
+    run.update(index=n_index, resume=resume, highest=highest,
+               skipped=shard.stats.rows_skipped,
+               seconds=time.perf_counter() - t0)
+    return ms, shard, run
+
+
+def flush_quantiles(counts, buckets) -> tuple:
+    """p50 and p99 of filodb_flush_seconds from its bucket counts (linear
+    within a bucket, as Prometheus' histogram_quantile)."""
+    total = sum(counts)
+    out = []
+    for q in (0.5, 0.99):
+        rank, cum, lo = q * total, 0, 0.0
+        for i, c in enumerate(counts):
+            hi = buckets[i] if i < len(buckets) else float("inf")
+            if c and cum + c >= rank:
+                out.append(hi if hi == float("inf") else
+                           lo + (hi - lo) * (rank - cum) / c)
+                break
+            cum += c
+            lo = hi
+    return tuple(out)
+
+
+def check_readback(store, series: dict, layout, checkpoints: dict) -> dict:
+    """``read_raw_partitions`` over every part key must decode to exactly
+    the samples of the containers each series' group checkpointed: none
+    lost, none twice, the values bit for bit."""
+    import numpy as np
+    from filodb_tpu_torch.core.chunk import decode_chunkset
+    from filodb_tpu_torch.core.record import parse_partkey, partition_hash
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.core.storeconfig import StoreConfig
+
+    schema = DEFAULT_SCHEMAS["prom-counter"]
+    ngroups = StoreConfig().groups_per_shard
+    pks = [r.partkey for r in store.scan_part_keys("prom", 0)]
+    t0 = time.perf_counter()
+    got = dict(store.read_raw_partitions("prom", 0, pks, 0, 2**62))
+    read_s = time.perf_counter() - t0
+    samples = chunks = 0
+    seen = set()
+    offsets = {}                # pod -> [POD_SERIES, rows before the crash]
+    for pk in pks:
+        tags = parse_partkey(pk)
+        pod, s = int(tags["pod"][4:]), int(tags["instance"][2:])
+        cp = checkpoints.get(partition_hash(tags) % ngroups, -1)
+        ts, vals = series[pod]
+        if pod not in offsets:
+            offsets[pod] = np.concatenate(
+                [row_offsets(layout, h, pod) for h in range(DURABLE_CRASH)],
+                axis=1)
+        rows = np.flatnonzero(offsets[pod][s] <= cp)
+        css = got.get(pk, [])
+        if not len(rows):
+            if css:
+                raise AssertionError(f"{tags}: chunks past the checkpoint")
+            continue
+        dec = [decode_chunkset(schema, cs) for cs in css]
+        got_ts = np.concatenate([d[0] for d in dec])
+        got_v = np.concatenate([d[1][0] for d in dec])
+        if not (np.array_equal(got_ts, ts[s, rows])
+                and np.array_equal(got_v.view(np.int64),
+                                   vals[s, rows].astype(np.float64)
+                                   .view(np.int64))):
+            raise AssertionError(f"{tags}: {len(got_ts)} samples read back, "
+                                 f"{len(rows)} checkpointed; they differ")
+        samples += len(rows)
+        chunks += len(css)
+        seen.add(pk)
+    if len(seen) != len(got):
+        raise AssertionError("read back part keys that were not asked")
+    return {"partkeys": len(pks), "samples": samples, "chunks": chunks,
+            "read_seconds": read_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def durable_phase(device, seed: int, reps: int, encoding: PodHours,
+                  report: dict) -> dict:
+    """Persistence, integrity and flush: ``req_total`` (100 pods x 1,024
+    series, 260 rows) streamed hour by hour into store A on the card
+    over sqlite files, flushed by a FlushScheduler; A crashes after
+    hour 3; the checkpointed rows are read back from disk and verified;
+    store B recovers (index, watermarks, replay) and serves the last
+    hour through B1; a flipped byte in one of B's chunks is caught on
+    read-back, quarantined, and the grid re-stages without it.  A CPU
+    twin runs the same sequence over the first CHECK_PODS pods."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from filodb_tpu_torch import integrity
+    from filodb_tpu_torch.integrity.faultinject import FaultInjector
+    from filodb_tpu_torch.integrity.scan import verify_chunks
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+    from filodb_tpu_torch.utils.devicewatch import FLIGHT, LEDGER
+    from filodb_tpu_torch.utils.observability import (flush_metrics,
+                                                      integrity_metrics)
+
+    out: dict = {}
+    stores = []                 # every memstore opened, shut down at the end
+    # the sqlite files live in the checkout's git-ignored build directory
+    build = os.path.join(HERE, "filodb_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="durable-", dir=build)
+    try:
+        with Phase("durable.stream"):
+            hours, encode_s, waited = encoding.get()
+            series = {p: pod_series(p, seed, False)[:2]
+                      for p in range(REQ_PODS)}
+            stream, layout = durable_stream(hours, range(REQ_PODS))
+            crash_at = layout[DURABLE_CRASH, 0][0]
+            twin_stream, twin_layout = durable_stream(hours,
+                                                      range(CHECK_PODS))
+            twin_crash = twin_layout[DURABLE_CRASH, 0][0]
+            del hours
+            log(f"stream: {len(stream)} containers, {REQ_PODS} pods x "
+                f"{len(DURABLE_HOURS)} hours of rows {DURABLE_HOURS}; the "
+                f"crash after offset {crash_at - 1}; encoded in "
+                f"{DURABLE_WORKERS} processes, {encode_s:.3f} s after they "
+                f"started with the build ({waited:.3f} s waited here)")
+
+        hist = flush_metrics()["flush_seconds"]
+        with Phase("durable.ingest_persist"):
+            h0 = hist.counts(dataset="prom")
+            seq0 = max((e["seq"] for e in FLIGHT.events(kind="flush")),
+                       default=-1)
+            ms_a, shard_a = durable_store(device, os.path.join(root, "card"))
+            stores.append(ms_a)
+            run_a = drive(ms_a, shard_a, stream[:crash_at],
+                          flush_remaining=False)
+            h1 = hist.counts(dataset="prom")
+            secs = sorted(e["seconds"] for e in FLIGHT.events(kind="flush")
+                          if e["seq"] > seq0)
+            cps = ms_a.meta.read_checkpoints("prom", 0)
+            if cps != run_a["snapped"]:
+                raise AssertionError("checkpoints differ from the offsets "
+                                     "the flushes snapshotted")
+            db = os.path.join(root, "card", "chunks.db")
+            mb, wal_mb = (os.path.getsize(db + x) / 2**20
+                          if os.path.exists(db + x) else 0.0
+                          for x in ("", "-wal"))
+            p50, p99 = flush_quantiles([b - a for a, b in zip(h0, h1)],
+                                       hist.buckets)
+            ex50, ex99 = (np.quantile(secs, [0.5, 0.99]) if secs
+                          else (float("nan"),) * 2)
+            run_a.update(chunks=shard_a.stats.chunks_flushed,
+                         sqlite_mb=mb, sqlite_wal_mb=wal_mb, flush_p50_s=p50, flush_p99_s=p99,
+                         flush_task_p50_s=float(ex50),
+                         flush_task_p99_s=float(ex99),
+                         checkpoints=sorted(set(cps.values())))
+            log(f"store A: {run_a['samples']} samples in "
+                f"{run_a['seconds']:.3f} s ({run_a['samples'] / run_a['seconds']:.4g} "
+                f"samples/s, ingest + persist), {run_a['flush_tasks']} flush "
+                f"tasks, {run_a['chunks']} chunks written, filodb_flush_seconds "
+                f"p50 {p50:.4g} s p99 {p99:.4g} s (bucket estimate; the tasks' "
+                f"own p50 {ex50:.4g} s p99 {ex99:.4g} s), sqlite "
+                f"{mb:.1f} MB and its write-ahead log {wal_mb:.1f} MB; "
+                f"checkpoints {run_a['checkpoints']}")
+            del run_a["snapped"]
+            out["store_a"] = run_a
+
+        with Phase("durable.read_back"):
+            rb = check_readback(ms_a.store, series, layout, cps)
+            t0 = time.perf_counter()
+            ver = verify_chunks(ms_a.store, "prom", [0])
+            ver_s = time.perf_counter() - t0
+            row = ver["shards"][0]
+            nbytes = ms_a.store._conn().execute(
+                "SELECT SUM(LENGTH(vectors)) FROM chunks").fetchone()[0]
+            if row["chunks"] != rb["chunks"] or row["failed"] \
+                    or row["unchecksummed"]:
+                raise AssertionError(f"verify_chunks: {row}")
+            rb.update(verify_seconds=ver_s, verify_gb_s=nbytes / ver_s / 1e9,
+                      blob_bytes=nbytes)
+            log(f"read back {rb['partkeys']} part keys, {rb['chunks']} chunks: "
+                f"{rb['samples']} samples, exactly the checkpointed ones "
+                f"({rb['read_seconds']:.3f} s to read, {rb['seconds']:.3f} s "
+                f"with the decode and check); verify_chunks {row['chunks']} "
+                f"chunks, none failed, {ver_s:.3f} s "
+                f"({rb['verify_gb_s']:.3f} GB/s of {nbytes} blob bytes)")
+            out["read_back"] = rb
+
+        with Phase("durable.recover"):
+            ms_b, shard_b, run_b = recover(device, os.path.join(root, "card"),
+                                           stream)
+            stores.append(ms_b)
+            if run_b["index"] != REQ_PODS * POD_SERIES:
+                raise AssertionError(f"recover_index: {run_b['index']} part "
+                                     f"keys")
+            if shard_b.num_partitions != REQ_PODS * POD_SERIES:
+                raise AssertionError(f"{shard_b.num_partitions} partitions "
+                                     f"after the replay")
+            run_b["chunks"] = shard_b.stats.chunks_flushed
+            log(f"store B: recover_index {run_b['index']} part keys, resume "
+                f"at offset {run_b['resume']} (highest checkpoint "
+                f"{run_b['highest']}), replayed {len(stream) - run_b['resume']} "
+                f"containers ({run_b['samples']} samples, "
+                f"{run_b['skipped']} records skipped below their group's "
+                f"watermark), {run_b['flush_tasks']} flush tasks, "
+                f"{run_b['chunks']} chunks; recovery {run_b['seconds']:.3f} s")
+            del run_b["snapped"]
+            out["store_b"] = run_b
+
+        with Phase("durable.cpu_twin"):
+            twin_root = os.path.join(root, "twin")
+            tms_a, tshard_a = durable_store("cpu", twin_root)
+            stores.append(tms_a)
+            drive(tms_a, tshard_a, twin_stream[:twin_crash],
+                  flush_remaining=False)
+            tms_b, tshard_b, _trun = recover("cpu", twin_root, twin_stream)
+            stores.append(tms_b)
+            # flush boundaries follow data time: the twin's chunks are the
+            # card's, row for row
+            twin_pks = [r.partkey for r in
+                        tms_b.store.scan_part_keys("prom", 0)]
+            mine = ms_b.store.read_raw_rows("prom", 0, twin_pks, 0, 2**62)
+            theirs = tms_b.store.read_raw_rows("prom", 0, twin_pks, 0, 2**62)
+            if [r[:7] for r in mine] != [r[:7] for r in theirs]:
+                raise AssertionError("the CPU twin's chunks differ from the "
+                                     "card's")
+            log(f"CPU twin: {CHECK_PODS} pods through the same sequence; its "
+                f"{len(theirs)} chunk rows equal the card's (ids, spans, "
+                f"blobs)")
+
+        flush = make_flush(device)
+        looked = lookup(shard_b, "req_total")
+        ref_looked = lookup(tshard_b, "req_total", pods=CHECK_PODS)
+        steps0, nsteps = DURABLE_SPAN
+
+        def counts():
+            return {k: getattr(grid, k).launches
+                    for k in ("rate_grid", "rate_grid_packed")}
+
+        with Phase("durable.serve"):
+            grid.reset_launch_counts()          # the durable path's run
+            t0 = time.perf_counter()
+            before = counts()
+            got_g = run_query(shard_b, "grouped", F.RATE, DURABLE_SPAN,
+                              looked)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            got_s = run_query(shard_b, "series", F.RATE, DURABLE_SPAN,
+                              looked)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in counts().items()}
+            cache = grid_cache(shard_b, False)
+            if ran["rate_grid"] < 2:
+                raise AssertionError(f"the recovered grid did not run B1: "
+                                     f"{ran}")
+            plan = list(cache._plan_memo.values())[-1]
+            err = max(check_query("D1", "grouped", F.RATE, got_g, looked,
+                                  run_query(tshard_b, "grouped", F.RATE,
+                                            DURABLE_SPAN, ref_looked),
+                                  ref_looked, nsteps, device),
+                      check_query("D1:series", "series", F.RATE, got_s,
+                                  looked,
+                                  run_query(tshard_b, "series", F.RATE,
+                                            DURABLE_SPAN, ref_looked),
+                                  ref_looked, nsteps, device))
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run_query(shard_b, "grouped", F.RATE, DURABLE_SPAN, looked)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            p10, p90 = spread(walls)
+            serve = {"cold_s": cold, "launches": ran, "cpu_check_err": err,
+                     "warm_wall_ms": statistics.median(walls),
+                     "warm_wall_p10_p90": (p10, p90), "blocks": len(plan.segs)}
+            log(f"D1 sum by (pod)(rate(req_total[5m])) over the last hour: "
+                f"cold {cold:.3f} s ({len(plan.segs)} blocks staged), "
+                f"launches {ran}, cpu-twin check ok (max_abs_err "
+                f"{err:.3e}); warm median of {reps} wall_ms "
+                f"{serve['warm_wall_ms']:.3f} (p10 {p10:.3f}, p90 {p90:.3f})")
+            out["serve"] = serve
+
+        with Phase("durable.quarantine"):
+            ids, _gids, pods, tags = looked
+            win_lo = steps0 - WINDOW
+            win_hi = steps0 + (nsteps - 1) * STEP
+            victim_i = next(i for i, t in enumerate(tags)
+                            if t["pod"] == pods[0] and t["instance"] == "i-0100")
+            part = shard_b.partitions[int(ids[victim_i])]
+            cs = max((c for c in part.chunks if c.info.end_time >= win_lo
+                      and c.info.start_time <= win_hi),
+                     key=lambda c: min(c.info.end_time, win_hi)
+                     - max(c.info.start_time, win_lo))
+            pod0 = [shard_b.index.partkey(int(ids[i]))
+                    for i, t in enumerate(tags) if t["pod"] == pods[0]]
+            rows0 = sum(len(c) for _pk, c in ms_b.store.read_raw_partitions(
+                "prom", 0, pod0, 0, 2**62))
+            victim = FaultInjector(seed).corrupt_stored_chunk(
+                ms_b.store, "prom", 0, partkey=part.partkey,
+                chunk_id=cs.info.chunk_id)
+            if victim != (part.partkey, cs.info.chunk_id):
+                raise AssertionError(f"corrupted {victim}")
+            fails = integrity_metrics()["checksum_failures"]
+            f0 = fails.value(dataset="prom", shard="0")
+            got = dict(ms_b.store.read_raw_partitions("prom", 0, pod0, 0,
+                                                      2**62))
+            rows1 = sum(len(c) for c in got.values())
+            if rows1 != rows0 - 1 or any(
+                    c.info.chunk_id == cs.info.chunk_id
+                    for c in got.get(part.partkey, ())):
+                raise AssertionError(f"read-back kept {rows1} of {rows0} "
+                                     f"rows, the corrupt one among them")
+            detail = integrity.QUARANTINE.items()[-1]
+            if (fails.value(dataset="prom", shard="0") - f0 != 1
+                    or not integrity.QUARANTINE.is_quarantined(
+                        part.partkey, cs.info.chunk_id)
+                    or detail["partkey"] != part.partkey.hex()
+                    or detail["chunk_id"] != cs.info.chunk_id
+                    or "checksum" not in detail["reason"]):
+                raise AssertionError(f"quarantine: {detail}")
+            log(f"corrupted chunk {cs.info.chunk_id} of {tags[victim_i]} "
+                f"(rows {(cs.info.start_time - T0) // STEP}-"
+                f"{(cs.info.end_time - T0) // STEP}, {cs.info.num_rows} rows) "
+                f"on disk: read_raw_partitions over {pods[0]} dropped it "
+                f"({rows1} of {rows0} rows) and reported {detail['reason']!r}; "
+                f"quarantined")
+
+            ev_key = (cache.owner, "integrity_quarantine")
+            ev0 = LEDGER.evictions.get(ev_key, 0)
+            builds0 = cache.builds
+            before = counts()
+            t0 = time.perf_counter()
+            after_g = run_query(shard_b, "grouped", F.RATE, DURABLE_SPAN,
+                                looked)
+            torch.cuda.synchronize()
+            restage = time.perf_counter() - t0
+            after_s = run_query(shard_b, "series", F.RATE, DURABLE_SPAN,
+                                looked)
+            torch.cuda.synchronize()
+            ran2 = {k: v - before[k] for k, v in counts().items()}
+            evicted = LEDGER.evictions.get(ev_key, 0) - ev0
+            if evicted < 1 or cache.builds <= builds0 \
+                    or ran2["rate_grid"] < 2:
+                raise AssertionError(f"the quarantine did not re-stage the "
+                                     f"grid: {evicted} blocks evicted, "
+                                     f"{cache.builds - builds0} built, "
+                                     f"launches {ran2}")
+            plan2 = list(cache._plan_memo.values())[-1]
+            # the victim's steps whose window lies inside the chunk answer
+            # NaN; pod 0 loses it there; every other series and pod keeps
+            # its answer (bit for bit when the plan's mode is unchanged;
+            # the dense contract no longer holds on the victim's lane, so
+            # a phase-mode plan becomes a ts-mode one)
+            ends = steps0 + np.arange(nsteps) * STEP
+            inside = torch.as_tensor((ends - WINDOW >= cs.info.start_time)
+                                     & (ends <= cs.info.end_time))
+            v_after = after_s[1][victim_i].cpu()
+            if not inside.any() or not bool(v_after[inside].isnan().all()):
+                raise AssertionError("the quarantined span is still served")
+            same_mode = grid._mode_for(plan.q, plan.phase) == \
+                grid._mode_for(plan2.q, plan2.phase)
+            keep = torch.ones(len(ids), dtype=torch.bool)
+            keep[victim_i] = False
+            if same_mode:
+                compare_bits(after_s[1][keep], got_s[1][keep],
+                             "per-series rate after the quarantine")
+                compare_bits(after_g["sum"][1:], got_g["sum"][1:],
+                             "other pods' sums after the quarantine")
+            else:
+                compare(after_s[1][keep], got_s[1][keep], "rate",
+                        RTOL_KERNEL)
+                compare(after_g["sum"][1:], got_g["sum"][1:], "sum",
+                        RTOL_KERNEL)
+            dcount = (got_g["count"][0] - after_g["count"][0]).cpu()
+            if not torch.equal(dcount[inside], torch.ones_like(
+                    dcount[inside])):
+                raise AssertionError("pod 0's count did not drop by the "
+                                     "victim inside the chunk's span")
+            compare(after_g["sum"][0][inside.to(device)],
+                    (got_g["sum"][0] - got_s[1][victim_i])[inside.to(device)],
+                    "sum", RTOL_KERNEL)
+            err2 = max(check_query("D2", "grouped", F.RATE, after_g, looked,
+                                   run_query(tshard_b, "grouped", F.RATE,
+                                             DURABLE_SPAN, ref_looked),
+                                   ref_looked, nsteps, device),
+                       check_query("D2:series", "series", F.RATE, after_s,
+                                   looked,
+                                   run_query(tshard_b, "series", F.RATE,
+                                             DURABLE_SPAN, ref_looked),
+                                   ref_looked, nsteps, device))
+            inside_q = run_engine(ms_b, "sum by (pod)(rate(req_total[5m]))",
+                                  DURABLE_SPAN, None)[0]
+            outside_q = run_engine(ms_b, "sum by (pod)(rate(req_total[5m]))",
+                                   (T0 + 130 * STEP, 20), None)[0]
+            n_in = inside_q.stats.corrupt_chunks_excluded
+            n_out = outside_q.stats.corrupt_chunks_excluded
+            if (n_in, n_out) != (1, 0):
+                raise AssertionError(f"corrupt_chunks_excluded {n_in} inside "
+                                     f"the window, {n_out} outside")
+            launched = {k: v for k, v in counts().items()}
+            direct = grid.rate_grid.direct
+            quarantine = {
+                "chunk_id": cs.info.chunk_id, "rows": cs.info.num_rows,
+                "evicted_blocks": evicted, "restage_s": restage,
+                "launches": ran2, "mode_before": grid._mode_for(plan.q,
+                                                                plan.phase),
+                "mode_after": grid._mode_for(plan2.q, plan2.phase),
+                "cpu_check_err": err2,
+                "corrupt_chunks_excluded": [n_in, n_out]}
+            log(f"D2: the next query saw the quarantine epoch: LEDGER "
+                f"integrity_quarantine evicted {evicted} blocks, re-staged in "
+                f"{restage:.3f} s, launches {ran2} ({quarantine['mode_before']}"
+                f" mode -> {quarantine['mode_after']} mode); {pods[0]} leaves "
+                f"the chunk's span out, every other pod "
+                f"{'bit-equal' if same_mode else 'within rtol'}; cpu-twin check "
+                f"ok (max_abs_err {err2:.3e}); engine corrupt_chunks_excluded "
+                f"{n_in} inside the window, {n_out} outside")
+            out["quarantine"] = quarantine
+            if launched["rate_grid"] < 1:
+                raise AssertionError("rate_grid never launched on the "
+                                     "durable path")
+            log(f"durable path launches {launched}, rate_grid on its direct "
+                f"kernel {direct}")
+
+        with Phase("durable.kernels_at_path_shapes"):
+            rows = [plan_kernel_times("D1", plan, reps, flush)[1],
+                    plan_kernel_times("D2", plan2, reps, flush)[1]]
+        out.update(launches=launched, rate_grid_direct=direct, rows=rows)
+    finally:
+        integrity.QUARANTINE.clear()
+        for ms in stores:
+            ms.reset()
+            ms.store.shutdown()
+            ms.meta.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    report["durable"] = out
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3103,10 +3743,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 3
-    from filodb_tpu_torch.ops import kernels
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # the durable phase's stream, encoded beside the build
+    encoding = PodHours(args.seed, REQ_PODS)
+    try:
+        return run_phases(args, device, encoding)
+    finally:
+        encoding.close()
+
+
+def run_phases(args, device, encoding: PodHours) -> int:
+    """Every phase in order; the last two lines on success."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+
     report: dict = {}
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -3144,7 +3796,14 @@ def main() -> int:
                               report)
     with Phase("northstar"):
         northstar = northstar_phase(device, args.seed, REPS, report)
-    entries = kernel_entries(main, engine, northstar, report)
+    # after every other phase: none of them may see its quarantine.  The
+    # earlier stores are garbage by now; collect them first, so that the
+    # durable stores' allocations do not pay for scanning them
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("durable"):
+        durable = durable_phase(device, args.seed, REPS, encoding, report)
+    entries = kernel_entries(main, engine, northstar, durable, report)
     report["kernels"] = entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -3160,11 +3819,12 @@ def main() -> int:
 
 
 def kernel_entries(main: dict, engine: dict, northstar: dict,
-                   report: dict) -> list:
+                   durable: dict, report: dict) -> list:
     """The ``{"kernels": [...]}`` record: each kernel at the input of its
     primary query (rate_grid at Q2, rate_grid_packed at Q1, m4_grid at
     E2, the grouped kernels at the north-star widths), with its launches
-    on the path that runs it."""
+    on the paths that run it (rate_grid's: the main path's and the
+    durable path's)."""
     primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
     replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
                 "rate_grid_packed": "filodb_tpu/ops/grid.py:1086",
@@ -3179,6 +3839,9 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     launches = {**main["launches"],
                 "m4_grid": engine["launches"]["m4_grid"],
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
+    for k, n in durable["launches"].items():
+        launches[k] += n
+    direct = main["rate_grid_direct"] + durable["rate_grid_direct"]
     sweep = (report["kernel_sweep"] + report["b1_sweep"] + report["b3_sweep"]
              + report["grouped_sweep"] + northstar["second_ops"])
     sources = {k: "filodb_tpu_torch/csrc/grid_kernels.cu" for k in replaces}
@@ -3192,12 +3855,14 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     # rate_grid's launches split by kernel: the staged kernel's, and the
     # direct kernel's (grid_kernels.cu) where its plan sends them
     split = {"rate_grid": {
-        "launches_staged": launches["rate_grid"] - main["rate_grid_direct"],
-        "launches_direct": main["rate_grid_direct"],
+        "launches_staged": launches["rate_grid"] - direct,
+        "launches_direct": direct,
         "source_direct": "filodb_tpu_torch/csrc/grid_kernels.cu"}}
     for kname in replaces:
         row = path_rows[kname]
         errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
+        errs += [r["max_abs_err"] for r in durable["rows"]
+                 if r["kernel"] == kname]
         errs += [r["max_abs_err"] for r in sweep if r["kernel"] == kname]
         entries.append({
             "name": kname, "route": "cuda",

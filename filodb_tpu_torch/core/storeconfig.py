@@ -1,5 +1,5 @@
-"""Per-dataset store configuration: the knobs the shard and its device
-grid cache read (reference: core/src/main/scala/filodb.core/store/
+"""Per-dataset store configuration: the knobs the shard, its flush
+scheduler and its device grid cache read (reference: core/src/main/scala/filodb.core/store/
 IngestionConfig.scala:202 and conf/timeseries-dev-source.conf:28-102).
 """
 
@@ -11,6 +11,8 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class StoreConfig:
+    flush_interval_ms: int = 3_600_000        # flush-interval = 1h
+    flush_task_parallelism: int = 2           # flush executor workers
     max_chunks_size: int = 400                # max rows per chunk
     groups_per_shard: int = 60
     # padded batch shapes of the general query path (scan_batch): rows

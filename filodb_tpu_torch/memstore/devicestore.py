@@ -23,6 +23,10 @@ instead of re-uploading host arrays per query:
   ``partition.on_freeze`` to :meth:`DeviceGridCache.note_freeze`); the
   mutable write-buffer tail is served through a tail block rebuilt only
   when new data arrived.
+- A chunk quarantined after its block was staged must stop being
+  served: a new quarantine epoch (``integrity.QUARANTINE.epoch()``)
+  drops every block, and the next query re-stages through the
+  partitions' read path, which skips quarantined chunks.
 
 Grid layout: row ``c`` holds the single sample with ``ts in
 (epoch0+(c-1)*gstep, epoch0+c*gstep]``.  Partitions that break the one-
@@ -50,6 +54,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from filodb_tpu_torch import integrity
 from filodb_tpu_torch.codecs import xorgrid
 from filodb_tpu_torch.ops import aggregate as segops
 from filodb_tpu_torch.ops.grid import (DENSE_ONLY_OPS, PHASE_OPS, TS_FREE_OPS,
@@ -59,6 +64,7 @@ from filodb_tpu_torch.ops.grid import (DENSE_ONLY_OPS, PHASE_OPS, TS_FREE_OPS,
                                        supports_grid, widen_words)
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
 from filodb_tpu_torch.utils.devicewatch import LEDGER
+from filodb_tpu_torch.utils.observability import query_metrics
 
 BLOCK_BUCKETS = 128
 _LANE_PAD = 128
@@ -213,6 +219,38 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
     raise ValueError(f"unsupported grouped op {op}")
 
 
+_HBM_METRIC = None
+
+
+def _hbm_metric():
+    global _HBM_METRIC
+    if _HBM_METRIC is None:
+        _HBM_METRIC = query_metrics()["hbm_read_bytes"]
+    return _HBM_METRIC
+
+
+def _note_hbm(plan: "_GridPlan") -> None:
+    """Account the serving program's device-memory reads by resident
+    format: the filodb_query_hbm_read_bytes_total counter (format label)
+    and the active query's ``ExecContext`` counts, so the format
+    actually serving traffic is observable."""
+    if not (plan.hbm_dense or plan.hbm_comp or plan.hbm_comp_hist):
+        return
+    m = _hbm_metric()
+    if plan.hbm_dense:
+        m.inc(plan.hbm_dense, format="dense")
+    if plan.hbm_comp:
+        m.inc(plan.hbm_comp, format="compressed")
+    if plan.hbm_comp_hist:
+        m.inc(plan.hbm_comp_hist, format="compressed-hist")
+    from filodb_tpu_torch.query.exec import active_exec_ctx
+    ctx = active_exec_ctx()
+    if ctx is not None:
+        ctx.note_counts(hbm_dense=plan.hbm_dense,
+                        hbm_compressed=plan.hbm_comp,
+                        hbm_hist=plan.hbm_comp_hist)
+
+
 class _GridPlan(NamedTuple):
     """Everything needed to run one query program."""
 
@@ -233,6 +271,12 @@ class _GridPlan(NamedTuple):
     packed_row0: int = 0
     packed_use_phase: bool = False
     packed_inv: object = None      # np [ncols] orig lane -> packed pos
+    # logical device bytes the program reads, by resident format
+    # (approximate: whole covered planes); a histogram cache accounts
+    # its packed planes under "compressed-hist"
+    hbm_dense: int = 0
+    hbm_comp: int = 0
+    hbm_comp_hist: int = 0
 
 
 def _concat(parts, decode):
@@ -363,6 +407,11 @@ class DeviceGridCache:
         self.blocks: dict[int, _Block] = {}
         self._tails: dict[int, tuple[int, _Block]] = {}  # bi -> (ver, blk)
         self.version = 0               # bumped on invalidating freezes
+        # quarantine epoch the resident blocks were staged under: a
+        # chunk quarantined after staging must stop being served, so a
+        # changed epoch drops every block for a re-stage through the
+        # (exclusion-applying) partition read path
+        self._quarantine_epoch = -1
         self.disabled_until_version = -1
         self._disable_count = 0        # exponential re-try backoff
         self._preps: dict[int, dict] = {}   # id(part_ids) -> prep
@@ -465,6 +514,7 @@ class DeviceGridCache:
                                      step_ms, window_ms, fargs)
             if plan is None:
                 return None
+            _note_hbm(plan)
             # snapshot under the lock: a concurrent _disable drops them
             hb, tops = self.hb, self.bucket_tops
         # dispatch + readback outside the lock: the plan holds live
@@ -495,6 +545,7 @@ class DeviceGridCache:
                                      step_ms, window_ms, fargs)
             if plan is None:
                 return None
+            _note_hbm(plan)
             stride = self.hb if self.hist else 1
             tops = self.bucket_tops
             slots = num_groups * stride          # the drop slot's index
@@ -615,6 +666,22 @@ class DeviceGridCache:
             return None
         if len(part_ids) == 0:
             return None
+        qepoch = integrity.QUARANTINE.epoch()
+        if qepoch != self._quarantine_epoch:
+            # blocks staged before a quarantine still CONTAIN the
+            # quarantined chunk's rows: serving them would defeat the
+            # exclusion the partition read path applies.  Quarantine is
+            # rare; a full re-stage is the correct price.
+            if self._quarantine_epoch >= 0 and (self.blocks or self._tails):
+                LEDGER.note_eviction(self.owner, "integrity_quarantine",
+                                     n=len(self.blocks) + len(self._tails),
+                                     nbytes=self.bytes_resident)
+                self.blocks.clear()
+                self._tails.clear()
+                self._plan_memo.clear()
+                self._phase_memo.clear()
+                self.version += 1
+            self._quarantine_epoch = qepoch
         # every eligibility check runs before _prep_for assigns lanes:
         # an ineligible query must not widen the lane count
         first = shard.grid_partition(int(part_ids[0]))
@@ -774,12 +841,25 @@ class DeviceGridCache:
             elif phase_dev is not None and op in PHASE_OPS:
                 packed, packed_inv = seg0.vals, seg0.pack_inv
                 packed_phase = True
+        hbm_dense = hbm_comp = 0
+        for part in [b.vals for b in segments] + list(ts_parts):
+            if isinstance(part, dict):
+                # a pack's planes, or a rebuilt ts plane's phase row
+                hbm_comp += sum(t.numel() * t.element_size()
+                                for t in part.values()
+                                if isinstance(t, torch.Tensor))
+            else:
+                hbm_dense += part.numel() * part.element_size()
+        hbm_hist = 0
+        if self.hist:
+            hbm_hist, hbm_comp = hbm_comp, 0
         plan = _GridPlan(ts_parts, tuple(b.vals for b in segments), row0,
                          steps0 - self.epoch0, q, nrows, ncols,
                          prep["lane_idx"], phase_dev, tuple(segments),
                          packed=packed, packed_row0=row0,
                          packed_use_phase=packed_phase,
-                         packed_inv=packed_inv)
+                         packed_inv=packed_inv, hbm_dense=hbm_dense,
+                         hbm_comp=hbm_comp, hbm_comp_hist=hbm_hist)
         if len(self._plan_memo) > 8:
             self._plan_memo.clear()
         self._plan_memo[pkey] = plan

@@ -6,16 +6,20 @@ appends land in pre-allocated write buffers; when full (or at flush
 boundaries) ``switch_buffers`` freezes them into a compressed ``ChunkSet``
 (the encodeOneChunkset step, :203-249); out-of-order samples are dropped
 (:131-134).  Queries read through ``read_range`` which serves decoded dense
-arrays — the device-facing form.
+arrays — the device-facing form — and skips quarantined chunks: a chunk
+that fails its decode is reported through the integrity funnel
+(``filodb_tpu_torch.integrity``) and the rest is served.
 """
 
 from __future__ import annotations
 
+import struct
 import threading
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from filodb_tpu_torch import integrity
 from filodb_tpu_torch.codecs import histcodec
 from filodb_tpu_torch.core.chunk import ChunkSet, decode_chunkset, encode_chunkset
 from filodb_tpu_torch.core.histogram import HistogramBuckets
@@ -42,7 +46,7 @@ class TimeSeriesPartition:
                  "chunks", "_decoded", "_buf_ts", "_buf_cols", "_buf_n",
                  "_capacity", "_hist_buckets", "_seq", "_unflushed",
                  "_pending", "_lock", "_encode_lock",
-                 "out_of_order_dropped", "on_freeze")
+                 "out_of_order_dropped", "on_freeze", "on_corrupt")
 
     def __init__(self, part_id: int, schema: Schema, partkey: bytes,
                  tags: dict[str, str], group: int, capacity: int = 400):
@@ -76,6 +80,9 @@ class TimeSeriesPartition:
         self.out_of_order_dropped = 0
         # shard hook observing chunk freezes (device grid invalidation)
         self.on_freeze = None
+        # shard hook observing detected corrupt chunks (per-shard stats
+        # and grid-plan invalidation); called after the integrity funnel
+        self.on_corrupt = None
 
     def _new_col_buffer(self, ctype: ColumnType):
         if ctype == ColumnType.DOUBLE:
@@ -323,9 +330,25 @@ class TimeSeriesPartition:
     def _decoded_chunk(self, cs: ChunkSet) -> tuple:
         got = self._decoded.get(cs.info.chunk_id)
         if got is None:
-            got = decode_chunkset(self.schema, cs)
+            try:
+                got = decode_chunkset(self.schema, cs)
+            except integrity.CorruptVectorError:
+                raise
+            except (ValueError, IndexError, struct.error) as e:
+                # every native/numpy decode -1 sentinel surfaces here as
+                # ValueError (IndexError/struct.error for truncated
+                # frames): re-raise STRUCTURED, with part-key, chunk id,
+                # the failing codec and a bounded hexdump window
+                raise integrity.corrupt_chunk_error(cs, e) from e
             self._decoded[cs.info.chunk_id] = got
         return got
+
+    def _note_corrupt(self, err: "integrity.CorruptVectorError") -> None:
+        """Funnel a detected corrupt chunk: quarantine + counters (once
+        per chunk), then the shard hook for per-shard stats."""
+        new = integrity.report_corrupt(err)
+        if self.on_corrupt is not None:
+            self.on_corrupt(err, new)
 
     def read_range(self, start: int, end: int, column_id: Optional[int] = None):
         """All samples with start <= ts <= end as dense arrays.
@@ -349,12 +372,29 @@ class TimeSeriesPartition:
             buf_cols = self._buf_cols
             buf_hist = self._hist_buckets
         ts_parts, val_parts = [], []
+        # quarantined chunks are excluded from serving: the scan returns
+        # partial data (counted upstream), never values that failed a
+        # checksum or decode
+        q_ids = integrity.QUARANTINE.chunk_ids(self.partkey) \
+            if integrity.QUARANTINE else ()
         for cs in chunks_snap:
             if cs.info.end_time < start or cs.info.start_time > end:
                 continue
-            ts, cols = self._decoded_chunk(cs)
+            if q_ids and cs.info.chunk_id in q_ids:
+                continue
+            try:
+                ts, cols = self._decoded_chunk(cs)
+                vals = cols[col_idx]   # truncated frame: missing column
+            except integrity.CorruptVectorError as err:
+                self._note_corrupt(err)   # quarantine + count, serve rest
+                continue
+            except IndexError:
+                self._note_corrupt(integrity.corrupt_chunk_error(
+                    cs, f"column {col_idx + 1} missing from decoded "
+                        f"chunk"))
+                continue
             ts_parts.append(ts)
-            val_parts.append(cols[col_idx])
+            val_parts.append(vals)
         for pb in pending_snap:
             if int(pb.ts[-1]) < start or int(pb.ts[0]) > end:
                 continue

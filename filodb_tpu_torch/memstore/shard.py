@@ -9,26 +9,35 @@ serves:
   (:1441-1488)
 - flush groups: hash(partKey) % groups_per_shard with per-group recovery
   watermarks (:155-157, :488-522); the flush pipeline freezes buffers,
-  writes chunks and dirty partkeys, then checkpoints (:884-974)
+  writes chunks and dirty partkeys, then checkpoints (:884-974), on the
+  ingest thread (``flush_all``) or pipelined through a
+  :class:`~filodb_tpu_torch.memstore.flush.FlushScheduler` that watches
+  ``latest_ingest_ts`` (:804-846)
+- integrity: partitions report corrupt chunks through
+  :meth:`note_corrupt_chunk`; the shard registers itself so the column
+  store's read-back detections reach it too
 - the device-grid scan surface ``scan_grid`` / ``scan_grid_grouped``,
   served from :class:`~filodb_tpu_torch.memstore.devicestore.DeviceGridCache`
 - ``scan_batch``: padded host batches for the general query path (every
   query the grid does not serve)
 
 Single-writer discipline: ``ingest`` must be called from one thread per
-shard.  The shard's grid lives on ``device`` (CUDA unless the caller
-asks for the CPU).
+shard; flush tasks run on the scheduler's executor threads.  The shard's
+grid lives on ``device`` (CUDA unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
+import torch
 
+from filodb_tpu_torch import integrity
 from filodb_tpu_torch.core.chunk import ChunkBatch, build_batch
 from filodb_tpu_torch.core.filters import ColumnFilter
 from filodb_tpu_torch.core.record import (IngestRecord, decode_container,
@@ -43,6 +52,18 @@ from filodb_tpu_torch.native import ingestfast
 from filodb_tpu_torch.store.columnstore import (ColumnStore, NullColumnStore,
                                                 PartKeyRecord)
 from filodb_tpu_torch.store.metastore import InMemoryMetaStore, MetaStore
+from filodb_tpu_torch.utils.devicewatch import FLIGHT
+from filodb_tpu_torch.utils.observability import TRACER, flush_metrics
+
+_FLUSH_METRICS = None
+
+
+def _flush_m() -> dict:
+    """The filodb_flush_* metric objects, resolved once per process."""
+    global _FLUSH_METRICS
+    if _FLUSH_METRICS is None:
+        _FLUSH_METRICS = flush_metrics()
+    return _FLUSH_METRICS
 
 
 @dataclasses.dataclass
@@ -59,7 +80,7 @@ class PartLookupResult:
 
 @dataclasses.dataclass
 class FlushTask:
-    """Snapshot handed from the ingest thread to the flush step
+    """Snapshot handed from the ingest thread to the flush executor
     (reference: FlushGroup, TimeSeriesShard.scala:110-160)."""
 
     group: int
@@ -79,6 +100,11 @@ class ShardStats:
     partitions_created: int = 0
     chunks_flushed: int = 0
     flushes_done: int = 0
+    # integrity subsystem: decode/checksum corruption detected while
+    # serving this shard, and how many of those chunks entered
+    # quarantine here
+    chunks_corrupt: int = 0
+    chunks_quarantined: int = 0
 
 
 class TimeSeriesShard:
@@ -96,11 +122,19 @@ class TimeSeriesShard:
         self.meta = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()
         self._lookup_cache: dict = {}
-        # bumped whenever a partition leaves the in-memory map: lets the
-        # grid cache skip re-validating every requested pid per query
+        # bumped whenever a partition leaves the in-memory map or a chunk
+        # is quarantined: lets the grid cache skip re-validating every
+        # requested pid per query
         self.removal_epoch = 0
+        # serializes removal_epoch bumps: corruption reports arrive from
+        # query threads as well as the ingest thread; a lost
+        # read-modify-write would leave stale grid preps "current"
+        self._epoch_lock = threading.Lock()
         self.partitions: dict[int, TimeSeriesPartition] = {}
         self.part_set: dict[bytes, int] = {}
+        # part id -> 16-bit schema hash; covers index-only (recovered)
+        # entries, which have no partition object yet
+        self.part_schema_hash: dict[int, int] = {}
         self._next_part_id = 0
         self.num_groups = self.config.groups_per_shard
         # per-group recovery watermarks: records at offset <= watermark
@@ -109,12 +143,35 @@ class TimeSeriesShard:
         self._dirty_partkeys: list[set[int]] = [set() for _ in range(self.num_groups)]
         self._dirty_lock = threading.Lock()
         self.latest_offset = -1
+        # newest sample timestamp seen: drives time-boundary flush
+        # scheduling (reference: createFlushTasks time boundaries :804-846)
+        self.latest_ingest_ts = -1
         self.stats = ShardStats()
+        # set when a bookkeeping invariant broke: the shard FAILS further
+        # scans rather than serve stale buffers (the reference kills the
+        # process on its reclaim meta check)
+        self.integrity_failed: Optional[str] = None
+        # store-level corruption detections route back here by identity
+        integrity.register_shard(self)
+        # the FlushScheduler currently driving this shard (set by
+        # TimeSeriesMemStore.ingest_stream, or by a caller running one)
+        self.flush_scheduler = None
         # device-resident grids, one per (schema, value column)
         self.device_caches: dict = {}
         # bumped whenever new rows or chunks could change query results
         # (the grid caches' tail version)
         self.ingest_epoch = 0
+
+    def close(self) -> None:
+        """Release what this shard holds beyond its own objects: a flush
+        scheduler still attached is closed without flushing (its
+        executor threads and sampled gauges go; what is persisted is
+        the caller's choice, made before close).  The integrity hook is
+        a weak reference and needs no unwinding."""
+        sched = self.flush_scheduler
+        if sched is not None:
+            self.flush_scheduler = None
+            sched.close(flush_remaining=False)
 
     # ------------------------------------------------------------------ ingest
 
@@ -174,6 +231,9 @@ class TimeSeriesShard:
                 self.index.mark_active(part.part_id)
             with self._dirty_lock:
                 self._dirty_partkeys[int(groups_r[first])].add(part.part_id)
+        if len(ts):
+            self.latest_ingest_ts = max(self.latest_ingest_ts,
+                                        int(ts.max()))
         self.latest_offset = max(self.latest_offset, offset)
         if added_total:
             self.ingest_epoch += 1
@@ -240,6 +300,8 @@ class TimeSeriesShard:
                 self.index.mark_active(part.part_id)
             with self._dirty_lock:
                 self._dirty_partkeys[group].add(part.part_id)
+            if rec.timestamp > self.latest_ingest_ts:
+                self.latest_ingest_ts = rec.timestamp
         self.latest_offset = max(self.latest_offset, offset)
         if n:
             self.ingest_epoch += 1
@@ -253,7 +315,20 @@ class TimeSeriesShard:
         TimeSeriesShard.scala:1091)."""
         pid = self.part_set.get(pk)
         if pid is not None:
-            return self.partitions[pid]
+            part = self.partitions.get(pid)
+            if part is not None:
+                return part
+            # index-only entry (recovered): materialize the partition
+            # under its existing part id, keeping the index lifecycle
+            rtags = tags if tags is not None else parse_partkey(pk)
+            part = TimeSeriesPartition(pid, schema, pk, rtags,
+                                       part_hash % self.num_groups,
+                                       capacity=self.config.max_chunks_size)
+            part.on_freeze = self._on_chunk_freeze
+            part.on_corrupt = self.note_corrupt_chunk
+            self.partitions[pid] = part
+            self.index.mark_active(pid)
+            return part
         if tags is None:
             tags = parse_partkey(pk)
         pid = self._next_part_id
@@ -262,8 +337,10 @@ class TimeSeriesShard:
                                    part_hash % self.num_groups,
                                    capacity=self.config.max_chunks_size)
         part.on_freeze = self._on_chunk_freeze
+        part.on_corrupt = self.note_corrupt_chunk
         self.partitions[pid] = part
         self.part_set[pk] = pid
+        self.part_schema_hash[pid] = schema.schema_hash
         self.index.add_partkey(pid, pk, tags, timestamp)
         self.stats.partitions_created += 1
         return part
@@ -273,8 +350,12 @@ class TimeSeriesShard:
     def prepare_flush_group(self, group: int,
                             ingestion_time: Optional[int] = None
                             ) -> FlushTask:
-        """Ingest-thread half of a flush: buffer detaches plus state
-        snapshots (reference: prepareFlushGroup, :756-774)."""
+        """Ingest-thread half of a pipelined flush: O(partitions-in-group)
+        buffer detaches plus state snapshots; no encoding, no IO
+        (reference: prepareFlushGroup, :756-774).  The returned task runs
+        on a flush executor via :meth:`run_flush_task`; tasks for the
+        SAME group must run in submission order (the scheduler chains
+        them)."""
         itime = ingestion_time if ingestion_time is not None \
             else int(time.time() * 1000)
         parts = [p for p in self.partitions.values() if p.group == group]
@@ -287,10 +368,33 @@ class TimeSeriesShard:
                          offset=self.latest_offset, ingestion_time=itime)
 
     def run_flush_task(self, task: FlushTask) -> int:
-        """Encode pending buffers, write chunks and dirty partkeys, then
-        checkpoint (doFlushSteps, reference :884-974).  Returns chunksets
-        written.  On failure the chunks and dirty partkeys are re-queued
-        for a later flush."""
+        """Flush-executor half: encode pending buffers (frozen at prepare
+        time — never the live write buffer), write chunks and dirty
+        partkeys, then checkpoint (doFlushSteps, reference :884-974).
+        Returns chunksets written.  On failure the chunks and dirty
+        partkeys are re-queued for a later flush.  One
+        ``memstore.flush`` span and the filodb_flush_* metrics a task
+        (reference: Kamon spans around flush, :888-891); failures count
+        before re-raising."""
+        m = _flush_m()
+        t0 = time.perf_counter()
+        try:
+            with TRACER.span("memstore.flush", dataset=self.dataset,
+                             shard=self.shard_num, group=task.group):
+                n = self._run_flush_task(task)
+        except BaseException:
+            m["failures"].inc(dataset=self.dataset)
+            raise
+        finally:
+            m["flush_seconds"].observe(time.perf_counter() - t0,
+                                       dataset=self.dataset)
+        m["chunks"].inc(n, dataset=self.dataset)
+        FLIGHT.record("flush", dataset=self.dataset, shard=self.shard_num,
+                      group=task.group, chunks=n,
+                      seconds=round(time.perf_counter() - t0, 6))
+        return n
+
+    def _run_flush_task(self, task: FlushTask) -> int:
         collected: list[tuple] = []
         try:
             chunksets = []
@@ -323,11 +427,15 @@ class TimeSeriesShard:
             self.group_watermarks[task.group], task.offset)
         self.stats.chunks_flushed += len(chunksets)
         self.stats.flushes_done += 1
-        # proactive device-memory reclaim off the query path
+        # proactive device-memory reclaim off the query path.  Flush tasks
+        # run on executor threads, and torch's current device is per
+        # thread: name the store's device for what the reclaim frees
         frac = self.config.device_headroom_frac
-        if frac > 0:
-            for cache in list(self.device_caches.values()):
-                cache.ensure_headroom(frac)
+        if frac > 0 and self.device_caches:
+            with torch.cuda.device(self.device) \
+                    if self.device.type == "cuda" else _NO_DEVICE:
+                for cache in list(self.device_caches.values()):
+                    cache.ensure_headroom(frac)
         return len(chunksets)
 
     def flush_group(self, group: int,
@@ -339,6 +447,34 @@ class TimeSeriesShard:
     def flush_all(self, ingestion_time: Optional[int] = None) -> int:
         return sum(self.flush_group(g, ingestion_time)
                    for g in range(self.num_groups))
+
+    # ------------------------------------------------------------- integrity
+
+    def bump_removal_epoch(self) -> None:
+        """Atomic removal-epoch increment; see ``_epoch_lock``."""
+        with self._epoch_lock:
+            self.removal_epoch += 1
+
+    def note_corrupt_chunk(self, err, newly_quarantined: bool) -> None:
+        """Partition/store hook: a chunk of this shard failed checksum
+        or decode (already quarantined + logged by the integrity
+        funnel); keep the per-shard tally."""
+        self.stats.chunks_corrupt += 1
+        if newly_quarantined:
+            self.stats.chunks_quarantined += 1
+            # grid preps and plans staged from this chunk must
+            # revalidate; the caches drop their blocks on the quarantine
+            # epoch, so the device path excludes the chunk exactly like
+            # the host path's read_range does
+            self.bump_removal_epoch()
+
+    def _check_integrity(self) -> None:
+        """Hard tripwire: once bookkeeping is known broken, refuse to
+        serve (stale buffers are worse than errors)."""
+        if self.integrity_failed is not None:
+            raise integrity.IntegrityInvariantError(
+                f"shard {self.shard_num} failed integrity: "
+                f"{self.integrity_failed}")
 
     # ------------------------------------------------------------------ query
 
@@ -469,6 +605,7 @@ class TimeSeriesShard:
         dicts: the general query path's input, for every query the
         device grid does not serve (reference: scanPartitions /
         RawDataRangeVector iteration :1490, SelectRawPartitionsExec)."""
+        self._check_integrity()
         tags_list, ts_list, val_list = [], [], []
         hist = None  # locked by the first partition: one value type per batch
         bucket_tops = None
@@ -523,6 +660,9 @@ class TimeSeriesShard:
     @property
     def num_partitions(self) -> int:
         return len(self.partitions)
+
+
+_NO_DEVICE = contextlib.nullcontext()
 
 
 def _round_up(n: int, to: int) -> int:

@@ -4,7 +4,8 @@
 ``filodb_tpu_torch/_build/`` directory.  :func:`enable` installs the fast
 paths into the pure-Python codec modules' ``_native`` hooks; without a
 compiler the numpy codecs keep working (host code only — nothing here
-touches the GPU).
+touches the GPU).  :func:`crc32c` and :func:`crc32c_verify` are the
+chunk checksums of the integrity layer.
 """
 
 from __future__ import annotations
@@ -88,6 +89,14 @@ def _bind(lib):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    # c_char_p: bytes pass zero-copy with no numpy wrapper
+    lib.crc32c_buf.restype = ctypes.c_uint32
+    lib.crc32c_buf.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                               ctypes.c_uint32]
+    lib.crc32c_verify_batch.restype = ctypes.c_longlong
+    lib.crc32c_verify_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -194,6 +203,37 @@ def _encode_batch(fn, arrays, dtype) -> list[bytes]:
         raise ValueError("native batch encode overflow")
     buf = out[:total].tobytes()
     return [buf[offs[i]:offs[i + 1]] for i in range(nvec)]
+
+
+def crc32c(buf, seed: int = 0) -> "int | None":
+    """CRC32C of a buffer via the C kernel, or None when the library is
+    unavailable (the integrity layer then uses its bit-identical Python
+    version).  Independent of :func:`enable`: checksums must not change
+    value because the codec hooks were toggled."""
+    lib = _load()
+    if lib is None:
+        return None
+    if not isinstance(buf, bytes):
+        buf = bytes(buf)
+    return int(lib.crc32c_buf(buf, len(buf), seed & 0xFFFFFFFF))
+
+
+def crc32c_verify(blobs, expected) -> "tuple[int, np.ndarray] | None":
+    """Batch CRC32C verify: one C call over a pointer array of blobs
+    against the per-blob expected checksums (``integrity.chunk_crc``'s
+    never-zero mapping applied).  Returns (mismatch count, ok bool
+    array), or None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(blobs)
+    ptrs = (ctypes.c_char_p * n)(*blobs)
+    lens = np.array(list(map(len, blobs)), dtype=np.int64)
+    exp = np.ascontiguousarray(expected, dtype=np.uint32)
+    ok = np.empty(max(n, 1), dtype=np.uint8)
+    bad = lib.crc32c_verify_batch(ptrs, lens.ctypes.data, n,
+                                  exp.ctypes.data, ok.ctypes.data)
+    return int(bad), ok[:n].astype(bool)
 
 
 def enable() -> bool:

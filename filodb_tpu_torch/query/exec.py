@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from filodb_tpu_torch import integrity
 from filodb_tpu_torch.core.filters import ColumnFilter
 from filodb_tpu_torch.ops import instant as instant_ops
 from filodb_tpu_torch.ops.windows import StepRange, value_dtype
@@ -69,6 +70,10 @@ class ExecContext:
     query_context: QueryContext = dataclasses.field(
         default_factory=QueryContext)
     parallelism: int = 8
+    # quarantined-chunk exclusions noted by leaf scans anywhere in the
+    # plan tree (children run concurrently but share this ctx); the root
+    # folds the total into QueryStats for the partial-data warning
+    _corrupt_excluded: int = 0
     # per-stage wall time and scan volume, noted by leaves and the
     # DownsampleMapper anywhere in the tree (children share this ctx);
     # the root folds the totals into its QueryResult's stats
@@ -76,6 +81,13 @@ class ExecContext:
     _counters: dict = dataclasses.field(default_factory=dict, repr=False)
     _lock: object = dataclasses.field(default_factory=threading.Lock,
                                       repr=False)
+
+    def note_corrupt_excluded(self, n: int) -> None:
+        with self._lock:
+            self._corrupt_excluded += n
+
+    def corrupt_excluded(self) -> int:
+        return self._corrupt_excluded
 
     def note_timing(self, stage: str, seconds: float) -> None:
         with self._lock:
@@ -87,8 +99,11 @@ class ExecContext:
                 if v:
                     self._counters[k] = self._counters.get(k, 0) + v
 
-    def note_counts(self, samples: int = 0, bytes_: int = 0) -> None:
-        self._add(samples=samples, bytes=bytes_)
+    def note_counts(self, samples: int = 0, bytes_: int = 0,
+                    hbm_dense: int = 0, hbm_compressed: int = 0,
+                    hbm_hist: int = 0) -> None:
+        self._add(samples=samples, bytes=bytes_, hbm_dense=hbm_dense,
+                  hbm_compressed=hbm_compressed, hbm_hist=hbm_hist)
 
     def note_downsample(self, points_in: int = 0,
                         points_out: int = 0) -> None:
@@ -106,6 +121,11 @@ class ExecContext:
             stats.bytes_scanned = c.get("bytes", 0)
             stats.downsample_points_in = c.get("ds_in", 0)
             stats.downsample_points_out = c.get("ds_out", 0)
+            stats.hbm_read_bytes = {
+                k: c[ck] for k, ck in (("dense", "hbm_dense"),
+                                       ("compressed", "hbm_compressed"),
+                                       ("compressed-hist", "hbm_hist"))
+                if c.get(ck)}
 
 
 class PlanDispatcher:
@@ -161,6 +181,10 @@ class ExecPlan:
                 stats = QueryStats()
                 for b in batches:
                     stats.series_scanned += getattr(b, "num_series", 0)
+                # quarantined-chunk exclusions accumulate on the shared
+                # ctx; the outermost plan returns last, so its result
+                # carries the whole tree's total
+                stats.corrupt_chunks_excluded = ctx.corrupt_excluded()
                 ctx.fold_into(stats)
                 return QueryResult(self.query_context.query_id, batches,
                                    stats)
@@ -251,9 +275,14 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             shard = ctx.memstore.get_shard(self.dataset, self.shard)
             lookup = shard.lookup_partitions(self.filters, self.start_ms,
                                              self.end_ms)
-            batches = self._do_scan(shard, lookup)
-            self._note_batch_counts(ctx, batches)
-            return batches
+            try:
+                batches = self._do_scan(shard, lookup)
+                self._note_batch_counts(ctx, batches)
+                return batches
+            finally:
+                # AFTER the scan, so corruption detected by this very
+                # query already counts toward its own partial-data count
+                self._note_quarantined(ctx, shard, lookup.part_ids)
         finally:
             _ACTIVE.ctx = prev
             ctx.note_timing("scan", time.perf_counter() - t0)
@@ -305,6 +334,26 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         tags, batch = shard.scan_batch(lookup.part_ids, self.start_ms,
                                        self.end_ms, column_id)
         return [RawBatch(tags, batch)]
+
+    def _note_quarantined(self, ctx: ExecContext, shard, part_ids) -> None:
+        """Partial-data tripwire: quarantined chunks among the scanned
+        series AND overlapping this query's time range mean the result
+        excludes data — now and on every re-query (quarantine persists
+        until cleared).  A corrupt chunk outside the window excluded
+        nothing from THIS result, so it must not count.  O(1) when the
+        quarantine is empty, the common case."""
+        if not integrity.QUARANTINE:
+            return
+        pks = []
+        for pid in part_ids:
+            try:
+                pks.append(shard.index.partkey(int(pid)))
+            except KeyError:
+                continue
+        n = integrity.QUARANTINE.count_overlapping(pks, self.start_ms,
+                                                   self.end_ms)
+        if n:
+            ctx.note_corrupt_excluded(n)
 
     # -- downsample-gauge & hist-max schema rewrites ------------------------
 

@@ -79,6 +79,12 @@ class QueryStats:
     # pixel-exact points kept (0/0 = not requested)
     downsample_points_in: int = 0
     downsample_points_out: int = 0
+    # quarantined (corrupt) chunks overlapping the scanned series and
+    # window: the result is PARTIAL (filodb_tpu_torch.integrity)
+    corrupt_chunks_excluded: int = 0
+    # device-grid bytes read serving the query, by resident format
+    # (keys "dense", "compressed", "compressed-hist")
+    hbm_read_bytes: dict = dataclasses.field(default_factory=dict)
 
 
 class QueryError(Exception):

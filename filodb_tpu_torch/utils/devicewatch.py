@@ -7,12 +7,14 @@ flight recorder.
   tensor gives its bytes back when PyTorch frees it, so the totals always
   equal the bytes of the live tracked tensors.
 - :data:`FLIGHT` is a bounded ring of recent structured events (evictions,
-  flushes) for postmortems.
+  flushes, integrity failures) for postmortems; ``dump_to_log`` writes
+  its tail to the log when a shard fails its integrity check.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import threading
 import time
 import weakref
@@ -20,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+_LOG = logging.getLogger("filodb.devicewatch")
 
 
 class HbmLedger:
@@ -66,7 +70,8 @@ class HbmLedger:
     def note_eviction(self, owner: str, reason: str, n: int = 1,
                       nbytes: int = 0) -> None:
         """Attribute an eviction: ``budget_overflow`` (arena over its
-        byte budget) or ``epoch_purge`` (data changed)."""
+        byte budget), ``epoch_purge`` (data changed) or
+        ``integrity_quarantine`` (a chunk was quarantined)."""
         with self._lock:
             self.evictions[(owner, reason)] = \
                 self.evictions.get((owner, reason), 0) + n
@@ -108,6 +113,22 @@ class FlightRecorder:
             rows = rows[-int(limit):]
         return [{"t_s": t, "seq": seq, "kind": k, **fields}
                 for t, seq, k, fields in rows]
+
+    def dump_to_log(self, reason: str, limit: int = 200) -> None:
+        """Write the recent event tail to the log (an integrity failure
+        fails the shard: the events before it are the postmortem)."""
+        try:
+            events = self.events(limit=limit)
+            lines = [f"flight recorder dump ({reason}): "
+                     f"{len(events)} recent events"]
+            for ev in events:
+                fields = " ".join(f"{k}={v}" for k, v in ev.items()
+                                  if k not in ("t_s", "seq", "kind"))
+                lines.append(f"  [{ev['t_s']:.3f}] #{ev['seq']} "
+                             f"{ev['kind']} {fields}")
+            _LOG.error("%s", "\n".join(lines))
+        except Exception:  # noqa: BLE001 — the black box must never throw
+            pass
 
 
 LEDGER = HbmLedger()

@@ -4,13 +4,16 @@ reports into.
 Capability match for the reference's Kamon-based instrumentation
 (reference: coordinator/.../KamonLogger.scala:146 metric/span log
 reporters; Kamon.spanBuilder in ExecPlan.execute ExecPlan.scala:99-126).
-This package keeps the part its query path calls: named counters in a
-process-wide registry (``downsample_metrics``) and a thread-local span
-stack with pluggable reporters (:data:`TRACER`).  Everything is stdlib.
+This package keeps the part its query, flush and integrity paths call:
+counters, gauges and histograms in a process-wide registry
+(``downsample_metrics``, ``integrity_metrics``, ``query_metrics``,
+``flush_metrics``) and a thread-local span stack with pluggable
+reporters (:data:`TRACER`).  Everything is stdlib.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -18,11 +21,13 @@ import random
 import threading
 import time
 import traceback
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 # ---------------------------------------------------------------------------
 # Metrics
 # ---------------------------------------------------------------------------
+
+_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0)
 
 
 class Counter:
@@ -40,18 +45,97 @@ class Counter:
         return self._values.get(tuple(sorted(labels.items())), 0.0)
 
 
+class Gauge:
+    def __init__(self, name: str, help_: str = ""):
+        self.name, self.help = name, help_
+        self._values: dict[tuple, float] = {}
+        self._fns: dict[tuple, Callable[[], float]] = {}
+        self._lock = threading.Lock()
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._values[tuple(sorted(labels.items()))] = value
+
+    def set_fn(self, fn: Callable[[], float], **labels) -> None:
+        """Lazily-sampled gauge (e.g. a queue depth at read time)."""
+        with self._lock:
+            self._fns[tuple(sorted(labels.items()))] = fn
+
+    def value(self, **labels) -> float:
+        key = tuple(sorted(labels.items()))
+        if key in self._fns:
+            return float(self._fns[key]())
+        return self._values.get(key, 0.0)
+
+    def remove(self, **labels) -> None:
+        """Drop one label set (both value and set_fn).  Components that
+        register bound-method callbacks must call this on shutdown or
+        the registry keeps them (and everything they capture) alive."""
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            self._fns.pop(key, None)
+            self._values.pop(key, None)
+
+
+class Histogram:
+    """Cumulative-bucket histogram (seconds by convention)."""
+
+    def __init__(self, name: str, help_: str = "",
+                 buckets: Sequence[float] = _BUCKETS):
+        self.name, self.help = name, help_
+        self.buckets = tuple(sorted(buckets))
+        # per-bucket raw counts (one extra slot for > last bucket):
+        # observe() does one bisect and one increment
+        self._counts: dict[tuple, list[int]] = {}
+        self._sums: dict[tuple, float] = collections.defaultdict(float)
+        self._totals: dict[tuple, int] = collections.defaultdict(int)
+        self._lock = threading.Lock()
+
+    def observe(self, value: float, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        i = bisect.bisect_left(self.buckets, value)
+        with self._lock:
+            counts = self._counts.get(key)
+            if counts is None:
+                counts = self._counts[key] = [0] * (len(self.buckets) + 1)
+            counts[i] += 1
+            self._sums[key] += value
+            self._totals[key] += 1
+
+    def counts(self, **labels) -> list[int]:
+        """Raw (non-cumulative) counts of one label set, the overflow
+        slot last."""
+        with self._lock:
+            got = self._counts.get(tuple(sorted(labels.items())))
+            return list(got) if got else [0] * (len(self.buckets) + 1)
+
+
 class MetricsRegistry:
-    """Process-wide named counters (replaces Kamon's metric registry)."""
+    """Process-wide named metrics (replaces Kamon's metric registry)."""
 
     def __init__(self) -> None:
-        self._metrics: dict[str, Counter] = {}
+        self._metrics: dict[str, object] = {}
         self._lock = threading.Lock()
 
     def counter(self, name: str, help_: str = "") -> Counter:
+        return self._get(name, lambda: Counter(name, help_), Counter)
+
+    def gauge(self, name: str, help_: str = "") -> Gauge:
+        return self._get(name, lambda: Gauge(name, help_), Gauge)
+
+    def histogram(self, name: str, help_: str = "",
+                  buckets: Sequence[float] = _BUCKETS) -> Histogram:
+        return self._get(name, lambda: Histogram(name, help_, buckets),
+                         Histogram)
+
+    def _get(self, name, ctor, cls):
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = Counter(name, help_)
+                m = self._metrics[name] = ctor()
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name} already registered as "
+                                f"{type(m).__name__}")
             return m
 
 
@@ -68,6 +152,63 @@ def downsample_metrics() -> dict:
         "points_out": REGISTRY.counter(
             "filodb_downsample_points_out_total",
             "pixel-exact samples kept (<= 4 per pixel bin per series)"),
+    }
+
+
+def integrity_metrics() -> dict:
+    """Integrity counters (``filodb_tpu_torch.integrity``): one place
+    defines the metric names.  Labels: ``dataset``/``shard`` when the
+    detection site knows them."""
+    return {
+        "checksum_failures": REGISTRY.counter(
+            "filodb_integrity_checksum_failures_total",
+            "chunk blobs whose stored CRC32C did not match on read-back"),
+        "decode_failures": REGISTRY.counter(
+            "filodb_integrity_decode_failures_total",
+            "chunk vectors whose native/numpy decode hit a -1 sentinel"),
+        "chunks_verified": REGISTRY.counter(
+            "filodb_integrity_chunks_verified_total",
+            "chunk blobs checksum-verified on read-back"),
+        "chunks_quarantined": REGISTRY.gauge(
+            "filodb_integrity_quarantined_chunks",
+            "chunks currently excluded from serving by the quarantine"),
+        "invariant_failures": REGISTRY.counter(
+            "filodb_integrity_invariant_failures_total",
+            "eviction/reclaim bookkeeping invariant violations"),
+        "partial_queries": REGISTRY.counter(
+            "filodb_integrity_partial_query_results_total",
+            "queries answered with a partial-data warning"),
+    }
+
+
+def query_metrics() -> dict:
+    """Query-path metrics: the device grid's bytes read."""
+    return {
+        "hbm_read_bytes": REGISTRY.counter(
+            "filodb_query_hbm_read_bytes_total",
+            "device-grid bytes read serving queries, by resident "
+            "format (label format=dense|compressed|compressed-hist)"),
+    }
+
+
+def flush_metrics() -> dict:
+    """Memstore-flush metrics."""
+    return {
+        "flush_seconds": REGISTRY.histogram(
+            "filodb_flush_seconds",
+            "run_flush_task latency (encode + IO + checkpoint)"),
+        "chunks": REGISTRY.counter(
+            "filodb_flush_chunks_total", "chunksets written by flushes"),
+        "failures": REGISTRY.counter(
+            "filodb_flush_failures_total",
+            "flush tasks that raised (work requeued)"),
+        "queue_depth": REGISTRY.gauge(
+            "filodb_flush_queue_depth",
+            "flush tasks submitted but not yet completed, per shard"),
+        "last_age": REGISTRY.gauge(
+            "filodb_flush_last_age_seconds",
+            "seconds since the most recent completed flush on any group "
+            "of the shard (since scheduler start when none completed)"),
     }
 
 
