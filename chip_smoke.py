@@ -91,7 +91,7 @@ Phases, each timed on a line of its own:
    rate_grid launch on the direct kernel only where its plan stages
    nothing); each
    query's rows for the first 8 pods are held against a CPU store that ingests
-   only those pods of the counters and every pod of ``lat`` (rtol 1e-5;
+   only those pods, of the counters and of ``lat`` (rtol 1e-5;
    deriv, idelta and zscore, which cross 0, of each series' largest
    answer); each hist query is served by the hist cache (its hits rise);
    warm runs build no block; one warm run of Q1-Q4, Q7 and Q8 is profiled
@@ -115,9 +115,11 @@ Phases, each timed on a line of its own:
      E6 predict_linear(req_total[5m], 600) -> rate_grid;
      E7 histogram_quantile(0.99, sum(rate(lat[5m]))) -> the packed kernel
         over the hist cache, the 16-slot bucket-wise sum on the card; its
-        bucket sums within 1e-5 of the CPU store's (all 64,000 series),
-        each quantile within the bound that 1e-5 on the buckets gives it;
-   each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
+        bucket sums (all 64,000 series) within 1e-5 of the plain
+        reference the encoding workers compute (the general path's rate
+        over each pod's own counts, summed), each quantile within the
+        bound that 1e-5 on the buckets gives it;
+   E1-E6 each against the CPU store's engine answer (rtol 1e-5, E4 2e-4; NaN
    and selected positions equal), cold and warm wall ms; every result but
    E2's downsampled one, and every aggregation, on the card; then m4_grid
    against its plain version at E2's own [260, 102,400] input, timed;
@@ -212,7 +214,7 @@ DURABLE_WORKERS = 3             # ... the durable stream, beside the build
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-REPS = 20                       # timed repetitions (median)
+REPS = 10                       # timed repetitions (median)
 ENGINE_REPS = 5                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
@@ -224,6 +226,7 @@ SELECTION = ("last", "min", "max", "count", "m4", "changes", "resets")
 M4_T = 103                      # phase 3's M4 shape: T % P != 0
 M4_PIXELS = (10, 50)            # W = 11, and W = 3 with empty tail bins
 E2_PIXELS = 32                  # the engine's ?downsample= (W = 9)
+ENGINE_SPAN = (T0 + 144 * STEP, 60)  # E1, E3-E7: windows inside block 1
 
 
 def log(msg: str) -> None:
@@ -2007,28 +2010,66 @@ def check_hist_encoder(seed: int) -> None:
                              "RecordBuilder's")
 
 
-def _hist_pod_task(seed: int, n_series: int, pod: int) -> list:
-    return hist_pod_containers(seed, pod, n_series)[0]
+def hist_rate_sums(vals, phase, span):
+    """E7's plain reference over one pod: ``rate(lat[5m])`` of every
+    series and bucket by the general path's range function
+    (``query/rangefns``, f64 on the CPU) over the pod's own counts,
+    summed over its series: ``[T, B]`` float64."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.core.chunk import build_batch
+    from filodb_tpu_torch.ops.windows import StepRange
+    from filodb_tpu_torch.query import rangefns
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+
+    S, R, _B = vals.shape
+    ts = T0 + np.arange(R, dtype=np.int64)[None, :] * STEP + phase[:, None]
+    batch = build_batch(list(ts), [v.astype(np.float64) for v in vals],
+                        hist=True, bucket_tops=np.asarray(HIST_TOPS))
+    start, n = span
+    out = rangefns.apply_range_function(
+        batch, StepRange(start, start + (n - 1) * STEP, STEP), WINDOW,
+        F.RATE, device="cpu")[:S]
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("the plain E7 reference has a gap")
+    return out.sum(dim=0).numpy()
 
 
-def ingest_hist(shards, seed: int, pods: int):
+def _hist_pod_task(seed: int, n_series: int, pod: int) -> tuple:
+    """A pod's containers, and its share of E7's plain reference.  One
+    torch thread a worker: HIST_WORKERS processes share the host's cores
+    with the ingest thread, which torch's default of a thread a core
+    would starve."""
+    import torch
+    torch.set_num_threads(1)
+    conts, vals, phase = hist_pod_containers(seed, pod, n_series)
+    return conts, hist_rate_sums(vals, phase, ENGINE_SPAN)
+
+
+def ingest_hist(shards, seed: int, pods: int, ref_pods: int):
     """Encode ``pods`` pods of ``lat`` in a pool of worker processes (one
     pod a task, seeded by pod) and ingest each pod's containers into
-    every shard of ``shards`` as it arrives; then flush.  Returns the
-    samples one shard ingested, and the seconds each shard spent in
-    ``ingest_container`` with the seconds of the flushes last."""
+    ``shards[0]`` and, for the first ``ref_pods`` pods, into the rest of
+    ``shards`` as it arrives; then flush.  Each worker also computes its
+    pod's share of E7's plain reference (:func:`hist_rate_sums`).
+    Returns the samples the first shard ingested, the seconds each shard
+    spent in ``ingest_container`` with the seconds of the flushes last,
+    and E7's reference (``[T, B]``, every pod)."""
     import multiprocessing
 
     samples = 0
     offset = 10**6                  # past the counter metrics' offsets
     seconds = [0.0] * (len(shards) + 1)
+    ref = 0.0
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(HIST_WORKERS, pods)) as pool:
-        for conts in pool.imap(partial(_hist_pod_task, seed, HIST_SERIES),
-                               range(pods)):
+        for pod, (conts, part) in enumerate(pool.imap(
+                partial(_hist_pod_task, seed, HIST_SERIES), range(pods))):
+            ref = ref + part
             for c in conts:
                 n = []
-                for i, sh in enumerate(shards):
+                for i, sh in enumerate(shards[:1 if pod >= ref_pods
+                                              else len(shards)]):
                     t0 = time.perf_counter()
                     n.append(sh.ingest_container(c, offset))
                     seconds[i] += time.perf_counter() - t0
@@ -2042,7 +2083,7 @@ def ingest_hist(shards, seed: int, pods: int):
     for sh in shards:
         sh.flush_all()
     seconds[-1] = time.perf_counter() - t0
-    return samples, seconds
+    return samples, seconds, ref
 
 
 def lookup(shard, metric: str, pods=None):
@@ -2266,11 +2307,13 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
     with Phase("main.reference_cpu_store"):
         _rms, ref_shard, _n = build_store("cpu", seed, CHECK_PODS, JIT_PODS)
     with Phase("main.hist_ingest"):
-        # the CPU store takes every pod too: E7's sum runs over them all
+        # the CPU store takes the first CHECK_PODS pods, the rows Q7 and
+        # Q8 are checked on; E7's sum over every pod is checked against
+        # the plain reference the encoding workers compute
         check_hist_encoder(seed)
         t0 = time.perf_counter()
-        hist_samples, ingest_times = ingest_hist([shard, ref_shard], seed,
-                                                 HIST_PODS)
+        hist_samples, ingest_times, hist_ref = ingest_hist(
+            [shard, ref_shard], seed, HIST_PODS, CHECK_PODS)
         log(f"hist ingest: {hist_samples} samples a store "
             f"({HIST_PODS} pods x {HIST_SERIES} series x {N_ROWS} rows x "
             f"{len(HIST_TOPS)} buckets) in {time.perf_counter() - t0:.3f} s "
@@ -2429,7 +2472,8 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
         report["hist_reduce"] = hist_reduce(device, shard, plans["Q8"],
                                             looked["lat"], reps, flush)
     return {"launches": totals, "rate_grid_direct": direct_total,
-            "rows": kern_rows, "stores": (_ms, shard, _rms, looked)}
+            "rows": kern_rows,
+            "stores": (_ms, shard, _rms, looked, hist_ref)}
 
 
 def plan_kernel_times(name: str, plan, reps: int, flush) -> tuple:
@@ -2534,7 +2578,7 @@ def hist_reduce(device, shard, plan, looked, reps: int, flush) -> dict:
 def engine_queries():
     """(name, PromQL, (first step, steps), ?downsample= pixels, the grid
     kernel it must reach or None for the general path)."""
-    q1 = (T0 + 144 * STEP, 60)
+    q1 = ENGINE_SPAN
     # every step whose window lies inside the grid: the first window
     # covers buckets 0..K-1
     full = (T0 + (K - 1) * STEP, N_ROWS)
@@ -2635,33 +2679,37 @@ def quantile_bound(tops, hist, q: float):
     return np.where(np.isinf(width), 0.0, bound)
 
 
-def check_hist_quantile(name, ms, rms, query, span, rows, ref_rows) -> float:
-    """E7 against the CPU store: its bucket-wise sum (the query without
-    ``histogram_quantile``) within RTOL_CPU bucket by bucket, and each
-    step's quantile within :func:`quantile_bound` of the CPU store's."""
+def check_hist_quantile(name, ms, hist_ref, query, span, rows) -> float:
+    """E7 against its plain reference (``hist_ref``, ``[T, B]``: the
+    general path's rate over every pod's own counts, summed): the card's
+    bucket-wise sum (the query without ``histogram_quantile``) within
+    RTOL_CPU bucket by bucket, and each step's quantile within
+    :func:`quantile_bound` of the plain quantile of the reference."""
     import numpy as np
     import torch
+    from filodb_tpu_torch.ops.histogram_ops import hist_quantile
+
     inner = query[query.index(",") + 1:query.rindex(")")].strip()
-    hists = []
-    for store in (ms, rms):
-        res = run_engine(store, inner, span, None)[0]
-        (b,) = res.batches
-        check_tops(name, b.bucket_tops)
-        hists.append(torch.as_tensor(b.hist)[:1].double().cpu())
-    plane_err = compare(hists[0], hists[1], "sum", RTOL_CPU)
-    ((key, got),) = rows.items()
-    want = ref_rows[key]
-    bound = quantile_bound(HIST_TOPS, hists[1][0].numpy(), HIST_Q)
+    res = run_engine(ms, inner, span, None)[0]
+    (b,) = res.batches
+    check_tops(name, b.bucket_tops)
+    ref = torch.as_tensor(hist_ref, dtype=torch.float64)
+    plane_err = compare(torch.as_tensor(b.hist)[0].double().cpu(), ref,
+                        "sum", RTOL_CPU)
+    ((_key, got),) = rows.items()
+    want = hist_quantile(torch.as_tensor(HIST_TOPS, dtype=torch.float64),
+                         ref, HIST_Q).numpy()
+    bound = quantile_bound(HIST_TOPS, hist_ref, HIST_Q)
     if not np.array_equal(np.isnan(got), np.isnan(want)) \
             or not np.isfinite(want).any():
-        raise AssertionError(f"{name}: NaN steps differ from the CPU store "
+        raise AssertionError(f"{name}: NaN steps differ from the reference "
                              f"or none is finite")
     fin = np.isfinite(want)
     diff = np.abs(got[fin] - want[fin])
     if not (diff <= bound[fin]).all():
         raise AssertionError(f"{name}: quantile off by {diff.max():.3e}, "
                              f"beyond its bound")
-    log(f"{name}: bucket sums within rtol {RTOL_CPU} of the CPU store "
+    log(f"{name}: bucket sums within rtol {RTOL_CPU} of the plain reference "
         f"(max_abs_err {plane_err:.3e}); quantiles {want[fin].min():.4g}-"
         f"{want[fin].max():.4g} s, off by at most {diff.max():.3e} "
         f"against a bound of {bound[fin].min():.3e}-"
@@ -2752,7 +2800,7 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
     from filodb_tpu_torch.ops import grid
     from filodb_tpu_torch.query.logical import RangeFunctionId as F
 
-    ms, shard, rms, looked = stores
+    ms, shard, rms, looked, hist_ref = stores
     kernels = ("rate_grid", "rate_grid_packed", "m4_grid")
 
     def counts():
@@ -2819,11 +2867,10 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
             if v.shape != (span[1],):
                 raise AssertionError(f"{name}: row {k} shape {v.shape}")
         rtol = RTOL_MOMENTS if query.startswith("stdvar") else RTOL_CPU
-        ref_rows = engine_rows(*run_engine(rms, query, span, pixels)[:2])
         if name in served:
-            err = check_hist_quantile(name, ms, rms, query, span, rows,
-                                      ref_rows)
+            err = check_hist_quantile(name, ms, hist_ref, query, span, rows)
         else:
+            ref_rows = engine_rows(*run_engine(rms, query, span, pixels)[:2])
             err = check_engine(name, rows, ref_rows, pixels, rtol)
         if name == "E1":
             direct = run_query(shard, "grouped", F.RATE, span,
@@ -3140,6 +3187,14 @@ def northstar_second_ops(cases, reps: int, flush) -> list:
 DURABLE_HOURS = (60, 60, 60, 60, 20)   # rows of each hour's container set
 DURABLE_CRASH = 3                      # hours store A ingests before its crash
 DURABLE_SPAN = (T0 + 201 * STEP, 60)   # the last hour: windows end at rows 200-259
+# the paging shard's page cache (``page-cache-size``): a deployment
+# choice, sized to hold the node's series paged whole (481 MB at 261
+# rows here), so that a dashboard's repeat hit over the history is served
+# from the grid.  At the default 256 MB they do not fit, and neither
+# the port nor the reference serves the repeat hit from the grid
+# (tests/test_torch_odp_grid.py, the undersized page cache)
+DURABLE_PAGE_CACHE = 1 << 30
+HISTORY_REPS = 2                       # warm runs of a general-path query
 
 
 def pod_hour_containers(schema, pod: int, seed: int) -> list:
@@ -3234,7 +3289,9 @@ def row_offsets(layout, hour: int, pod: int):
 
 def durable_store(device, root: str):
     """A memstore over the sqlite files in ``root``, StoreConfig at its
-    defaults (flush-interval 1 h, 60 groups, 400-row chunks)."""
+    defaults (flush-interval 1 h, 60 groups, 400-row chunks, demand
+    paging on: a paging shard) but the page cache, sized to the working
+    set (DURABLE_PAGE_CACHE)."""
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
     from filodb_tpu_torch.core.storeconfig import StoreConfig
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
@@ -3244,7 +3301,8 @@ def durable_store(device, root: str):
     ms = TimeSeriesMemStore(DiskColumnStore(os.path.join(root, "chunks.db")),
                             DiskMetaStore(os.path.join(root, "meta.db")),
                             device=device)
-    shard = ms.setup("prom", DEFAULT_SCHEMAS, 0, StoreConfig())
+    shard = ms.setup("prom", DEFAULT_SCHEMAS, 0,
+                     StoreConfig(page_cache_bytes=DURABLE_PAGE_CACHE))
     return ms, shard
 
 
@@ -3365,6 +3423,318 @@ def check_readback(store, series: dict, layout, checkpoints: dict) -> dict:
     return {"partkeys": len(pks), "samples": samples, "chunks": chunks,
             "read_seconds": read_s,
             "seconds": time.perf_counter() - t0}
+
+
+def history_span(cache) -> tuple:
+    """(first step, steps) of the history queries D3/D4: every step whose
+    window lies on the recovered grid (its epoch is the earliest
+    replayed row: the first window covers buckets 0..K-1) up to the
+    stream's end.  Older windows are on disk only and no grid serves
+    them (c0 < 0), paged or not."""
+    steps0 = cache.epoch0 + (K - 1) * STEP
+    return steps0, (T0 + N_ROWS * STEP - steps0) // STEP + 1
+
+
+def extra_row_containers(series: dict, pods) -> list:
+    """One more minute of ``req_total`` (row N_ROWS) for every series of
+    ``pods``: a live node keeps ingesting, and the rows stay in the
+    write buffers until a flush or an eviction persists them."""
+    import numpy as np
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+
+    b = RecordBuilder(DEFAULT_SCHEMAS["prom-counter"])
+    for pod in pods:
+        ts, vals = series[pod]
+        for s in range(POD_SERIES):
+            b.add_series(ts[s, -1:] + STEP,
+                         [vals[s, -1:].astype(np.float64) + 1.0],
+                         series_tags("req_total", pod, s))
+    return b.containers()
+
+
+def check_all_rows_on_disk(store, series: dict, victim) -> dict:
+    """After the eviction every acknowledged row of every series must be
+    in sqlite exactly once: the stream's N_ROWS rows and the extra one,
+    in one read and one native decode pass, but the rows of the
+    quarantined chunk (``victim``: (partkey, start, end)), which the
+    read drops."""
+    import numpy as np
+    from filodb_tpu_torch import native
+    from filodb_tpu_torch.core.record import parse_partkey
+
+    nb = native.batch_decoder()
+    if nb is None:
+        raise AssertionError(f"the native batch decoder is missing: "
+                             f"{native.build_error()}")
+    t0 = time.perf_counter()
+    rows = store.read_raw_rows("prom", 0, None, 0, 2**62)
+    read_s = time.perf_counter() - t0
+    counts = [r[2] for r in rows]
+    ts, vals = nb.page_decode([r[6] for r in rows], counts,
+                              [(0, False), (1, True)])
+    offs = np.concatenate(([0], np.cumsum(counts)))
+    seen, samples, i = 0, 0, 0
+    while i < len(rows):
+        j = i
+        while j < len(rows) and rows[j][0] == rows[i][0]:
+            j += 1
+        pk = rows[i][0]
+        tags = parse_partkey(pk)
+        pod, s = int(tags["pod"][4:]), int(tags["instance"][2:])
+        want_ts = np.append(series[pod][0][s], series[pod][0][s, -1] + STEP)
+        want_v = np.append(series[pod][1][s].astype(np.float64),
+                           float(series[pod][1][s, -1]) + 1.0)
+        if pk == victim[0]:
+            keep = (want_ts < victim[1]) | (want_ts > victim[2])
+            want_ts, want_v = want_ts[keep], want_v[keep]
+        got_ts = ts[offs[i]:offs[j]]
+        got_v = vals[offs[i]:offs[j]]
+        if not (np.array_equal(got_ts, want_ts)
+                and np.array_equal(got_v.view(np.int64),
+                                   want_v.view(np.int64))):
+            raise AssertionError(f"{tags}: {len(got_ts)} rows on disk after "
+                                 f"the eviction, {len(want_ts)} "
+                                 f"acknowledged; they differ")
+        seen += 1
+        samples += len(got_ts)
+        i = j
+    if seen != REQ_PODS * POD_SERIES:
+        raise AssertionError(f"{seen} series on disk after the eviction")
+    return {"series": seen, "samples": samples, "chunks": len(rows),
+            "read_seconds": read_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def engine_on_card(name, res, host, span, device) -> dict:
+    """An engine result's rows, after the shape and device checks, and
+    the quarantined chunk counted where the window covers it."""
+    rows = engine_rows(res, host)
+    for k, v in rows.items():
+        if v.shape != (span[1],):
+            raise AssertionError(f"{name}: row {k} shape {v.shape}")
+    where = {getattr(b.values, "device", "host") for b in res.batches}
+    if where != {device}:
+        raise AssertionError(f"{name}: the result is on {where}")
+    if res.stats.corrupt_chunks_excluded != 1:
+        raise AssertionError(f"{name}: corrupt_chunks_excluded "
+                             f"{res.stats.corrupt_chunks_excluded}, the "
+                             f"quarantined chunk lies in the window")
+    return rows
+
+
+def same_rows(name, rows, want, rtol) -> float:
+    """Two answers of the card, row for row: the same keys, NaN cells,
+    finite values within ``rtol``."""
+    import numpy as np
+    import torch
+    if set(rows) != set(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, {len(want)} "
+                             f"expected")
+    keys = sorted(rows, key=str)
+    return compare(torch.as_tensor(np.stack([rows[k] for k in keys])),
+                   torch.as_tensor(np.stack([want[k] for k in keys])),
+                   "sum", rtol)
+
+
+def history_queries(ms, shard, tms, looked, span, cache, qg, qs, counts,
+                    device) -> tuple:
+    """D3: the history queries on the recovered store.  The residents
+    hold their replayed tail, so the grid refuses (the disk floor), and
+    the general path pages the older chunks from sqlite (backfill).
+    Returns (report, {kind: rows})."""
+    from filodb_tpu_torch.memstore.devicestore import _ids_fingerprint
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+
+    run_query(shard, "grouped", F.RATE, span, looked, served=False)
+    run_query(shard, "series", F.RATE, span, looked, served=False)
+    # the floor the grid computed for these partitions in this epoch
+    floor = cache._disk_floor.get((shard.ingest_epoch, shard.removal_epoch,
+                                   _ids_fingerprint(looked[0])))
+    lo = cache.epoch0 - STEP          # the first window's lower bucket edge
+    if floor is None or not lo < floor:
+        raise AssertionError(f"the grid refused D3, but not for its disk "
+                             f"floor ({floor} against {lo})")
+    before = counts()
+    out, rows_by = {}, {}
+    for kind, q in (("grouped", qg), ("series", qs)):
+        res, host, cold = run_engine(ms, q, span, None)
+        rows = engine_on_card(f"D3:{kind}", res, host, span, device)
+        ref = engine_rows(*run_engine(tms, q, span, None)[:2])
+        err = check_engine(f"D3:{kind}", rows, ref, None, RTOL_CPU)
+        warm, wspread, stages = warm_engine(ms, q, span, None,
+                                            HISTORY_REPS)
+        out[kind] = {"cold_wall_ms": cold, "warm_wall_ms": warm,
+                     "warm_wall_p10_p90": wspread, "warm_stage_ms": stages,
+                     "cold_stage_seconds": res.stats.timings,
+                     "chunks_paged": res.stats.chunks_scanned,
+                     "cpu_check_err": err}
+        rows_by[kind] = rows
+        log(f"D3 {q!r} over rows {(span[0] - WINDOW - T0) // STEP + 1}-"
+            f"{N_ROWS - 1} ({span[1]} steps), {len(rows)} rows: the grid "
+            f"refused it (disk floor at row {(floor - T0) // STEP}), the "
+            f"general path backfilled from sqlite; cold wall_ms "
+            f"{cold:.3f} (stages {res.stats.timings}), warm median of "
+            f"{HISTORY_REPS} {warm:.3f} (p10 {wspread[0]:.3f}, p90 "
+            f"{wspread[1]:.3f}; stage ms {stages}); cpu-twin check ok "
+            f"(max_abs_err {err:.3e}); corrupt_chunks_excluded 1")
+    if counts() != before:
+        raise AssertionError("D3 launched a grid kernel")
+    out["disk_floor_row"] = (floor - T0) // STEP
+    return out, rows_by
+
+
+def check_history_samples(shard, looked, series, span, victim) -> None:
+    """The samples the general path reads for pod 0 over D3's range are
+    the stream's own, bit for bit (the quarantined chunk's rows left
+    out): the backfilled older chunks and the replayed tail joined."""
+    import numpy as np
+
+    ids, _g, pods, tags = looked
+    sel = [i for i, t in enumerate(tags) if t["pod"] == pods[0]]
+    lo, hi = span[0] - WINDOW, span[0] + (span[1] - 1) * STEP
+    got_tags, batch = shard.scan_batch([int(ids[i]) for i in sel], lo, hi)
+    counts = np.asarray(batch.row_counts)
+    pod = int(pods[0][4:])
+    for r, t in enumerate(got_tags):
+        s = int(t["instance"][2:])
+        ts, vals = series[pod][0][s], series[pod][1][s].astype(np.float64)
+        keep = (ts >= lo) & (ts <= hi)
+        pk = shard.index.partkey(int(ids[sel[r]]))
+        if pk == victim[0]:
+            keep &= (ts < victim[1]) | (ts > victim[2])
+        n = int(counts[r])
+        if not (np.array_equal(np.asarray(batch.timestamps)[r, :n], ts[keep])
+                and np.array_equal(np.asarray(batch.values)[r, :n],
+                                   vals[keep])):
+            raise AssertionError(f"D3: {t} read back {n} samples, the "
+                                 f"stream has {int(keep.sum())}")
+    log(f"D3: the general path's samples for {pods[0]} ({len(got_tags)} "
+        f"series) are the stream's own, bit for bit")
+
+
+def page_in_query(ms, shard, tms, span, qg, d3, counts, device) -> dict:
+    """D4's first hit after the eviction: nothing is resident, the grid
+    cannot resolve the partitions, and the general path pages every one
+    in through the bulk path (one sqlite read, the native decoder with
+    its CRC pass, the query's batch decoded straight into place)."""
+    from filodb_tpu_torch.utils.devicewatch import FLIGHT, LEDGER
+
+    n = REQ_PODS * POD_SERIES
+    paged0, chunks0 = shard.stats.partitions_paged, shard.stats.chunks_paged
+    seq0 = max((e["seq"] for e in FLIGHT.events(kind="odp.pagein")),
+               default=-1)
+    before = counts()
+    res, host, wall = run_engine(ms, qg, span, None)
+    if counts() != before:
+        raise AssertionError("D4's first hit launched a grid kernel")
+    t0 = time.perf_counter()
+    shard._join_materialize()
+    publish_s = time.perf_counter() - t0
+    paged = shard.stats.partitions_paged - paged0
+    recs = [e for e in FLIGHT.events(kind="odp.pagein") if e["seq"] > seq0]
+    if paged != n or res.stats.pages_in != n or len(recs) != 1 \
+            or recs[0]["partitions"] != n:
+        raise AssertionError(f"D4's first hit paged {paged} partitions "
+                             f"({res.stats.pages_in} in its stats, page-in "
+                             f"records {recs}), not {n} in one bulk read")
+    if shard.stats.page_decode_corrupt or shard.stats.page_publish_errors \
+            or len(shard.paged) != n:
+        raise AssertionError(f"page cache {len(shard.paged)} partitions, "
+                             f"{shard.stats}")
+    rows = engine_on_card("D4:first", res, host, span, device)
+    err_d3 = same_rows("D4 first hit against D3", rows, d3["grouped"],
+                       RTOL_KERNEL)
+    twin = engine_rows(*run_engine(tms, qg, span, None)[:2])
+    err = check_engine("D4:first", rows, twin, None, RTOL_CPU)
+    # the bytes and budget the shard's LEDGER pool samples, which must
+    # be its own page cache's
+    pool = LEDGER.pools().get(shard._ledger_owner)
+    if pool != {"bytes": shard.paged._bytes,
+                "budget": shard.paged.max_bytes}:
+        raise AssertionError(f"the LEDGER pool {shard._ledger_owner} reads "
+                             f"{pool}, the page cache holds "
+                             f"{shard.paged._bytes} of "
+                             f"{shard.paged.max_bytes} bytes")
+    cap = shard.config.max_data_per_shard_query
+    pks = [shard.index.partkey(int(p)) for p in shard.part_set.values()]
+    scan = ms.store.scan_bytes("prom", 0, pks, span[0] - WINDOW,
+                               span[0] + (span[1] - 1) * STEP)
+    whole = ms.store.scan_bytes("prom", 0, pks, 0, 2**62)
+    out = {"wall_ms": wall, "page_in_s": res.stats.timings.get("decode"),
+           "stages": res.stats.timings, "partitions": paged,
+           "chunks": shard.stats.chunks_paged - chunks0,
+           "publish_wait_s": publish_s, "page_cache_bytes": pool["bytes"],
+           "page_cache_budget": pool["budget"], "scan_bytes": scan,
+           "history_bytes": whole, "cap_bytes": cap,
+           "d3_err": err_d3, "cpu_check_err": err}
+    log(f"D4 first hit {qg!r}: paged {paged} partitions, {out['chunks']} "
+        f"chunks in one bulk read (page-in {out['page_in_s']:.3f} s of "
+        f"{wall / 1e3:.3f} s wall; stages {res.stats.timings}; the "
+        f"publish joined {publish_s:.3f} s later); page cache "
+        f"{pool['bytes']} of {pool['budget']} bytes; scan "
+        f"{scan} bytes of the {cap}-byte cap (the whole history "
+        f"{whole}); against D3 max_abs_err {err_d3:.3e}, cpu-twin check "
+        f"ok (max_abs_err {err:.3e})")
+    return out
+
+
+def paged_grid_queries(ms, shard, tms, looked, span, qg, qs, d3, counts,
+                       reps, device) -> tuple:
+    """D4's repeat hits over the paged partitions: the grid serves them
+    (B1) in both forms, against D3 and the CPU twin; the seam's warm
+    latency.  Returns (report, the grouped plan)."""
+    import torch
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+
+    cache = grid_cache(shard, False)
+    out = {}
+    for kind, q in (("grouped", qg), ("series", qs)):
+        builds0, before = cache.builds, counts()
+        res, host, cold = run_engine(ms, q, span, None)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in counts().items()}
+        if ran["rate_grid"] < 1:
+            raise AssertionError(f"D4 {kind}: the repeat hit did not run "
+                                 f"B1 over the paged grid ({ran})")
+        rows = engine_on_card(f"D4:{kind}", res, host, span, device)
+        err_d3 = same_rows(f"D4:{kind} against D3", rows, d3[kind],
+                           RTOL_KERNEL)
+        twin = engine_rows(*run_engine(tms, q, span, None)[:2])
+        err = check_engine(f"D4:{kind}", rows, twin, None, RTOL_CPU)
+        warm, wspread, stages = warm_engine(ms, q, span, None,
+                                            HISTORY_REPS)
+        out[kind] = {"cold_wall_ms": cold, "blocks_built":
+                     cache.builds - builds0, "launches": ran,
+                     "warm_engine_ms": warm,
+                     "warm_engine_p10_p90": wspread,
+                     "warm_stage_ms": stages, "d3_err": err_d3,
+                     "cpu_check_err": err}
+        log(f"D4 repeat hit {q!r}: the grid over paged partitions, "
+            f"launches {ran}, {out[kind]['blocks_built']} blocks built, "
+            f"cold wall_ms {cold:.3f}; warm engine median of "
+            f"{HISTORY_REPS} {warm:.3f} (p10 {wspread[0]:.3f}, p90 "
+            f"{wspread[1]:.3f}; stage ms {stages}); against D3 max_abs_err "
+            f"{err_d3:.3e} (rtol {RTOL_KERNEL}), cpu-twin check ok "
+            f"(max_abs_err {err:.3e})")
+    run_query(shard, "grouped", F.RATE, span, looked)
+    plan = list(cache._plan_memo.values())[-1]
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run_query(shard, "grouped", F.RATE, span, looked)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    p10, p90 = spread(walls)
+    out["warm_wall_ms"] = statistics.median(walls)
+    out["warm_wall_p10_p90"] = (p10, p90)
+    out["blocks"] = len(plan.segs)
+    out["mode"] = grid._mode_for(plan.q, plan.phase)
+    log(f"D4 seam sum by (pod)(rate) over paged partitions: warm median of "
+        f"{reps} wall_ms {out['warm_wall_ms']:.3f} (p10 {p10:.3f}, p90 "
+        f"{p90:.3f}), {len(plan.segs)} blocks, {out['mode']} mode")
+    return out, plan
 
 
 def durable_phase(device, seed: int, reps: int, encoding: PodHours,
@@ -3686,8 +4056,6 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
             if (n_in, n_out) != (1, 0):
                 raise AssertionError(f"corrupt_chunks_excluded {n_in} inside "
                                      f"the window, {n_out} outside")
-            launched = {k: v for k, v in counts().items()}
-            direct = grid.rate_grid.direct
             quarantine = {
                 "chunk_id": cs.info.chunk_id, "rows": cs.info.num_rows,
                 "evicted_blocks": evicted, "restage_s": restage,
@@ -3705,15 +4073,70 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"ok (max_abs_err {err2:.3e}); engine corrupt_chunks_excluded "
                 f"{n_in} inside the window, {n_out} outside")
             out["quarantine"] = quarantine
-            if launched["rate_grid"] < 1:
-                raise AssertionError("rate_grid never launched on the "
-                                     "durable path")
-            log(f"durable path launches {launched}, rate_grid on its direct "
-                f"kernel {direct}")
+
+        victim = (part.partkey, cs.info.start_time, cs.info.end_time)
+        hspan = history_span(cache)
+        history = {"span": hspan}
+        out["history"] = history
+        qg = "sum by (pod)(rate(req_total[5m]))"
+        qs = "rate(req_total[5m])"
+        with Phase("durable.history"):
+            history["d3"], d3 = history_queries(
+                ms_b, shard_b, tms_b, looked, hspan, cache, qg, qs, counts,
+                device)
+            check_history_samples(shard_b, looked, series, hspan, victim)
+
+        with Phase("durable.evict"):
+            extra = extra_row_containers(series, range(REQ_PODS))
+            for i, c in enumerate(extra):
+                shard_b.ingest_container(c, len(stream) + i)
+            for i, c in enumerate(extra_row_containers(series,
+                                                       range(CHECK_PODS))):
+                tshard_b.ingest_container(c, len(stream) + i)
+            pending = sum(1 for p in shard_b.partitions.values() if p._buf_n)
+            n_parts = shard_b.num_partitions
+            t0 = time.perf_counter()
+            evicted = shard_b.evict_partitions(n_parts)
+            evict_s = time.perf_counter() - t0
+            tshard_b.evict_partitions(tshard_b.num_partitions)
+            if evicted != n_parts or shard_b.num_partitions != 0 \
+                    or shard_b.stats.partitions_evicted != n_parts:
+                raise AssertionError(f"evicted {evicted} of {n_parts} "
+                                     f"partitions")
+            disk = check_all_rows_on_disk(ms_b.store, series, victim)
+            history["evict"] = {"partitions": evicted,
+                                "with_buffered_rows": pending,
+                                "seconds": evict_s, "read_back": disk}
+            log(f"D4: evicted {evicted} partitions in {evict_s:.3f} s "
+                f"({pending} held unflushed rows, persisted first in one "
+                f"batched encode and write); every acknowledged row read "
+                f"back: "
+                f"{disk['samples']} samples of {disk['series']} series in "
+                f"{disk['chunks']} chunks ({disk['read_seconds']:.3f} s to "
+                f"read, {disk['seconds']:.3f} s with the native decode and "
+                f"check), the quarantined chunk left out")
+
+        with Phase("durable.page_in"):
+            history["page_in"] = page_in_query(ms_b, shard_b, tms_b, hspan,
+                                               qg, d3, counts, device)
+
+        with Phase("durable.paged_grid"):
+            d4, plan4 = paged_grid_queries(ms_b, shard_b, tms_b, looked,
+                                           hspan, qg, qs, d3, counts, reps,
+                                           device)
+            history["d4"] = d4
+        launched = {k: v for k, v in counts().items()}
+        direct = grid.rate_grid.direct
+        if launched["rate_grid"] < 1:
+            raise AssertionError("rate_grid never launched on the durable "
+                                 "path")
+        log(f"durable path launches {launched}, rate_grid on its direct "
+            f"kernel {direct}")
 
         with Phase("durable.kernels_at_path_shapes"):
             rows = [plan_kernel_times("D1", plan, reps, flush)[1],
-                    plan_kernel_times("D2", plan2, reps, flush)[1]]
+                    plan_kernel_times("D2", plan2, reps, flush)[1],
+                    plan_kernel_times("D4", plan4, reps, flush)[1]]
         out.update(launches=launched, rate_grid_direct=direct, rows=rows)
     finally:
         integrity.QUARANTINE.clear()

@@ -149,6 +149,63 @@ def decode_chunkset(schema: Schema, cs: ChunkSet) -> tuple[np.ndarray, list]:
     return ts, cols
 
 
+def decode_partitions_batch(schema: Schema, groups: Sequence[Sequence[ChunkSet]]
+                            ) -> list[tuple[np.ndarray, list]]:
+    """Decode partitions of chunk-ordered ChunkSets, returning ONE
+    contiguous (ts, cols) per partition.  Blobs are batched COLUMN-major
+    into the native decoder, so each partition's chunks land in adjacent
+    output spans and the cross-chunk concatenation is a zero-copy view —
+    the paging shard's pre-decode of the chunks a scan touches."""
+    from filodb_tpu_torch import native
+    nb = native.batch_decoder()
+    numeric = (ColumnType.TIMESTAMP, ColumnType.LONG, ColumnType.INT,
+               ColumnType.DOUBLE)
+    if nb is None or any(c.ctype not in numeric
+                         for c in schema.data.columns[1:]):
+        out = []
+        for css in groups:
+            parts = [decode_chunkset(schema, cs) for cs in css]
+            ts = np.concatenate([p[0] for p in parts]) if parts \
+                else np.empty(0, np.int64)
+            cols = []
+            for ci in range(len(schema.data.columns) - 1):
+                vals = [p[1][ci] for p in parts]
+                if vals and isinstance(vals[0], tuple):
+                    # widening-aware (16 -> 20 buckets mid-partition):
+                    # the widest scheme wins, narrower rows edge-pad
+                    from filodb_tpu_torch.core.histogram import \
+                        concat_hist_parts
+                    cols.append(concat_hist_parts(vals))
+                elif vals and isinstance(vals[0], list):
+                    cols.append(sum(vals, []))
+                else:
+                    cols.append(np.concatenate(vals) if vals
+                                else np.empty(0))
+            out.append((ts, cols))
+        return out
+    data_cols = schema.data.columns[1:]
+    counts = [cs.info.num_rows for css in groups for cs in css]
+    spans = np.zeros(len(groups) + 1, np.int64)
+    np.cumsum([sum(cs.info.num_rows for cs in css) for css in groups],
+              out=spans[1:])
+
+    def column(j: int, dbl: bool):
+        blobs = [cs.vectors[j] for css in groups for cs in css]
+        flat = (nb.dbl_decode_batch if dbl
+                else nb.ll_decode_batch)(blobs, counts)
+        base = flat[0].base if flat else None  # one buffer; spans view it
+        if base is None:
+            return [np.empty(0) for _ in groups]
+        whole = base[:spans[-1]]
+        return [whole[spans[i]:spans[i + 1]] for i in range(len(groups))]
+
+    ts_views = column(0, dbl=False)
+    col_views = [column(j, dbl=(col.ctype == ColumnType.DOUBLE))
+                 for j, col in enumerate(data_cols, start=1)]
+    return [(ts_views[g], [cv[g] for cv in col_views])
+            for g in range(len(groups))]
+
+
 # --------------------------------------------------------------------------
 # Padded batches: the general query path's input
 # --------------------------------------------------------------------------
@@ -198,6 +255,30 @@ def pad_rows(max_rows: int, pad_to: Optional[int]) -> int:
         else:
             R = pad_to * (1 << int(np.ceil(np.log2(R / pad_to))))
     return max(R, 1)
+
+
+def fill_batch_pads(ts2d: np.ndarray, val2d: np.ndarray,
+                    cnts: np.ndarray, S: int) -> bool:
+    """Write TS_PAD / NaN into every PADDING cell of an [S_pad, R]
+    batch whose data cells are written separately — the shared tail of
+    the flat-assembly paths (the paging shard's fused decode-into and
+    bulk scan).
+    Returns True
+    when the first S row counts are uniform — data may then be placed
+    with one reshaped block copy instead of a mask scatter."""
+    S_pad, R = ts2d.shape
+    counts = cnts[:S]
+    r0 = int(counts[0]) if S else 0
+    if S and bool((counts == r0).all()):
+        ts2d[:, r0:] = TS_PAD
+        val2d[:, r0:] = np.nan
+        ts2d[S:, :r0] = TS_PAD
+        val2d[S:, :r0] = np.nan
+        return True
+    padmask = np.arange(R)[None, :] >= cnts[:, None]
+    ts2d[padmask] = TS_PAD
+    val2d[padmask] = np.nan
+    return False
 
 
 def build_batch(series_ts: Sequence[np.ndarray], series_vals: Sequence,

@@ -109,6 +109,31 @@ class Histogram:
         return Histogram(self.buckets, self.values + other.values)
 
 
+def concat_hist_parts(parts: Sequence[tuple]) -> tuple:
+    """Concatenate decoded ``(buckets, rows [n, b])`` histogram column
+    parts along the row axis, tolerating a MID-STREAM bucket-scheme
+    widening (16 -> 20 buckets): the widest scheme wins and narrower
+    rows edge-pad with their top bucket — cumulative histograms carry
+    their total in the top bucket, so the pad is semantically exact for
+    every le the narrow scheme lacked (the convention of the serving
+    paths, shard.scan_batch and devicestore._build)."""
+    parts = [(b, np.asarray(r)) for b, r in parts]
+    if not parts:
+        raise ValueError("no histogram parts to concatenate")
+    widest = max(parts, key=lambda p: p[0].num_buckets)[0]
+    nb = widest.num_buckets
+    rows = []
+    for bk, r in parts:
+        if r.ndim != 2:
+            r = r.reshape(len(r), -1)
+        if r.shape[1] < nb:
+            r = np.pad(r, ((0, 0), (0, nb - r.shape[1])), mode="edge")
+        elif r.shape[1] > nb:        # cannot happen: widest wins
+            raise ValueError("histogram part wider than the widest scheme")
+        rows.append(r)
+    return widest, np.concatenate(rows, axis=0)
+
+
 def quantile_bulk(tops: np.ndarray, rows: np.ndarray, q: float) -> np.ndarray:
     """Prometheus histogram_quantile over a dense [rows, buckets] matrix.
 

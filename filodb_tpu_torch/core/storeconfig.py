@@ -15,6 +15,15 @@ class StoreConfig:
     flush_task_parallelism: int = 2           # flush executor workers
     max_chunks_size: int = 400                # max rows per chunk
     groups_per_shard: int = 60
+    # on-demand paging: over a persistent column store the shard pages
+    # partitions absent from memory (evicted, or index-only after a
+    # restart) back from disk at query time (reference:
+    # OnDemandPagingShard.scala, DemandPagedChunkStore.scala:34)
+    demand_paging_enabled: bool = True
+    # bytes of chunk blobs one query may scan on a shard (reference:
+    # capDataScannedPerShardCheck)
+    max_data_per_shard_query: int = 50 * 1024 * 1024
+    evicted_pk_bloom_filter_capacity: int = 5_000_000
     # padded batch shapes of the general query path (scan_batch): rows
     # round up to batch_row_pad (then powers of two), series to a
     # multiple of batch_series_pad
@@ -23,6 +32,10 @@ class StoreConfig:
     # device-resident chunk store (reclaim-on-demand — the BlockManager
     # equivalent, reference: memory/BlockManager.scala:142)
     device_cache_bytes: int = 2 * 1024 * 1024 * 1024
+    # host page cache of demand-paged partitions, decoded bytes counted;
+    # it must hold a dashboard's working set for the device grid to
+    # build from paged history
+    page_cache_bytes: int = 256 * 1024 * 1024
     grid_step_ms: Optional[int] = None   # bucket width; None = detect
     # keep grid blocks compressed on the device (XOR-class value planes +
     # elided uniform-phase ts planes), decoded on device inside the

@@ -346,7 +346,7 @@ class _Block:
 
     __slots__ = ("ts", "vals", "lanes", "nbytes", "last_used",
                  "fmin", "fmax", "fcnt", "pmin", "pmax", "staged_hi",
-                 "ts_desc", "width", "pack_inv")
+                 "ts_desc", "width", "pack_inv", "floor_ms")
 
     def __init__(self, ts, vals, lanes: int, seq: int, fill_stats,
                  phase_stats, staged_hi: int, nbytes: int, width: int,
@@ -368,6 +368,11 @@ class _Block:
         # lanes < staged_hi were populated at build time; a later lane
         # must rebuild the block, never serve NaN
         self.staged_hi = staged_hi
+        # the paging shard's disk floor when this block was staged, if
+        # the block reaches below it: its rows there were on disk only
+        # and are missing here, so once the floor drops (the partitions
+        # evicted and paged back whole) the block must be staged anew
+        self.floor_ms = _NO_FLOOR
 
     @property
     def ts_seg(self):
@@ -379,6 +384,9 @@ class _Block:
         dense = contiguous & (self.fmin <= a) & (self.fmax >= b)
         empty = (self.fcnt == 0) | (self.fmax < a) | (self.fmin > b)
         return dense, empty
+
+
+_NO_FLOOR = -(2**62)      # no partition's rows are on disk only
 
 
 class DeviceGridCache:
@@ -421,6 +429,9 @@ class DeviceGridCache:
         self._phase_memo: dict[tuple, tuple] = {}
         # full-plan memo, keyed on every invalidation axis
         self._plan_memo: dict[tuple, _GridPlan] = {}
+        # (ingest epoch, removal epoch, ids fingerprint) -> the paging
+        # shard's disk floor over those partitions
+        self._disk_floor: dict[tuple, int] = {}
         self._seq = 0
         self._lock = threading.Lock()
         self.builds = 0
@@ -743,6 +754,19 @@ class DeviceGridCache:
             return None
         if (c_last + 1) * g > _I32_SPAN:
             return None                        # int32-relative overflow
+        floor = _NO_FLOOR
+        if hasattr(shard, "paged"):
+            # paging shard: a resident may hold only its post-recovery
+            # tail, its older chunks on disk, where the grid would serve
+            # NaN.  Checked before _prep_for: a refused query must not
+            # widen the lane count
+            parts = [shard.grid_partition(int(pid)) for pid in part_ids]
+            if any(p is None for p in parts):
+                return None
+            lo_ms = self.epoch0 + (c0 - 1) * g
+            floor = self._disk_floor_ms(parts, ids_fp)
+            if lo_ms < floor:
+                return None
         prep = self._prep_for(part_ids, fp=ids_fp)
         if prep is None:
             return None
@@ -761,7 +785,7 @@ class DeviceGridCache:
         segments = []
         self._seq += 1
         for bi in range(bi_lo, bi_hi + 1):
-            blk = self._block_for(bi, lanes, frozen_hi, need_hi)
+            blk = self._block_for(bi, lanes, frozen_hi, need_hi, floor)
             if blk is None:
                 return None                    # invariant violated
             blk.last_used = self._seq
@@ -888,6 +912,36 @@ class DeviceGridCache:
 
     # ---------------------------------------------------------------- blocks
 
+    def _disk_floor_ms(self, parts, ids_fp) -> int:
+        """Highest timestamp below which some requested partition's data
+        lives only in the column store (a recovery tail, or rows
+        re-ingested after an eviction).  Memoized per shard ingest and
+        removal epoch and per set of partitions: the floor is the
+        requested partitions' own, and an eviction or a page-in changes
+        it (the reference memoizes it per ingest epoch alone, and serves
+        one subset's floor to another)."""
+        shard = self._shard
+        key = (shard.ingest_epoch, shard.removal_epoch, ids_fp)
+        got = self._disk_floor.get(key)
+        if got is not None:
+            return got
+        floor = _NO_FLOOR
+        index = shard.index
+        for part in parts:
+            earliest = part.earliest_timestamp
+            if earliest < 0:
+                continue
+            try:
+                idx_start = index.start_time(part.part_id)
+            except KeyError:
+                continue
+            if idx_start < earliest:
+                floor = max(floor, earliest)
+        if any(k[:2] != key[:2] for k in self._disk_floor):
+            self._disk_floor.clear()
+        self._disk_floor[key] = floor
+        return floor
+
     def _frozen_high(self) -> int:
         """Highest bucket (exclusive) fully covered by frozen chunks: the
         earliest write-buffer row across this cache's lanes bounds it."""
@@ -904,12 +958,18 @@ class DeviceGridCache:
         return (lo - self.epoch0 + self.gstep - 1) // self.gstep - 1
 
     def _block_for(self, bi: int, lanes: int,  # holds-lock: _lock
-                   frozen_hi: int, need_hi: int):
+                   frozen_hi: int, need_hi: int,
+                   floor: int = _NO_FLOOR):
+        """Block ``bi``: the resident one if it is still whole, else
+        staged anew.  ``floor`` is the paging shard's disk floor: a block
+        staged while part of its span lay on disk only is whole again
+        only if the floor has not dropped since."""
         b_lo = bi * BLOCK_BUCKETS
         b_hi = b_lo + BLOCK_BUCKETS - 1
         blk = self.blocks.get(bi)
         if blk is not None and blk.lanes == lanes \
-                and blk.staged_hi >= need_hi and b_hi <= frozen_hi:
+                and blk.staged_hi >= need_hi and b_hi <= frozen_hi \
+                and blk.floor_ms <= floor:
             return blk
         if b_hi > frozen_hi:
             # tail block: holds mutable write-buffer rows; cached under
@@ -918,19 +978,28 @@ class DeviceGridCache:
             got = self._tails.get(bi)
             if got is not None and got[0] == epoch \
                     and got[1].lanes == lanes \
-                    and got[1].staged_hi >= need_hi:
+                    and got[1].staged_hi >= need_hi \
+                    and got[1].floor_ms <= floor:
                 return got[1]
             blk = self._build(bi, lanes, compress=False)
             if blk is not None:
+                blk.floor_ms = self._staged_floor(bi, floor)
                 self._tails[bi] = (epoch, blk)
                 while len(self._tails) > 8:
                     self._tails.pop(next(iter(self._tails)))
             return blk
         blk = self._build(bi, lanes)
         if blk is not None:
+            blk.floor_ms = self._staged_floor(bi, floor)
             self.blocks[bi] = blk
             self.version += 1
         return blk
+
+    def _staged_floor(self, bi: int, floor: int) -> int:
+        """The floor a block of ``bi`` records: ``floor`` if the block's
+        span reaches below it, else none (the block is whole)."""
+        b_lo_ms = self.epoch0 + (bi * BLOCK_BUCKETS - 1) * self.gstep
+        return floor if floor > b_lo_ms else _NO_FLOOR
 
     def _val_dtype(self):
         """f32 on the card (the kernels' type); f64 on the CPU, where the

@@ -346,6 +346,17 @@ class PartKeyIndex:
                 self.version += 1
             self._end_arr[part_id] = _NO_END
 
+    def update_end_time(self, part_id: int, end_time: int) -> None:
+        """Marks a series stopped (reference: updatePartKeyWithEndTime, used
+        by flush step updateIndexWithEndTime and by eviction ordering).
+        Locked: a concurrent add_partkey _grow would otherwise strand
+        this write in the superseded array."""
+        with self._lock:
+            if self._end_arr[part_id] != end_time:
+                self.version += 1
+            self._end_arr[part_id] = end_time
+
+
     def remove(self, part_ids: Iterable[int]) -> None:
         with self._lock:
             self._remove_locked(part_ids)
@@ -577,3 +588,46 @@ class PartKeyIndex:
     def partkey(self, part_id: int) -> bytes:
         return self._partkeys[part_id]
 
+    def part_ids_ordered_by_end_time(self, n: int,
+                                     before: int = _NO_END) -> list[int]:
+        """Oldest-ending (stopped-longest-ago) partitions first — the
+        eviction ordering (reference: partIdsOrderedByEndTime,
+        TimeSeriesShard eviction :1308-1401)."""
+        ids = self._all_ids()
+        ends = self._end_arr[ids]
+        sel = ends < before
+        ids, ends = ids[sel], ends[sel]
+        order = np.argsort(ends, kind="stable")[:n]
+        return [int(i) for i in ids[order]]
+
+    def label_names(self, filters: Sequence[ColumnFilter] = (),
+                    start_time: int = 0, end_time: int = _NO_END) -> list[str]:
+        if not filters:
+            # writers mutate _labels / vcount under _lock; snapshot under
+            # it so a concurrent add_partkey can't resize mid-iteration
+            with self._lock:
+                self._drain_pending_locked()
+                return sorted(k for k, lab in list(self._labels.items())
+                              if lab.vcount)
+        names: set[str] = set()
+        for pid in self.part_ids_from_filters(filters, start_time, end_time):
+            names.update(self._tags[int(pid)].keys())
+        return sorted(names)
+
+    def active_series_count(self) -> int:
+        """Series currently alive in this index (the cardinality the
+        quota subsystem caps; reference: CardinalityManager reading
+        counts off the part-key index)."""
+        return len(self._tags)
+
+    def value_counts(self, label: str) -> dict[str, int]:
+        """Alive-series count per value of one label, O(values): the
+        per-value refcounts ARE the active cardinality breakdown — the
+        workload quota's ground truth (workload/quota.py
+        refresh_from_index), no document walk."""
+        with self._lock:
+            self._drain_pending_locked()
+            lab = self._labels.get(label)
+            if lab is None:
+                return {}
+            return {v: n for v, n in lab.vcount.items() if n > 0}

@@ -42,9 +42,18 @@ class TimeSeriesMemStore:
         shards = self._datasets.setdefault(dataset, {})
         if shard_num in shards:
             raise ValueError(f"shard {shard_num} already set up for {dataset}")
-        shard = TimeSeriesShard(dataset, schemas, shard_num,
-                                config or StoreConfig(), self.store,
-                                self.meta, device=self.device)
+        cfg = config or StoreConfig()
+        if cfg.demand_paging_enabled and not isinstance(self.store,
+                                                       NullColumnStore):
+            # over a persistent store, absent partitions page back in
+            from filodb_tpu_torch.memstore.odp import OnDemandPagingShard
+            shard = OnDemandPagingShard(dataset, schemas, shard_num, cfg,
+                                        self.store, self.meta,
+                                        device=self.device)
+        else:
+            shard = TimeSeriesShard(dataset, schemas, shard_num, cfg,
+                                    self.store, self.meta,
+                                    device=self.device)
         shards[shard_num] = shard
         return shard
 

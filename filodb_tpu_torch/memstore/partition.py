@@ -21,7 +21,8 @@ import numpy as np
 
 from filodb_tpu_torch import integrity
 from filodb_tpu_torch.codecs import histcodec
-from filodb_tpu_torch.core.chunk import ChunkSet, decode_chunkset, encode_chunkset
+from filodb_tpu_torch.core.chunk import (ChunkSet, decode_chunkset,
+                                         encode_chunksets_batch)
 from filodb_tpu_torch.core.histogram import HistogramBuckets
 from filodb_tpu_torch.core.schemas import ColumnType, Schema
 
@@ -39,6 +40,55 @@ class PendingBuffer(NamedTuple):
     cols: list
     hist_buckets: Optional[HistogramBuckets]
     seq: int
+
+
+def drain_pending_batch(parts: Sequence["TimeSeriesPartition"]
+                        ) -> list[ChunkSet]:
+    """Encode every frozen buffer of ``parts`` by one
+    :func:`encode_chunksets_batch` call a schema (the per-call wrapper
+    cost is most of a flush task's encode), and install each chunk in
+    its partition's pending order.  Safe from the flush executor: the
+    encode runs outside ``_lock``; each install is atomic under it, so a
+    query never sees a sample twice or not at all.  Each partition's
+    ``_encode_lock`` is held from its snapshot to its install, taken in
+    part-id order, so two batches never deadlock.  Returns the chunks
+    encoded."""
+    held = []
+    try:
+        by_schema: dict = {}
+        for part in sorted(parts, key=lambda p: p.part_id):
+            part._encode_lock.acquire()
+            held.append(part)
+            with part._lock:
+                pending = list(part._pending)
+            for pb in pending:
+                by_schema.setdefault(part.schema.schema_hash, []).append(
+                    (part, pb))
+        out: list[ChunkSet] = []
+        for entries in by_schema.values():
+            css = encode_chunksets_batch(entries[0][0].schema, [
+                (part.partkey, pb.ts, part._pending_columns(pb), pb.seq)
+                for part, pb in entries])
+            for (part, _pb), cs in zip(entries, css):
+                part._install_encoded(cs)
+            out.extend(css)
+        return out
+    finally:
+        for part in held:
+            part._encode_lock.release()
+
+
+def make_flush_chunks(parts: Sequence["TimeSeriesPartition"]
+                      ) -> list[list[ChunkSet]]:
+    """Freeze every write buffer of ``parts`` and drain, a partition
+    each, the chunks not yet persisted, all encoded in one batch
+    (reference: makeFlushChunks, TimeSeriesPartition.scala:264, a
+    partition at a time).  For the thread that owns the write buffers;
+    the pipelined flush executor drains what the ingest thread froze."""
+    for part in parts:
+        part.freeze_raw()
+    drain_pending_batch(parts)
+    return [part.take_unflushed() for part in parts]
 
 
 class TimeSeriesPartition:
@@ -266,40 +316,35 @@ class TimeSeriesPartition:
         return True
 
     def drain_pending(self) -> list[ChunkSet]:
-        """Encode all pending buffers into ChunkSets, in seq order.  Safe
-        from the flush executor: encoding runs outside the lock; the
-        append-to-chunks + unpend step is atomic under the lock so query
-        reads never see a sample twice or not at all."""
-        out: list[ChunkSet] = []
-        with self._encode_lock:
-            out.extend(self._drain_pending_locked())
-        return out
+        """Encode all pending buffers into ChunkSets, in seq order
+        (:func:`drain_pending_batch` over this partition)."""
+        return drain_pending_batch([self])
 
-    def _drain_pending_locked(self) -> list[ChunkSet]:
-        out: list[ChunkSet] = []
-        while True:
-            with self._lock:
-                if not self._pending:
-                    break
-                pb = self._pending[0]
-            cols = []
-            for buf, col in zip(pb.cols, self.schema.data.columns[1:]):
-                if col.ctype == ColumnType.HISTOGRAM:
-                    cols.append((pb.hist_buckets, np.stack(list(buf))))
-                elif col.ctype == ColumnType.STRING:
-                    cols.append(list(buf))
-                else:
-                    cols.append(np.asarray(buf))
-            cs = encode_chunkset(self.schema, self.partkey, pb.ts, cols,
-                                 ingestion_seq=pb.seq)
-            with self._lock:
-                self.chunks.append(cs)
-                self._unflushed.append(cs)
-                self._pending.pop(0)
-            if self.on_freeze is not None:
-                self.on_freeze(cs)
-            out.append(cs)
-        return out
+    def _pending_columns(self, pb: PendingBuffer) -> list:
+        """A frozen buffer's data columns in the encoder's contract."""
+        cols = []
+        for buf, col in zip(pb.cols, self.schema.data.columns[1:]):
+            if col.ctype == ColumnType.HISTOGRAM:
+                # rows of one frozen buffer share one bucket scheme: one
+                # concatenate, not a stack of hundreds of row arrays
+                cols.append((pb.hist_buckets,
+                             np.concatenate(buf).reshape(len(buf), -1)))
+            elif col.ctype == ColumnType.STRING:
+                cols.append(list(buf))
+            else:
+                cols.append(np.asarray(buf))
+        return cols
+
+    def _install_encoded(self, cs: ChunkSet) -> None:
+        """The oldest pending buffer, encoded: it joins the chunks and
+        the unflushed list in one atomic step (callers hold
+        ``_encode_lock``)."""
+        with self._lock:
+            self.chunks.append(cs)
+            self._unflushed.append(cs)
+            self._pending.pop(0)
+        if self.on_freeze is not None:
+            self.on_freeze(cs)
 
     def switch_buffers(self) -> Optional[ChunkSet]:
         """Freeze the current write buffer into a compressed ChunkSet
@@ -309,11 +354,8 @@ class TimeSeriesPartition:
         encoded = self.drain_pending()
         return encoded[-1] if had and encoded else None
 
-    def collect_flush_chunks(self) -> list[ChunkSet]:
-        """Encode already-frozen pending buffers and drain the unflushed
-        list.  Never touches the live write buffer, so it is safe from
-        the flush executor while the ingest thread keeps appending."""
-        self.drain_pending()
+    def take_unflushed(self) -> list[ChunkSet]:
+        """Drain the list of encoded chunks not yet persisted."""
         with self._lock:
             out, self._unflushed = self._unflushed, []
         return out

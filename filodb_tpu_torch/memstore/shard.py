@@ -13,6 +13,10 @@ serves:
   ingest thread (``flush_all``) or pipelined through a
   :class:`~filodb_tpu_torch.memstore.flush.FlushScheduler` that watches
   ``latest_ingest_ts`` (:804-846)
+- eviction by oldest end time, with a bloom filter of evicted keys
+  (:1308-1401), and purge of expired partitions (:776-795); the
+  cardinality tracker notes every creation and removal, and an optional
+  per-tenant series quota rejects new series over its limit
 - integrity: partitions report corrupt chunks through
   :meth:`note_corrupt_chunk`; the shard registers itself so the column
   store's read-back detections reach it too
@@ -47,13 +51,17 @@ from filodb_tpu_torch.core.storeconfig import StoreConfig
 from filodb_tpu_torch.memstore.devicestore import (DeviceGridCache,
                                                    resolve_device)
 from filodb_tpu_torch.memstore.index import PartKeyIndex
-from filodb_tpu_torch.memstore.partition import TimeSeriesPartition
+from filodb_tpu_torch.memstore.cardinality import CardinalityTracker
+from filodb_tpu_torch.memstore.partition import (TimeSeriesPartition,
+                                                 drain_pending_batch)
 from filodb_tpu_torch.native import ingestfast
 from filodb_tpu_torch.store.columnstore import (ColumnStore, NullColumnStore,
                                                 PartKeyRecord)
 from filodb_tpu_torch.store.metastore import InMemoryMetaStore, MetaStore
+from filodb_tpu_torch.utils.bloom import BloomFilter
 from filodb_tpu_torch.utils.devicewatch import FLIGHT
 from filodb_tpu_torch.utils.observability import TRACER, flush_metrics
+from filodb_tpu_torch.workload.quota import SeriesQuotaExceeded
 
 _FLUSH_METRICS = None
 
@@ -98,6 +106,8 @@ class ShardStats:
     rows_skipped: int = 0
     out_of_order_dropped: int = 0
     partitions_created: int = 0
+    partitions_evicted: int = 0
+    partitions_purged: int = 0
     chunks_flushed: int = 0
     flushes_done: int = 0
     # integrity subsystem: decode/checksum corruption detected while
@@ -105,6 +115,10 @@ class ShardStats:
     # quarantine here
     chunks_corrupt: int = 0
     chunks_quarantined: int = 0
+    # new series rejected because their tenant hit its active-series
+    # quota, and the rows those rejections dropped
+    series_quota_rejected: int = 0
+    rows_quota_dropped: int = 0
 
 
 class TimeSeriesShard:
@@ -146,7 +160,11 @@ class TimeSeriesShard:
         # newest sample timestamp seen: drives time-boundary flush
         # scheduling (reference: createFlushTasks time boundaries :804-846)
         self.latest_ingest_ts = -1
+        self.evicted_keys = BloomFilter(
+            self.config.evicted_pk_bloom_filter_capacity)
         self.stats = ShardStats()
+        # held only for the flush tasks' counter increments
+        self._stats_lock = threading.Lock()
         # set when a bookkeeping invariant broke: the shard FAILS further
         # scans rather than serve stale buffers (the reference kills the
         # process on its reclaim meta check)
@@ -156,6 +174,13 @@ class TimeSeriesShard:
         # the FlushScheduler currently driving this shard (set by
         # TimeSeriesMemStore.ingest_stream, or by a caller running one)
         self.flush_scheduler = None
+        # active-series quota (workload/quota.py), consulted right before
+        # a NEW part id is assigned; None = unlimited
+        self.series_quota = None
+        # O(1) churn notes at part-id assignment and evict/purge, plus
+        # set_fn-sampled active-series gauges off this shard's index
+        self.cardinality = CardinalityTracker(dataset, shard_num)
+        self.cardinality.attach_index(self.index)
         # device-resident grids, one per (schema, value column)
         self.device_caches: dict = {}
         # bumped whenever new rows or chunks could change query results
@@ -166,8 +191,10 @@ class TimeSeriesShard:
         """Release what this shard holds beyond its own objects: a flush
         scheduler still attached is closed without flushing (its
         executor threads and sampled gauges go; what is persisted is
-        the caller's choice, made before close).  The integrity hook is
-        a weak reference and needs no unwinding."""
+        the caller's choice, made before close), and the cardinality
+        gauges are deregistered.  The integrity hook is a weak reference
+        and needs no unwinding."""
+        self.cardinality.close()
         sched = self.flush_scheduler
         if sched is not None:
             self.flush_scheduler = None
@@ -219,9 +246,17 @@ class TimeSeriesShard:
             if s0 == s1:
                 continue  # every record of this series was watermark-skipped
             first = int(dec.uniq_first[u])
-            part = self._get_or_add_partition_pk(
-                dec.partkeys[u], schema, int(dec.part_hashes[first]),
-                int(ts_s[s0]))
+            try:
+                part = self._get_or_add_partition_pk(
+                    dec.partkeys[u], schema, int(dec.part_hashes[first]),
+                    int(ts_s[s0]))
+            except SeriesQuotaExceeded:
+                # an over-quota NEW series: its rows drop, the rest of
+                # the container keeps ingesting
+                self.stats.rows_quota_dropped += s1 - s0
+                self.series_quota.note_dropped_samples(
+                    parse_partkey(dec.partkeys[u]), s1 - s0)
+                continue
             added, dropped = self._ingest_series_block(
                 part, ts_s[s0:s1], [c[s0:s1] for c in cols_s])
             added_total += added
@@ -288,9 +323,14 @@ class TimeSeriesShard:
             if offset <= self.group_watermarks[group]:
                 self.stats.rows_skipped += 1
                 continue
-            part = self._get_or_add_partition_pk(
-                rec.partkey(), self.schemas.by_hash(rec.schema_hash),
-                rec.part_hash, rec.timestamp, tags=rec.tags)
+            try:
+                part = self._get_or_add_partition_pk(
+                    rec.partkey(), self.schemas.by_hash(rec.schema_hash),
+                    rec.part_hash, rec.timestamp, tags=rec.tags)
+            except SeriesQuotaExceeded:
+                self.stats.rows_quota_dropped += 1
+                self.series_quota.note_dropped_samples(rec.tags)
+                continue
             if part.ingest(rec.timestamp, rec.values):
                 n += 1
                 self.stats.rows_ingested += 1
@@ -331,6 +371,14 @@ class TimeSeriesShard:
             return part
         if tags is None:
             tags = parse_partkey(pk)
+        if self.series_quota is not None \
+                and not self.series_quota.allow_new_series(
+                    tags, shard=self.shard_num):
+            self.stats.series_quota_rejected += 1
+            tenant = self.series_quota.tenant_of(tags)
+            raise SeriesQuotaExceeded(
+                tenant, self.series_quota.active(tenant),
+                self.series_quota.limit_for(tenant) or 0)
         pid = self._next_part_id
         self._next_part_id += 1
         part = TimeSeriesPartition(pid, schema, pk, tags,
@@ -343,6 +391,7 @@ class TimeSeriesShard:
         self.part_schema_hash[pid] = schema.schema_hash
         self.index.add_partkey(pid, pk, tags, timestamp)
         self.stats.partitions_created += 1
+        self.cardinality.note_created()
         return part
 
     # ------------------------------------------------------------------ flush
@@ -398,8 +447,11 @@ class TimeSeriesShard:
         collected: list[tuple] = []
         try:
             chunksets = []
+            # every frozen buffer of the task in one batch encode, then
+            # each partition's list of chunks not yet persisted
+            drain_pending_batch(task.parts)
             for part in task.parts:
-                fresh = part.collect_flush_chunks()
+                fresh = part.take_unflushed()
                 if fresh:
                     collected.append((part, fresh))
                 chunksets.extend(fresh)
@@ -425,8 +477,11 @@ class TimeSeriesShard:
                                    task.offset)
         self.group_watermarks[task.group] = max(
             self.group_watermarks[task.group], task.offset)
-        self.stats.chunks_flushed += len(chunksets)
-        self.stats.flushes_done += 1
+        # tasks of different groups finish on different executor threads:
+        # a read-modify-write of a counter must not lose an update
+        with self._stats_lock:
+            self.stats.chunks_flushed += len(chunksets)
+            self.stats.flushes_done += 1
         # proactive device-memory reclaim off the query path.  Flush tasks
         # run on executor threads, and torch's current device is per
         # thread: name the store's device for what the reclaim frees
@@ -467,6 +522,43 @@ class TimeSeriesShard:
             # epoch, so the device path excludes the chunk exactly like
             # the host path's read_range does
             self.bump_removal_epoch()
+
+    def evict_partitions(self, n: int) -> int:
+        """Evict up to n longest-stopped partitions (reference
+        :1308-1401).  Their data must already be flushed; the in-memory
+        state and the index entry go, and the partkey is recorded in the
+        evicted bloom filter.  Returns the victims considered."""
+        victims = self.index.part_ids_ordered_by_end_time(n)
+        for pid in victims:
+            part = self.partitions.pop(pid, None)
+            if part is None:
+                continue
+            self.bump_removal_epoch()
+            self.part_set.pop(part.partkey, None)
+            self.evicted_keys.add(part.partkey)
+            self.index.remove([pid])
+            if self.series_quota is not None:
+                self.series_quota.note_removed(part.tags)
+            self.stats.partitions_evicted += 1
+            self.cardinality.note_removed("evict")
+        return len(victims)
+
+    def purge_expired(self, retention_ms: int, now_ms: int) -> int:
+        """Drop partitions whose data aged out entirely (reference
+        :776-795)."""
+        cutoff = now_ms - retention_ms
+        doomed = [pid for pid, p in self.partitions.items()
+                  if p.latest_timestamp < cutoff]
+        for pid in doomed:
+            part = self.partitions.pop(pid)
+            self.bump_removal_epoch()
+            self.part_set.pop(part.partkey, None)
+            self.index.remove([pid])
+            if self.series_quota is not None:
+                self.series_quota.note_removed(part.tags)
+            self.stats.partitions_purged += 1
+            self.cardinality.note_removed("purge")
+        return len(doomed)
 
     def _check_integrity(self) -> None:
         """Hard tripwire: once bookkeeping is known broken, refuse to
@@ -513,9 +605,15 @@ class TimeSeriesShard:
         self._lookup_cache[key] = result
         return result
 
+    def _partition_for_scan(self, part_id: int
+                            ) -> Optional[TimeSeriesPartition]:
+        """Resolve a part id for ``scan_batch``; the paging shard also
+        consults its page cache."""
+        return self.partitions.get(part_id)
+
     def grid_partition(self, part_id: int) -> Optional[TimeSeriesPartition]:
         """Resolve a part id for the device grid's block builds and plan
-        validation."""
+        validation; the paging shard serves paged partitions too."""
         return self.partitions.get(part_id)
 
     # --------------------------------------------------- device-resident scan
@@ -610,7 +708,7 @@ class TimeSeriesShard:
         hist = None  # locked by the first partition: one value type per batch
         bucket_tops = None
         for pid in part_ids:
-            part = self.partitions.get(int(pid))
+            part = self._partition_for_scan(int(pid))
             if part is None:
                 continue
             cid = part.schema.data.value_column_id if column_id is None \

@@ -89,6 +89,15 @@ def _bind(lib):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    for fn in (lib.ll_decode_batch, lib.dbl_decode_batch):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p]
+    lib.page_decode_column.restype = ctypes.c_longlong
+    lib.page_decode_column.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
     # c_char_p: bytes pass zero-copy with no numpy wrapper
     lib.crc32c_buf.restype = ctypes.c_uint32
     lib.crc32c_buf.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
@@ -97,7 +106,17 @@ def _bind(lib):
     lib.crc32c_verify_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    lib.crc32c_verify_spans.restype = ctypes.c_longlong
+    lib.crc32c_verify_spans.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p]
     return lib
+
+
+def build_error() -> str | None:
+    """The compiler error from the last failed build attempt, if any."""
+    _load()
+    return _build_error
 
 
 class _NibbleNative:
@@ -182,6 +201,128 @@ class _LLEncodeNative:
         return _encode_batch(self._lib.ll_encode_batch, arrays, np.int64)
 
 
+class _BatchDecodeNative:
+    """Adapter for chunk.py's batch column decode and the paging shard's
+    bulk page-in: one native call per column over many blobs."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def _decode(self, fn, blobs, counts, dtype):
+        nvec = len(blobs)
+        offs = np.zeros(nvec + 1, dtype=np.int64)
+        np.cumsum([len(b) for b in blobs], out=offs[1:])
+        buf = np.frombuffer(b"".join(blobs), dtype=np.uint8) \
+            if offs[-1] else np.empty(0, np.uint8)
+        out_offs = np.zeros(nvec + 1, dtype=np.int64)
+        np.cumsum(counts, out=out_offs[1:])
+        out = np.empty(max(int(out_offs[-1]), 1), dtype=dtype)
+        got = fn(buf.ctypes.data if len(buf) else None, offs.ctypes.data,
+                 nvec, out.ctypes.data, out_offs.ctypes.data)
+        if got < 0:
+            raise ValueError("corrupt vector in batch decode")
+        return [out[out_offs[i]:out_offs[i + 1]] for i in range(nvec)]
+
+    def ll_decode_batch(self, blobs, counts) -> list[np.ndarray]:
+        return self._decode(self._lib.ll_decode_batch, blobs, counts,
+                            np.int64)
+
+    def dbl_decode_batch(self, blobs, counts) -> list[np.ndarray]:
+        return self._decode(self._lib.dbl_decode_batch, blobs, counts,
+                            np.float64)
+
+    def _frame_buf(self, blobs):
+        nrows = len(blobs)
+        offs = np.zeros(nrows + 1, dtype=np.int64)
+        np.cumsum([len(b) for b in blobs], out=offs[1:])
+        buf = np.frombuffer(b"".join(blobs), dtype=np.uint8) \
+            if offs[-1] else np.empty(0, np.uint8)
+        return buf, offs
+
+    def _verify_spans(self, buf, offs, nrows, crcs) -> bool:
+        """CRC32C-verify every row span of an already-joined frame
+        buffer against its stored checksum (integrity subsystem,
+        deferred-verify contract: the store skipped verification
+        because this decode pass rides the same join).  crc 0 = legacy
+        unchecksummed row, passes.  False on any mismatch — callers
+        return their corrupt sentinel and the generic (store-verified)
+        path takes over."""
+        exp = np.ascontiguousarray(crcs, dtype=np.uint32)
+        ok = np.empty(max(nrows, 1), dtype=np.uint8)
+        bad = self._lib.crc32c_verify_spans(
+            buf.ctypes.data if len(buf) else None, offs.ctypes.data,
+            nrows, exp.ctypes.data, ok.ctypes.data)
+        return bad == 0
+
+    def page_decode(self, blobs, counts, cols, crcs=None):
+        """Decode columns of FRAMED ColumnStore row blobs (pack_vectors
+        layout) — the ODP bulk page-in: one C pass per column over the
+        whole row set, no per-row unpack.  ``cols``: (column_index,
+        is_double) pairs; column 0 is the timestamp vector.  With
+        ``crcs``, every row blob is first CRC32C-verified against its
+        stored checksum on this call's own join (deferred store
+        verification).  Returns one flat array per requested column
+        (int64 or float64, rows adjacent in blob order), or None if any
+        checksum/framing/vector is corrupt (the caller falls back to
+        the per-chunk path, which raises usefully)."""
+        nrows = len(blobs)
+        buf, offs = self._frame_buf(blobs)
+        if crcs is not None and not self._verify_spans(buf, offs, nrows,
+                                                       crcs):
+            return None
+        cnts = np.ascontiguousarray(counts, dtype=np.int64)
+        starts = np.zeros(nrows, dtype=np.int64)
+        np.cumsum(cnts[:-1], out=starts[1:])
+        total = int(cnts.sum())
+        outs = []
+        for col, dbl in cols:
+            out = np.empty(max(total, 1),
+                           dtype=np.float64 if dbl else np.int64)
+            got = self._lib.page_decode_column(
+                buf.ctypes.data if len(buf) else None, offs.ctypes.data,
+                nrows, int(col), 1 if dbl else 0, out.ctypes.data,
+                starts.ctypes.data, cnts.ctypes.data)
+            if got < 0:
+                return None
+            outs.append(out[:total])
+        return outs
+
+    def page_decode_into(self, blobs, counts, specs, out_starts,
+                         crcs=None) -> bool:
+        """Decode framed row blobs DIRECTLY into caller-allocated
+        arrays: row k writes counts[k] values at flat index
+        out_starts[k] of each spec's output.  ``specs``: (column_index,
+        is_double, out_array) with out_array C-contiguous and of the
+        matching dtype — the ODP cold path points these at the padded
+        [S, R] query batch so decode IS the batch assembly.  With
+        ``crcs``, rows are CRC32C-verified on this call's join BEFORE
+        any decode writes (deferred store verification).  False on
+        corrupt input (outputs then hold partial garbage; callers must
+        discard them and fall back)."""
+        nrows = len(blobs)
+        buf, offs = self._frame_buf(blobs)
+        if crcs is not None and not self._verify_spans(buf, offs, nrows,
+                                                       crcs):
+            return False
+        cnts = np.ascontiguousarray(counts, dtype=np.int64)
+        starts = np.ascontiguousarray(out_starts, dtype=np.int64)
+        for col, dbl, out in specs:
+            # raw-pointer writes: a dtype/layout mismatch would corrupt
+            # the heap, so this must raise even under python -O
+            want = np.float64 if dbl else np.int64
+            if not out.flags.c_contiguous or out.dtype != want:
+                raise ValueError(
+                    f"page_decode_into output for column {col} must be "
+                    f"C-contiguous {want.__name__}")
+            got = self._lib.page_decode_column(
+                buf.ctypes.data if len(buf) else None, offs.ctypes.data,
+                nrows, int(col), 1 if dbl else 0, out.ctypes.data,
+                starts.ctypes.data, cnts.ctypes.data)
+            if got < 0:
+                return False
+        return True
+
+
 def _encode_batch(fn, arrays, dtype) -> list[bytes]:
     nvec = len(arrays)
     if nvec == 0:
@@ -249,4 +390,30 @@ def enable() -> bool:
                                            int(WireType.DELTA2))
     deltadelta._native_enc = _LLEncodeNative(lib)
     doublecodec._native = _XorNative(lib)
+    global _batch_dec
+    _batch_dec = _BatchDecodeNative(lib)
     return True
+
+
+def disable() -> None:
+    """Restore the numpy codecs and drop the batch decoder: the paging
+    shard then pages in partition by partition."""
+    from filodb_tpu_torch.codecs import deltadelta, doublecodec, nibblepack
+
+    nibblepack._native = None
+    deltadelta._native = None
+    deltadelta._native_enc = None
+    doublecodec._native = None
+    global _batch_dec
+    _batch_dec = None
+
+
+_batch_dec = None
+
+
+def batch_decoder():
+    """The batch column-decode adapter, or None when :func:`enable` has
+    not installed it (no compiler, or :func:`disable`).  Looked up
+    lazily: ``enable`` runs during the codecs package import, before
+    ``core.chunk`` can be imported."""
+    return _batch_dec

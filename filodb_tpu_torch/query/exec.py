@@ -45,7 +45,8 @@ from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
 from filodb_tpu_torch.utils.observability import TRACER
 
 # the ExecContext of the scan running on THIS thread: the grid seam
-# attributes its device time to the active query through it
+# attributes its device time, and the paging shard its page-ins, to the
+# active query through it
 _ACTIVE = threading.local()
 
 # aggregate operator -> the grouped op the device grid reduces it with;
@@ -100,9 +101,14 @@ class ExecContext:
                     self._counters[k] = self._counters.get(k, 0) + v
 
     def note_counts(self, samples: int = 0, bytes_: int = 0,
+                    chunks: int = 0, pages: int = 0,
                     hbm_dense: int = 0, hbm_compressed: int = 0,
                     hbm_hist: int = 0) -> None:
-        self._add(samples=samples, bytes=bytes_, hbm_dense=hbm_dense,
+        """Scan volume; ``chunks``/``pages`` are the chunks and
+        partitions the paging shard read back from the column store for
+        this query."""
+        self._add(samples=samples, bytes=bytes_, chunks=chunks,
+                  pages=pages, hbm_dense=hbm_dense,
                   hbm_compressed=hbm_compressed, hbm_hist=hbm_hist)
 
     def note_downsample(self, points_in: int = 0,
@@ -119,6 +125,8 @@ class ExecContext:
             stats.timings = dict(self._timings)
             stats.samples_scanned = c.get("samples", 0)
             stats.bytes_scanned = c.get("bytes", 0)
+            stats.chunks_scanned = c.get("chunks", 0)
+            stats.pages_in = c.get("pages", 0)
             stats.downsample_points_in = c.get("ds_in", 0)
             stats.downsample_points_out = c.get("ds_out", 0)
             stats.hbm_read_bytes = {

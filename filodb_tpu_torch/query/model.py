@@ -71,6 +71,10 @@ class QueryStats:
     samples_scanned: int = 0
     series_scanned: int = 0
     bytes_scanned: int = 0
+    # chunks and partitions a paging shard read back from the column
+    # store for this query (page-ins and backfills)
+    chunks_scanned: int = 0
+    pages_in: int = 0
     # per-stage wall seconds (keys: scan, device_compute and the
     # DownsampleMapper's downsample_m4/_readback/_select), accumulated on
     # the shared ExecContext and folded into the root's result

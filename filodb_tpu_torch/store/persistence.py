@@ -31,6 +31,7 @@ import os
 import sqlite3
 import struct
 import threading
+import time
 from typing import Iterator, Sequence
 
 from filodb_tpu_torch import integrity
@@ -135,6 +136,20 @@ class _SerializedConn:
             self._conn.close()
 
 
+def _when_unlocked(fn, *args, wait_s: float = 30.0):
+    """``fn(*args)``, retried while sqlite answers "database is locked"
+    (another store or process over the same file is switching its
+    journal mode), for up to ``wait_s`` like the busy timeout."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            return fn(*args)
+        except sqlite3.OperationalError as e:
+            if "locked" not in str(e) or time.monotonic() > deadline:
+                raise
+            time.sleep(0.005)
+
+
 class _SqliteBase:
     """Shared connection handling: one connection per thread, WAL mode."""
 
@@ -166,12 +181,18 @@ class _SqliteBase:
             return conn
         conn = getattr(self._local, "conn", None)
         if conn is None:
-            conn = sqlite3.connect(self.path, timeout=30.0)
-            conn.execute("PRAGMA journal_mode=WAL")
-            conn.execute("PRAGMA synchronous=NORMAL")
-            # blob reads via mmap skip one kernel->user copy (a bulk
-            # read-back pulls megabytes of chunk blobs)
-            conn.execute("PRAGMA mmap_size=1073741824")
+            # one connection set up at a time: a journal-mode switch that
+            # meets another thread's connection in the middle of its own
+            # switch or DDL is refused ("database is locked") instead of
+            # waiting out the busy timeout, which failed flush tasks when
+            # two executor threads opened the meta store together
+            with self._ddl_lock:
+                conn = sqlite3.connect(self.path, timeout=30.0)
+                _when_unlocked(conn.execute, "PRAGMA journal_mode=WAL")
+                conn.execute("PRAGMA synchronous=NORMAL")
+                # blob reads via mmap skip one kernel->user copy (a bulk
+                # read-back pulls megabytes of chunk blobs)
+                conn.execute("PRAGMA mmap_size=1073741824")
             self._local.conn = conn
         # double-checked locking: the racy read only skips the lock on
         # the hot path; the write side re-checks under _ddl_lock

@@ -6,6 +6,8 @@ flight recorder.
   resident bytes by ``(owner, format)``; a ``weakref.finalize`` on each
   tensor gives its bytes back when PyTorch frees it, so the totals always
   equal the bytes of the live tracked tensors.
+  Host-side byte pools (the paging shard's page cache) register with
+  :meth:`HbmLedger.register_pool` and are sampled when read.
 - :data:`FLIGHT` is a bounded ring of recent structured events (evictions,
   flushes, integrity failures) for postmortems; ``dump_to_log`` writes
   its tail to the log when a shard fails its integrity check.
@@ -18,7 +20,7 @@ import logging
 import threading
 import time
 import weakref
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -30,12 +32,17 @@ class HbmLedger:
     """Process-wide accounting of device-resident bytes by owner/format."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        # reentrant: allocating under the lock (a finalizer, a gauge)
+        # can run the cyclic GC, whose weakref finalizers call _untrack
+        # on this same thread
+        self._lock = threading.RLock()
         self._bytes: dict[tuple, int] = {}     # (owner, fmt) -> live bytes
         self._marks: dict[tuple, int] = {}     # high watermarks
         self._counts: dict[tuple, int] = {}    # live tensor counts
         self._fins: dict[int, object] = {}     # id(tensor) -> finalizer
         self.evictions: dict[tuple, int] = {}  # (owner, reason) -> count
+        # name -> (bytes_fn, budget_fn, fmt): sampled host pools
+        self._pools: dict[str, tuple] = {}
 
     def device_put(self, x: np.ndarray, device, *, owner: str,
                    fmt: str = "dense") -> torch.Tensor:
@@ -66,6 +73,50 @@ class HbmLedger:
             self._fins.pop(key, None)
             self._bytes[lkey] = self._bytes.get(lkey, 0) - nbytes
             self._counts[lkey] = self._counts.get(lkey, 0) - 1
+
+    def register_pool(self, name: str, bytes_fn: Callable[[], int],
+                      budget_fn: Optional[Callable[[], int]] = None,
+                      fmt: str = "odp-page-cache") -> None:
+        """Register a host-side byte pool, sampled at read time; it shows
+        in :meth:`pools` and as ``filodb_device_hbm_bytes{owner=<name>,
+        format=<fmt>}``."""
+        from filodb_tpu_torch.utils.observability import device_metrics
+        with self._lock:
+            self._pools[name] = (bytes_fn, budget_fn, fmt)
+        device_metrics()["hbm_bytes"].set_fn(
+            lambda: float(self._pool_bytes(name)), owner=name, format=fmt)
+
+    def deregister_pool(self, name: str) -> None:
+        from filodb_tpu_torch.utils.observability import device_metrics
+        with self._lock:
+            pool = self._pools.pop(name, None)
+        if pool is not None:
+            device_metrics()["hbm_bytes"].remove(owner=name, format=pool[2])
+
+    def _pool_bytes(self, name: str) -> int:
+        pool = self._pools.get(name)
+        if pool is None:
+            return 0
+        try:
+            return int(pool[0]())
+        except Exception:  # noqa: BLE001 — pool owner shut down
+            return 0
+
+    def pools(self) -> dict:
+        """{name: {bytes, budget}} of every registered pool."""
+        with self._lock:
+            names = list(self._pools.items())
+        out = {}
+        for name, (bytes_fn, budget_fn, _fmt) in names:
+            row = {"bytes": 0}
+            try:
+                row["bytes"] = int(bytes_fn())
+                if budget_fn is not None:
+                    row["budget"] = int(budget_fn())
+            except Exception:  # noqa: BLE001 — pool owner shut down
+                pass
+            out[name] = row
+        return out
 
     def note_eviction(self, owner: str, reason: str, n: int = 1,
                       nbytes: int = 0) -> None:

@@ -168,7 +168,7 @@ def integrity_metrics() -> dict:
             "chunk vectors whose native/numpy decode hit a -1 sentinel"),
         "chunks_verified": REGISTRY.counter(
             "filodb_integrity_chunks_verified_total",
-            "chunk blobs checksum-verified on read-back"),
+            "chunk blobs checksum-verified on read-back or page-in"),
         "chunks_quarantined": REGISTRY.gauge(
             "filodb_integrity_quarantined_chunks",
             "chunks currently excluded from serving by the quarantine"),
@@ -209,6 +209,75 @@ def flush_metrics() -> dict:
             "filodb_flush_last_age_seconds",
             "seconds since the most recent completed flush on any group "
             "of the shard (since scheduler start when none completed)"),
+    }
+
+
+def odp_metrics() -> dict:
+    """On-demand paging (``memstore/odp.py``)."""
+    return {
+        "pagein_seconds": REGISTRY.histogram(
+            "filodb_odp_pagein_seconds",
+            "page-in latency (store read + decode + materialize)"),
+        "partitions": REGISTRY.counter(
+            "filodb_odp_partitions_paged_total",
+            "partitions re-materialized from the column store"),
+        "chunks": REGISTRY.counter(
+            "filodb_odp_chunks_paged_total",
+            "chunks read back from the column store"),
+    }
+
+
+def index_metrics() -> dict:
+    """Part-key-index cardinality and series churn
+    (``memstore/cardinality.py``)."""
+    return {
+        "active_series": REGISTRY.gauge(
+            "filodb_index_cardinality_active_series",
+            "series currently alive in the part-key index, per shard"),
+        "labels": REGISTRY.gauge(
+            "filodb_index_cardinality_labels",
+            "distinct label names carried by alive series, per shard"),
+        "created": REGISTRY.counter(
+            "filodb_index_churn_created_total",
+            "new series assigned a part id, per shard"),
+        "removed": REGISTRY.counter(
+            "filodb_index_churn_removed_total",
+            "series removed from the index, per shard and reason "
+            "(evict | purge)"),
+        "create_rate": REGISTRY.gauge(
+            "filodb_index_churn_create_rate_per_s",
+            "exponentially-decayed series-creation rate, per shard"),
+        "remove_rate": REGISTRY.gauge(
+            "filodb_index_churn_remove_rate_per_s",
+            "exponentially-decayed series-removal rate, per shard"),
+    }
+
+
+def workload_metrics() -> dict:
+    """Active-series quotas (``workload/quota.py``)."""
+    return {
+        "quota_active": REGISTRY.gauge(
+            "filodb_quota_active_series",
+            "active (alive-in-index) series per dataset/tenant"),
+        "quota_limit": REGISTRY.gauge(
+            "filodb_quota_limit_series",
+            "configured active-series limit per dataset/tenant"),
+        "quota_rejected": REGISTRY.counter(
+            "filodb_quota_rejected_series_total",
+            "new series rejected because their tenant is over quota"),
+        "quota_dropped_samples": REGISTRY.counter(
+            "filodb_quota_dropped_samples_total",
+            "samples dropped for over-quota new series"),
+    }
+
+
+def device_metrics() -> dict:
+    """Resident bytes by owner and format, for pools the ledger samples
+    (``devicewatch.LEDGER.register_pool``)."""
+    return {
+        "hbm_bytes": REGISTRY.gauge(
+            "filodb_device_hbm_bytes",
+            "resident bytes by owner and format (sampled pools)"),
     }
 
 

@@ -17,15 +17,16 @@ from filodb_tpu_torch.utils.devicewatch import FLIGHT
 from filodb_tpu_torch.utils.observability import TRACER, flush_metrics
 from tests.torch_durable_data import (GROUPS, INTERVAL, STEP,  # noqa: F401
                                       chunk_rows, clear_quarantines,
-                                      disk_stores, drive, stream, table)
+                                      disk_stores, drive, paging, stream,
+                                      table)
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("kind", ["hours", "minutes"])
 @pytest.mark.parametrize("flush_remaining", [False, True])
-def test_same_flushes_and_checkpoints(tmp_path, kind, flush_remaining):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+def test_same_flushes_and_checkpoints(tmp_path, kind, flush_remaining, paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     records = stream(kind)
     jsched, jsnaps = drive(jshard, records, True, flush_remaining)
     tsched, tsnaps = drive(tshard, records, False, flush_remaining)
@@ -40,13 +41,41 @@ def test_same_flushes_and_checkpoints(tmp_path, kind, flush_remaining):
         {g: offs[-1] for g, offs in tsnaps.items()}
     assert chunk_rows(tmp_path / "ta.db") == chunk_rows(tmp_path / "ja.db")
     assert tshard.group_watermarks == jshard.group_watermarks
-    assert tshard.stats.chunks_flushed == jshard.stats.chunks_flushed
+    # the counters against exact facts: the JAX shard's own counters are
+    # bumped unguarded from two executor threads and may lose an update
+    assert_counters_exact(tmp_path, tsched, tshard)
     assert tsched.queue_depth() == 0
     snap = tsched.snapshot()
     assert snap["pending"] == 0 and len(snap["groups"]) == GROUPS
     if not flush_remaining:
         # a crash: what no flush took stays in memory only
         assert any(p._buf_n for p in tshard.partitions.values())
+
+
+def assert_counters_exact(tmp_path, sched, shard) -> None:
+    """Every chunk row on disk was counted once, every task once."""
+    rows = table(tmp_path / "ta.db", "SELECT COUNT(*) FROM chunks")[0][0]
+    assert shard.stats.chunks_flushed == rows
+    assert shard.stats.flushes_done == sched.flushes_submitted
+
+
+@pytest.mark.parametrize("flush_remaining", [False, True])
+def test_flush_counters_exact_under_thread_switching(tmp_path,
+                                                     flush_remaining):
+    """The minutes stream with the interpreter switching threads every
+    microsecond: the two flush executor threads finish tasks at once, and
+    neither counter may lose an increment."""
+    import sys
+    (_j, _jshard), (_t, tshard) = disk_stores(tmp_path)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        sched, _snaps = drive(tshard, stream("minutes"), False,
+                              flush_remaining)
+    finally:
+        sys.setswitchinterval(old)
+    assert sched.flushes_submitted > 0
+    assert_counters_exact(tmp_path, sched, tshard)
 
 
 def test_boundaries_are_staggered():

@@ -22,7 +22,7 @@ from filodb_tpu_torch import native
 from filodb_tpu_torch.integrity import faultinject, scan
 from filodb_tpu_torch.integrity.quarantine import QuarantineRegistry
 from tests.torch_durable_data import (clear_quarantines,  # noqa: F401
-                                      disk_stores, stream)
+                                      disk_stores, paging, stream)
 
 torch.set_num_threads(1)
 
@@ -137,10 +137,10 @@ def test_byte_ops_match_jax(seed):
         assert mine.truncate(data) == theirs.truncate(data)
 
 
-def _flushed(tmp_path):
+def _flushed(tmp_path, paging=True):
     """Both packages' stores after the same ingest and two flushes (two
     chunks a series)."""
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     for lo, hi in ((0, 20), (20, 40)):
         for off, c in stream()[lo:hi]:
             jshard.ingest_container(c, off)
@@ -151,8 +151,8 @@ def _flushed(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["flip", "truncate", "crc"])
-def test_corrupt_stored_chunk_same_victim_and_error(tmp_path, mode):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_corrupt_stored_chunk_same_victim_and_error(tmp_path, mode, paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     seed = 11
     jv = jfaultinject.FaultInjector(seed).corrupt_stored_chunk(
         j.store, "prom", 0, mode=mode)
@@ -180,8 +180,9 @@ def test_corrupt_stored_chunk_same_victim_and_error(tmp_path, mode):
 
 @pytest.mark.parametrize("mode", ["wire", "flip", "truncate"])
 @pytest.mark.parametrize("seed", [0, 3])
-def test_corrupt_staged_chunk_same_error_fields(tmp_path, mode, seed):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_corrupt_staged_chunk_same_error_fields(tmp_path, mode, seed,
+                                               paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     pid = 4
     jpart, tpart = jshard.partitions[pid], tshard.partitions[pid]
     assert jpart.partkey == tpart.partkey
@@ -216,8 +217,8 @@ def test_corrupt_staged_chunk_same_error_fields(tmp_path, mode, seed):
 # ----------------------------------------------------------------- verifier
 
 @pytest.mark.parametrize("deep", [False, True])
-def test_verify_chunks_matches_jax(tmp_path, deep):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_verify_chunks_matches_jax(tmp_path, deep, paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     base = scan.verify_chunks(t.store, "prom", deep=deep)
     assert base["total_failed"] == 0
     assert base["shards"][0]["chunks"] == base["shards"][0]["passed"] > 0
@@ -261,14 +262,15 @@ def test_invariant_failure_counts_and_logs(caplog):
     assert "flight recorder dump" in caplog.text
 
 
-def test_verify_switch_off_serves_unchecked_rows(tmp_path, monkeypatch):
+def test_verify_switch_off_serves_unchecked_rows(tmp_path, monkeypatch,
+                                                paging):
     """FILODB_INTEGRITY_VERIFY=0 (``set_verify(False)``): read-back skips
     the checksum, so a flipped byte is served as stored and nothing is
     quarantined, in both packages; switched back on, the same read drops
     and quarantines the row."""
     monkeypatch.setattr(integrity, "_VERIFY", integrity.verify_enabled())
     monkeypatch.setattr(jintegrity, "_VERIFY", jintegrity.verify_enabled())
-    (j, _jshard), (t, _tshard) = _flushed(tmp_path)
+    (j, _jshard), (t, _tshard) = _flushed(tmp_path, paging=paging)
     victim = faultinject.FaultInjector(5).corrupt_stored_chunk(
         t.store, "prom", 0)
     assert jfaultinject.FaultInjector(5).corrupt_stored_chunk(
@@ -296,10 +298,10 @@ def test_verify_switch_off_serves_unchecked_rows(tmp_path, monkeypatch):
     assert jintegrity.QUARANTINE.is_quarantined(*victim)
 
 
-def test_failed_shard_refuses_scan_batch(tmp_path):
+def test_failed_shard_refuses_scan_batch(tmp_path, paging):
     """Once ``integrity_failed`` is set, ``scan_batch`` refuses to serve
     with IntegrityInvariantError, as the JAX package's shard does."""
-    (_j, jshard), (_t, tshard) = _flushed(tmp_path)
+    (_j, jshard), (_t, tshard) = _flushed(tmp_path, paging=paging)
     ids = sorted(tshard.partitions)
     tags, batch = tshard.scan_batch(ids, 0, 2**62)
     assert len(tags) == len(ids) and batch is not None

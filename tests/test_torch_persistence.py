@@ -23,16 +23,16 @@ from filodb_tpu_torch.store.persistence import (DiskColumnStore,
                                                 unpack_vectors)
 from tests.torch_durable_data import (INTERVAL, STEP, T0,  # noqa: F401
                                       chunk_rows, clear_quarantines,
-                                      disk_stores, drive, samples, stream,
-                                      table)
+                                      disk_stores, drive, paging, samples,
+                                      stream, table)
 
 torch.set_num_threads(1)
 
 
-def _sync_flushed(tmp_path, cuts=(30, 60, 90)):
+def _sync_flushed(tmp_path, cuts=(30, 60, 90), paging=True):
     """Both stores: ingest up to each cut, then flush every group with a
     fixed ingestion time (so even that column agrees)."""
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     lo = 0
     for i, hi in enumerate(cuts):
         for off, c in stream()[lo:hi]:
@@ -44,8 +44,8 @@ def _sync_flushed(tmp_path, cuts=(30, 60, 90)):
     return (j, jshard), (t, tshard)
 
 
-def test_rows_byte_equal_after_sync_flushes(tmp_path):
-    _sync_flushed(tmp_path)
+def test_rows_byte_equal_after_sync_flushes(tmp_path, paging):
+    _sync_flushed(tmp_path, paging=paging)
     q = "SELECT * FROM chunks ORDER BY partkey, chunk_id"
     got, want = table(tmp_path / "ta.db", q), table(tmp_path / "ja.db", q)
     assert len(got) > 30 and got == want
@@ -57,8 +57,9 @@ def test_rows_byte_equal_after_sync_flushes(tmp_path):
 
 
 @pytest.mark.parametrize("flush_remaining", [False, True])
-def test_rows_byte_equal_after_scheduled_flushes(tmp_path, flush_remaining):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+def test_rows_byte_equal_after_scheduled_flushes(tmp_path, flush_remaining,
+                                                 paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     records = stream()[:70]
     _, jsnaps = drive(jshard, records, True, flush_remaining)
     _, tsnaps = drive(tshard, records, False, flush_remaining)
@@ -71,8 +72,8 @@ def test_rows_byte_equal_after_scheduled_flushes(tmp_path, flush_remaining):
     assert table(tmp_path / "tam.db", q) == table(tmp_path / "jam.db", q)
 
 
-def test_read_back_reopen_and_scans(tmp_path):
-    (j, jshard), (t, tshard) = _sync_flushed(tmp_path)
+def test_read_back_reopen_and_scans(tmp_path, paging):
+    (j, jshard), (t, tshard) = _sync_flushed(tmp_path, paging=paging)
     pks = sorted(p.partkey for p in tshard.partitions.values())
     mem = {p.partkey: p.chunks for p in tshard.partitions.values()}
     for store in (t.store, DiskColumnStore(str(tmp_path / "ta.db"))):
@@ -197,14 +198,14 @@ def test_in_memory_stores_match_jax(tmp_path):
     assert meta.read_highest_checkpoint("prom", 0) == 9
 
 
-def test_recover_index_and_crash_replay_match_jax(tmp_path):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+def test_recover_index_and_crash_replay_match_jax(tmp_path, paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     records = stream()
     crash = len(records) * 3 // 5
     drive(jshard, records[:crash], True, flush_remaining=False)
     drive(tshard, records[:crash], False, flush_remaining=False)
     # a new memstore over the same files: index, watermarks, replay
-    (j2, jshard2), (t2, tshard2) = disk_stores(tmp_path)
+    (j2, jshard2), (t2, tshard2) = disk_stores(tmp_path, paging=paging)
     assert t2.recover_index("prom", 0) == j2.recover_index("prom", 0) > 0
     assert tshard2.part_schema_hash == jshard2.part_schema_hash
     assert tshard2.part_set == jshard2.part_set
@@ -234,8 +235,8 @@ def test_recover_index_and_crash_replay_match_jax(tmp_path):
         assert set(got[pk][0]) <= set(ts)
 
 
-def test_recover_stream_watermark_skip_matches_jax(tmp_path):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+def test_recover_stream_watermark_skip_matches_jax(tmp_path, paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     records = stream()
     for off, c in records[:50]:
         jshard.ingest_container(c, off)
@@ -244,7 +245,7 @@ def test_recover_stream_watermark_skip_matches_jax(tmp_path):
     for g, cut in ((0, 20), (1, 20), (2, 49), (3, 49)):
         for m in (j, t):
             m.meta.write_checkpoint("prom", 0, g, cut)
-    (j2, jshard2), (t2, tshard2) = disk_stores(tmp_path)
+    (j2, jshard2), (t2, tshard2) = disk_stores(tmp_path, paging=paging)
     n = t2.recover_stream("prom", 0, records[21:60])
     assert n == j2.recover_stream("prom", 0, records[21:60]) > 0
     assert tshard2.stats.rows_skipped == jshard2.stats.rows_skipped > 0
@@ -254,8 +255,8 @@ def test_recover_stream_watermark_skip_matches_jax(tmp_path):
         np.testing.assert_array_equal(got[pk][0], want[pk][0])
 
 
-def test_failed_write_requeues_like_jax(tmp_path):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path)
+def test_failed_write_requeues_like_jax(tmp_path, paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, paging=paging)
     for off, c in stream()[:30]:
         jshard.ingest_container(c, off)
         tshard.ingest_container(c, off)
@@ -286,14 +287,14 @@ def test_failed_write_requeues_like_jax(tmp_path):
     assert tshard.stats.flushes_done == jshard.stats.flushes_done
 
 
-def test_ingest_stream_modes_match_jax(tmp_path):
-    (j, jshard), (t, tshard) = disk_stores(tmp_path, "e")
+def test_ingest_stream_modes_match_jax(tmp_path, paging):
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, "e", paging=paging)
     records = stream()[:45]
     assert t.ingest_stream("prom", 0, records, flush_each=10) == \
         j.ingest_stream("prom", 0, records, flush_each=10)
     q = "SELECT * FROM checkpoints ORDER BY grp"
     assert table(tmp_path / "tem.db", q) == table(tmp_path / "jem.db", q)
-    (j, jshard), (t, tshard) = disk_stores(tmp_path, "f")
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, "f", paging=paging)
     assert t.ingest_stream("prom", 0, records, flush_interval_ms=1_800_000) \
         == j.ingest_stream("prom", 0, records, flush_interval_ms=1_800_000)
     assert tshard.flush_scheduler is None
@@ -306,11 +307,12 @@ def test_ingest_stream_modes_match_jax(tmp_path):
     assert not t.has_shard("prom", 0) and not t.drop_shard("prom", 0)
 
 
-def test_ingest_stream_without_final_flush_matches_a_crash(tmp_path):
+def test_ingest_stream_without_final_flush_matches_a_crash(tmp_path,
+                                                          paging):
     """``ingest_stream(flush_remaining=False)`` drains the scheduled
     flushes and leaves the rest buffered: the same rows and checkpoints
     as the JAX package's scheduler closed without a final flush."""
-    (j, jshard), (t, tshard) = disk_stores(tmp_path, "g")
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, "g", paging=paging)
     records = stream()[:70]
     drive(jshard, records, True, flush_remaining=False)
     assert t.ingest_stream("prom", 0, records, flush_interval_ms=INTERVAL,

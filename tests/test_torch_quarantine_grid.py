@@ -58,7 +58,7 @@ from filodb_tpu_torch.query.model import QueryContext
 from filodb_tpu_torch.utils.devicewatch import LEDGER
 from tests.torch_durable_data import (STEP, T0, WINDOW,  # noqa: F401
                                       clear_quarantines, disk_stores,
-                                      stream)
+                                      paging, stream)
 from tests.torch_slice_data import assert_close
 
 torch.set_num_threads(1)
@@ -89,10 +89,10 @@ def _fns(name):
             getattr(F, name) if name else None)
 
 
-def _flushed(tmp_path, name="a"):
+def _flushed(tmp_path, name="a", paging=True):
     """Both stores, every container ingested, flushed twice (chunks of
     rows 0-99 and 100-199), with fixed ingestion times."""
-    (j, jshard), (t, tshard) = disk_stores(tmp_path, name)
+    (j, jshard), (t, tshard) = disk_stores(tmp_path, name, paging=paging)
     recs = stream()
     half = len(recs) // 2
     for lo, hi in ((0, half), (half, len(recs))):
@@ -149,8 +149,8 @@ def _inside(span, info):
 
 
 @pytest.mark.parametrize("span", ["one_block", "two_blocks"])
-def test_quarantined_chunk_left_out_f64(tmp_path, span):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_quarantined_chunk_left_out_f64(tmp_path, span, paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     jids, tids = _ids(jshard, tshard)
     steps0, nsteps = SPANS[span]
     before = tshard.scan_grid(tids, F.RATE, steps0, nsteps, STEP, WINDOW)[1]
@@ -184,8 +184,9 @@ def test_quarantined_chunk_left_out_f64(tmp_path, span):
     assert_close(after[keep], before[keep], False, 1e-12, "others")
 
 
-def test_quarantined_chunk_left_out_packed_f32(tmp_path, f32_residents):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_quarantined_chunk_left_out_packed_f32(tmp_path, f32_residents,
+                                               paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     jids, tids = _ids(jshard, tshard)
     steps0, nsteps = SPANS["one_block"]
     pk, info = _victim_chunk(tshard, tids, SPANS["one_block"])
@@ -216,12 +217,13 @@ def test_quarantined_chunk_left_out_packed_f32(tmp_path, f32_residents):
     assert torch.isnan(got[VICTIM][inside]).all()
 
 
-def test_cache_epoch_drops_blocks_when_the_hook_goes_elsewhere(tmp_path):
+def test_cache_epoch_drops_blocks_when_the_hook_goes_elsewhere(tmp_path,
+                                                              paging):
     """Two port stores over ("prom", 0): the second registration wins the
     shard hook, yet the first store's cache drops its blocks on the
     quarantine epoch and re-stages without the chunk."""
-    (j, jshard), (t, tshard) = _flushed(tmp_path, "a")
-    (_j2, _jshard2), (_t2, tshard2) = _flushed(tmp_path, "b")
+    (j, jshard), (t, tshard) = _flushed(tmp_path, "a", paging=paging)
+    (_j2, _jshard2), (_t2, tshard2) = _flushed(tmp_path, "b", paging=paging)
     jids, tids = _ids(jshard, tshard)
     steps0, nsteps = SPANS["two_blocks"]
     before = tshard.scan_grid(tids, F.RATE, steps0, nsteps, STEP, WINDOW)[1]
@@ -251,8 +253,8 @@ def test_cache_epoch_drops_blocks_when_the_hook_goes_elsewhere(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["wire", "truncate"])
-def test_corrupt_staged_chunk_through_the_grid(tmp_path, mode):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_corrupt_staged_chunk_through_the_grid(tmp_path, mode, paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     jids, tids = _ids(jshard, tshard)
     steps0, nsteps = SPANS["two_blocks"]
     jpart = jshard.partitions[int(jids[VICTIM])]
@@ -290,8 +292,8 @@ def _engines(jms, ms):
                                  spread_default=0))
 
 
-def test_corrupt_chunks_excluded_through_the_engine(tmp_path):
-    (j, jshard), (t, tshard) = _flushed(tmp_path)
+def test_corrupt_chunks_excluded_through_the_engine(tmp_path, paging):
+    (j, jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     jids, tids = _ids(jshard, tshard)
     pk, info = _victim_chunk(tshard, tids, SPANS["two_blocks"])
     jplanner, planner = _engines(j, t)
@@ -376,8 +378,9 @@ def test_hbm_read_bytes_f64_matches_jax(compress):
     _same_hbm_counts(got, want, ["compressed" if compress else "dense"])
 
 
-def test_hbm_read_bytes_packed_matches_jax(tmp_path, f32_residents):
-    (j, _jshard), (t, tshard) = _flushed(tmp_path)
+def test_hbm_read_bytes_packed_matches_jax(tmp_path, f32_residents,
+                                           paging):
+    (j, _jshard), (t, tshard) = _flushed(tmp_path, paging=paging)
     jplanner, planner = _engines(j, t)
     want, got = _hbm_counts(jplanner, planner, j, t,
                             "sum_over_time(m[5m])", SPANS["one_block"][0],

@@ -5,6 +5,7 @@ one time-major container stream, built once with the JAX package's
 ``filodb_tpu_torch`` memstore (``device="cpu"``), each over sqlite files
 of its own under ``tmp_path``."""
 
+import gc
 import sqlite3
 
 import numpy as np
@@ -37,13 +38,34 @@ CONTAINER = 2048         # container bytes: several a set
 N_PODS = 2
 
 
+# memstores a test opened, closed when it ends (see clear_quarantines)
+_OPEN: list = []
+
+
+def opened(*memstores):
+    """Register memstores to be closed when the test ends; returns
+    them."""
+    _OPEN.extend(memstores)
+    return memstores
+
+
 @pytest.fixture(autouse=True)
 def clear_quarantines():
     """Both packages keep a process-wide quarantine: every test starts
-    and ends with both empty, whatever order a worker runs them in."""
+    and ends with both empty, whatever order a worker runs them in.  The
+    memstores the test opened are closed at its end (a paging shard's
+    page-cache pool is registered in a process-wide gauge until then)
+    and their garbage collected here: the JAX package's device ledger
+    takes a plain lock in ``track``, and a cycle collected inside it runs
+    that ledger's finalizers on the same thread, which then wait on the
+    lock forever."""
     integrity.QUARANTINE.clear()
     jintegrity.QUARANTINE.clear()
     yield
+    for ms in _OPEN:
+        ms.reset()
+    _OPEN.clear()
+    gc.collect()
     integrity.QUARANTINE.clear()
     jintegrity.QUARANTINE.clear()
 
@@ -96,20 +118,32 @@ def stream(kind: str = "hours") -> list:
     return _STREAMS[kind]
 
 
-def disk_stores(tmp_path, name: str = "a", groups: int = GROUPS):
+@pytest.fixture(params=[True, False], ids=["paging", "no_paging"])
+def paging(request) -> bool:
+    """``demand_paging_enabled`` for both packages' stores: a test about
+    flushing or integrity runs over paging shards (the default) and
+    plain ones."""
+    return request.param
+
+
+def disk_stores(tmp_path, name: str = "a", groups: int = GROUPS,
+                paging: bool = True):
     """((JAX memstore, shard), (port memstore, shard)) over sqlite files
-    of their own; the JAX store without demand paging (the port has no
-    paging shard yet)."""
+    of their own, both with the same ``demand_paging_enabled``: a paging
+    shard (the default over a disk store) is only ever compared with a
+    paging shard."""
     j = JMemStore(JDiskColumnStore(str(tmp_path / f"j{name}.db")),
                   JDiskMetaStore(str(tmp_path / f"j{name}m.db")))
     jshard = j.setup("prom", J_SCHEMAS, 0,
-                     JStoreConfig(demand_paging_enabled=False,
+                     JStoreConfig(demand_paging_enabled=paging,
                                   groups_per_shard=groups))
     t = TimeSeriesMemStore(DiskColumnStore(str(tmp_path / f"t{name}.db")),
                            DiskMetaStore(str(tmp_path / f"t{name}m.db")),
                            device="cpu")
     tshard = t.setup("prom", DEFAULT_SCHEMAS, 0,
-                     StoreConfig(groups_per_shard=groups))
+                     StoreConfig(demand_paging_enabled=paging,
+                                 groups_per_shard=groups))
+    opened(j, t)
     return (j, jshard), (t, tshard)
 
 
