@@ -164,7 +164,20 @@ Phases, each timed on a line of its own:
    read-back drops and quarantines it, the next query (D2) evicts the
    grid's blocks and re-stages without it (``rate_grid`` again), pod 0
    loses that series' samples in the chunk's span, and the engine
-   counts ``corrupt_chunks_excluded`` 1 inside the window and 0 outside.
+   counts ``corrupt_chunks_excluded`` 1 inside the window and 0 outside;
+   D3 and D4 serve B's history through backfill, then evict every
+   partition and page it back (see ``history_queries`` and
+   ``paged_grid_queries``); D5: A downsamples every flush at 1 min and
+   1 h on the card (the period reduce in f64, every launch timed by the
+   kernel ledger), a watermark ledger samples it (each group's flushed
+   watermark its last snapshot, the checkpoint the meta store's, B's
+   groups starting there), one traced series logs exactly its rows and
+   freezes; D5b, the batch job over A's first flush round, equals what
+   those flushes published, row for row; the ledger over D1 reconciles
+   with the wrappers' counts; a DownsampledTimeSeriesStore on the card
+   serves the 1 min dataset from the grid (B1) and the 1 h one on the
+   general path, against the CPU over the same ds rows, and keeps each
+   counter's increase.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -176,10 +189,12 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 
@@ -214,8 +229,8 @@ DURABLE_WORKERS = 3             # ... the durable stream, beside the build
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-REPS = 10                       # timed repetitions (median)
-ENGINE_REPS = 5                 # warm repetitions of each engine query
+REPS = 5                        # timed repetitions (median)
+ENGINE_REPS = 3                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
 # E4's stdvar is sumsq/n - mean^2 over 1,024 f32 rates summed on the card
@@ -321,6 +336,19 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     wrapper's Python and ctypes overhead is excluded); ``flush`` (run
     before the spin) evicts the L2 cache."""
     import torch
+    from filodb_tpu_torch.utils import devicewatch
+    # the kernel ledger off: a sampled launch waits for its events inside
+    # the pair
+    was = devicewatch.enabled()
+    devicewatch.set_enabled(False)
+    try:
+        return _cuda_ms(fn, reps, flush)
+    finally:
+        devicewatch.set_enabled(was)
+
+
+def _cuda_ms(fn, reps: int, flush) -> float:
+    import torch
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -346,6 +374,8 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
 def spread(xs) -> tuple[float, float]:
     """(p10, p90) of repeated timings, beside their median: how far a
     warm query moves within one run."""
+    if len(xs) < 2:
+        return xs[0], xs[0]
     q = statistics.quantiles(xs, n=10, method="inclusive")
     return q[0], q[-1]
 
@@ -2600,7 +2630,8 @@ def engine_queries():
     ]
 
 
-def run_engine(ms, query: str, span, pixels):
+def run_engine(ms, query: str, span, pixels, dataset: str = "prom",
+               step: int = STEP):
     """One PromQL range query through the port's entry point: parse ->
     plan -> (DownsampleMapper when ?downsample= is given) -> execute,
     then every batch's values on the host (the API edge).  Returns the
@@ -2615,9 +2646,10 @@ def run_engine(ms, query: str, span, pixels):
     t0 = time.perf_counter()
     start, nsteps = span
     qctx = QueryContext(sample_limit=2**40)
-    plan = query_range_to_logical_plan(query, start, STEP,
-                                       start + (nsteps - 1) * STEP)
-    ep = SingleClusterPlanner("prom", ShardMapper(1)).materialize(plan, qctx)
+    plan = query_range_to_logical_plan(query, start, step,
+                                       start + (nsteps - 1) * step)
+    ep = SingleClusterPlanner(dataset, ShardMapper(1)).materialize(plan,
+                                                                   qctx)
     if pixels:
         ep.add_transformer(DownsampleMapper(pixels))
     res = ep.execute(ExecContext(ms, qctx))
@@ -2777,13 +2809,13 @@ class AggregatorDevices:
         return False
 
 
-def warm_engine(ms, query: str, span, pixels, reps: int):
+def warm_engine(ms, query: str, span, pixels, reps: int, **kw):
     """Median wall ms of ``reps`` warm runs, their (p10, p90), and the
     median of each ExecContext stage (scan: lookup + grid or scan_batch;
     device_compute: the grid seam's calls) in ms."""
     walls, stages = [], {}
     for _ in range(reps):
-        res, _host, wall = run_engine(ms, query, span, pixels)
+        res, _host, wall = run_engine(ms, query, span, pixels, **kw)
         walls.append(wall)
         for k, v in res.stats.timings.items():
             stages.setdefault(k, []).append(v * 1e3)
@@ -3194,7 +3226,7 @@ DURABLE_SPAN = (T0 + 201 * STEP, 60)   # the last hour: windows end at rows 200-
 # the port nor the reference serves the repeat hit from the grid
 # (tests/test_torch_odp_grid.py, the undersized page cache)
 DURABLE_PAGE_CACHE = 1 << 30
-HISTORY_REPS = 2                       # warm runs of a general-path query
+HISTORY_REPS = 1                       # warm runs of D4's engine queries
 
 
 def pod_hour_containers(schema, pod: int, seed: int) -> list:
@@ -3287,11 +3319,11 @@ def row_offsets(layout, hour: int, pod: int):
     return first + np.searchsorted(cum, rec, side="right") - 1
 
 
-def durable_store(device, root: str):
+def durable_store(device, root: str, trace=None):
     """A memstore over the sqlite files in ``root``, StoreConfig at its
     defaults (flush-interval 1 h, 60 groups, 400-row chunks, demand
     paging on: a paging shard) but the page cache, sized to the working
-    set (DURABLE_PAGE_CACHE)."""
+    set (DURABLE_PAGE_CACHE), and ``trace_filters`` (``trace``)."""
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
     from filodb_tpu_torch.core.storeconfig import StoreConfig
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
@@ -3302,7 +3334,8 @@ def durable_store(device, root: str):
                             DiskMetaStore(os.path.join(root, "meta.db")),
                             device=device)
     shard = ms.setup("prom", DEFAULT_SCHEMAS, 0,
-                     StoreConfig(page_cache_bytes=DURABLE_PAGE_CACHE))
+                     StoreConfig(page_cache_bytes=DURABLE_PAGE_CACHE,
+                                 trace_filters=trace))
     return ms, shard
 
 
@@ -3310,15 +3343,18 @@ def drive(ms, shard, stream, flush_remaining: bool) -> dict:
     """Ingest ``stream`` through ``ingest_stream``'s scheduled mode, at
     the store's flush-interval and flush-task-parallelism, ending with
     or without a flush of what is buffered (without: a crash).  Records
-    the offset each flush task snapshotted, by group."""
+    the offset each flush task snapshotted, by group, and each task's
+    ingestion time, in submission order."""
     snapped: dict = {}
     tasks = []
+    itimes = []
     prepare = shard.prepare_flush_group
 
     def recording(group, ingestion_time=None):
         task = prepare(group, ingestion_time)
         snapped[group] = task.offset
         tasks.append(group)
+        itimes.append(task.ingestion_time)
         return task
 
     shard.prepare_flush_group = recording
@@ -3332,25 +3368,28 @@ def drive(ms, shard, stream, flush_remaining: bool) -> dict:
     finally:
         del shard.prepare_flush_group
     return {"samples": samples, "seconds": time.perf_counter() - t0,
-            "flush_tasks": len(tasks), "snapped": snapped}
+            "flush_tasks": len(tasks), "snapped": snapped,
+            "task_groups": tasks, "itimes": itimes}
 
 
-def recover(device, root: str, stream) -> tuple:
+def recover(device, root: str, stream, on_prepared=None) -> tuple:
     """Store B over store A's files, recovered the way the reference's
     node does (filodb_tpu/coordinator/node.py:173-215): the index from
-    the persisted part keys, the group watermarks from the checkpoints,
-    then the stream from the resume offset through a new scheduler,
-    flushing what remains at its end."""
+    the persisted part keys, the group watermarks from the checkpoints
+    (``on_prepared(ms)`` is called then), then the stream from the
+    resume offset through a new scheduler, flushing what remains at its
+    end."""
     ms, shard = durable_store(device, root)
     t0 = time.perf_counter()
     n_index = ms.recover_index("prom", 0)
     resume, highest = ms.prepare_recovery("prom", 0)
     if resume is None:
         raise AssertionError("recovery found no checkpoint")
+    prepared = on_prepared(ms) if on_prepared is not None else None
     run = drive(ms, shard, stream[resume:], flush_remaining=True)
     run.update(index=n_index, resume=resume, highest=highest,
                skipped=shard.stats.rows_skipped,
-               seconds=time.perf_counter() - t0)
+               seconds=time.perf_counter() - t0, prepared=prepared)
     return ms, shard, run
 
 
@@ -3562,10 +3601,9 @@ def history_queries(ms, shard, tms, looked, span, cache, qg, qs, counts,
         rows = engine_on_card(f"D3:{kind}", res, host, span, device)
         ref = engine_rows(*run_engine(tms, q, span, None)[:2])
         err = check_engine(f"D3:{kind}", rows, ref, None, RTOL_CPU)
-        warm, wspread, stages = warm_engine(ms, q, span, None,
-                                            HISTORY_REPS)
-        out[kind] = {"cold_wall_ms": cold, "warm_wall_ms": warm,
-                     "warm_wall_p10_p90": wspread, "warm_stage_ms": stages,
+        # no warm run: the general path's warm cost is D4's first hit's
+        # and the cold one's but the backfill (a depth cut, PERF.md §4)
+        out[kind] = {"cold_wall_ms": cold,
                      "cold_stage_seconds": res.stats.timings,
                      "chunks_paged": res.stats.chunks_scanned,
                      "cpu_check_err": err}
@@ -3574,9 +3612,7 @@ def history_queries(ms, shard, tms, looked, span, cache, qg, qs, counts,
             f"{N_ROWS - 1} ({span[1]} steps), {len(rows)} rows: the grid "
             f"refused it (disk floor at row {(floor - T0) // STEP}), the "
             f"general path backfilled from sqlite; cold wall_ms "
-            f"{cold:.3f} (stages {res.stats.timings}), warm median of "
-            f"{HISTORY_REPS} {warm:.3f} (p10 {wspread[0]:.3f}, p90 "
-            f"{wspread[1]:.3f}; stage ms {stages}); cpu-twin check ok "
+            f"{cold:.3f} (stages {res.stats.timings}); cpu-twin check ok "
             f"(max_abs_err {err:.3e}); corrupt_chunks_excluded 1")
     if counts() != before:
         raise AssertionError("D3 launched a grid kernel")
@@ -3737,6 +3773,547 @@ def paged_grid_queries(ms, shard, tms, looked, span, qg, qs, d3, counts,
     return out, plan
 
 
+# ------------------------------------------------------------- D5
+
+DS_RESOLUTIONS = (60_000, 3_600_000)   # the reference's DEFAULT_RESOLUTIONS_MS
+HOUR = 3_600_000
+# store A flushes rows 0-119 of every series before its crash (rows 0-179
+# of the series in pod 0's first container of each hour): the 1 min
+# dataset's windows end inside that span
+DS_MIN_SPAN = (T0 + 66 * STEP, 54)
+# T0 is 14 minutes past an hour: the 1 h periods end after rows 45, 105
+# and 165; the 1 h dataset is asked at the last two, a step an hour
+DS_HOUR_SPAN = (T0 + 106 * STEP, 2)
+DS_QUERIES = (("1m", "grouped", "sum by (pod)(rate(req_total[5m]))"),
+              ("1m", "series", "rate(req_total[5m])"),
+              ("1h", "grouped", "sum by (pod)(increase(req_total[2h]))"))
+TRACED = {"pod": "pod-007", "instance": "i-0042"}   # the traced series
+DS_REPS = 2                            # warm runs of each D5a query
+LEDGER_REPS = 3                        # D1 engine runs a ledger setting
+LEDGER_PROGRAMS = ("devicestore.grouped", "grid.rate_grid")
+
+
+class TaskPublisher:
+    """The in-process downsample publisher, which also files what each
+    flush task published under the task's ingestion time (the flush
+    task's thread names it in ``local.itime``)."""
+
+    def __init__(self):
+        from filodb_tpu_torch.downsample import MemoryDownsamplePublisher
+        self.inner = MemoryDownsamplePublisher()
+        self.local = threading.local()
+        self.by_itime: dict = {}
+        self._lock = threading.Lock()
+
+    def publish(self, resolution_ms, shard, containers) -> None:
+        self.inner.publish(resolution_ms, shard, containers)
+        with self._lock:
+            self.by_itime.setdefault(
+                (getattr(self.local, "itime", None), resolution_ms),
+                []).extend(containers)
+
+    def drain(self, resolution_ms: int) -> list:
+        return self.inner.drain(resolution_ms)
+
+
+def downsample_into(shard, pub: TaskPublisher) -> None:
+    """Store A downsamples every flushed chunk at DS_RESOLUTIONS into
+    ``pub``, each flush task's output filed under its ingestion time."""
+    shard.enable_downsampling(pub, DS_RESOLUTIONS)
+    run = shard.run_flush_task
+
+    def tagged(task):
+        pub.local.itime = task.ingestion_time
+        try:
+            return run(task)
+        finally:
+            pub.local.itime = None
+
+    shard.run_flush_task = tagged
+
+
+class PathSplit:
+    """Counts, a resolution, the series the downsampler's grid path
+    served and those it emitted on the host path (flush-task threads
+    add under a lock)."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.downsample import griddown, sharddown
+        self.grid: dict = {}
+        self.host: dict = {}
+        lock = threading.Lock()
+        self._mods = (griddown, sharddown.ShardDownsampler)
+        self._real = (griddown.grid_outputs,
+                      sharddown.ShardDownsampler._emit)
+        real_grid, real_emit = self._real
+
+        def grid_outputs(staged, res, *a, **kw):
+            got = real_grid(staged, res, *a, **kw)
+            if got is not None:
+                with lock:
+                    self.grid[res] = self.grid.get(res, 0) + int(got[0].sum())
+            return got
+
+        def emit(sampler, builder, tags, ts, cols, res):
+            with lock:
+                self.host[res] = self.host.get(res, 0) + 1
+            return real_emit(sampler, builder, tags, ts, cols, res)
+
+        griddown.grid_outputs = grid_outputs
+        sharddown.ShardDownsampler._emit = emit
+        return self
+
+    def __exit__(self, *exc):
+        griddown, cls = self._mods
+        griddown.grid_outputs, cls._emit = self._real
+        return False
+
+
+class TraceLines(logging.Handler):
+    """Collects the ``filodb.trace`` log lines while installed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list = []
+
+    def __enter__(self):
+        self._log = logging.getLogger("filodb.trace")
+        self._saved = (self._log.level, self._log.propagate)
+        self._log.setLevel(logging.INFO)
+        self._log.propagate = False
+        self._log.addHandler(self)
+        return self
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self)
+        self._log.level, self._log.propagate = self._saved
+        return False
+
+
+def period_reduce_ms(device, shard, reps: int) -> float:
+    """The grid path's period reduce alone, by CUDA events behind a spin
+    kernel (host enqueue excluded), at a flush task's shape: one group's
+    share of the series over the 120 rows a round's grid stages, f64,
+    K = 1 (the 1 h planes cascade on the host)."""
+    import torch
+    from filodb_tpu_torch.downsample import griddown
+
+    n = -(-shard.num_partitions // shard.num_groups)
+    v = torch.rand((120, n), dtype=torch.float64, device=device) * 1e6
+    return cuda_ms(partial(griddown._period_reduce_impl, v, 120, 1), reps)
+
+
+def check_trace(shard, store, lines: list) -> dict:
+    """The traced series (TRACED) logged exactly its ingested rows and
+    its chunk freezes, and nothing was logged for any other series."""
+    from filodb_tpu_torch.memstore.partition import \
+        TracingTimeSeriesPartition
+
+    traced = [p for p in shard.partitions.values()
+              if isinstance(p, TracingTimeSeriesPartition)]
+    if len(traced) != 1 or any(traced[0].tags.get(k) != v
+                               for k, v in TRACED.items()):
+        raise AssertionError(f"traced partitions: "
+                             f"{[p.tags for p in traced]}")
+    part = traced[0]
+    rows = sum(DURABLE_HOURS[:DURABLE_CRASH])
+    ingests = [ln for ln in lines if ln.startswith("TRACE ingest")]
+    freezes = [ln for ln in lines if ln.startswith("TRACE freeze")]
+    on_disk = [c for _pk, cs in store.read_raw_partitions(
+        "prom", 0, [part.partkey], 0, 2**62) for c in cs]
+    if len(ingests) != rows or len(freezes) != len(part.chunks) \
+            or len(freezes) != len(on_disk) \
+            or len(ingests) + len(freezes) != len(lines) \
+            or not all(f"part={part.part_id} " in ln for ln in lines):
+        raise AssertionError(f"trace: {len(ingests)} ingest lines for "
+                             f"{rows} rows, {len(freezes)} freezes for "
+                             f"{len(part.chunks)} chunks ({len(on_disk)} "
+                             f"on disk), {len(lines)} lines in all")
+    return {"part_id": part.part_id, "ingest_lines": len(ingests),
+            "freeze_lines": len(freezes)}
+
+
+def check_watermarks(ledger, snapped: dict, cps: dict, ingested: int,
+                     name: str) -> dict:
+    """A's watermark row after its drive: each group's flushed
+    watermark the offset its last flush task snapshotted, the checkpoint
+    the meta store's, no lag (no broker), no stall."""
+    from filodb_tpu_torch.utils.devicewatch import FLIGHT
+
+    row = ledger.sample()["datasets"]["prom"]["shards"][0]
+    wm = row["watermarks"]
+    groups = [snapped.get(g, -1) for g in range(len(wm["groups"]))]
+    stalls = [e for e in FLIGHT.events(kind="ingest.stall")
+              if e.get("node") == ledger.node]
+    if wm["groups"] != groups or wm["flushed"] != min(groups) \
+            or wm["checkpoint"] != min(cps.values()) \
+            or wm["ingested"] != ingested or row["lag"]["rows"] != 0 \
+            or row["stalled"] or stalls:
+        raise AssertionError(f"{name} watermarks {row}; snapped {snapped}, "
+                             f"checkpoints {cps}, stalls {stalls}")
+    return {"ingested": wm["ingested"], "flushed": wm["flushed"],
+            "checkpoint": wm["checkpoint"], "lag_rows": 0,
+            "stalled": False}
+
+
+def check_recovered_watermarks(node: str, ms, cps: dict) -> dict:
+    """Store B's row just after ``prepare_recovery``: its groups start at
+    A's checkpoints."""
+    from filodb_tpu_torch.memstore.watermarks import WatermarkLedger
+
+    ledger = WatermarkLedger(node=node)
+    ledger.watch("prom", ms)
+    try:
+        wm = ledger.sample()["datasets"]["prom"]["shards"][0]["watermarks"]
+    finally:
+        ledger.close()
+    want = [cps.get(g, -1) for g in range(len(wm["groups"]))]
+    if wm["groups"] != want or wm["checkpoint"] != min(cps.values()):
+        raise AssertionError(f"store B's watermarks {wm}, A's checkpoints "
+                             f"{cps}")
+    return {"groups_from_checkpoints": True, "checkpoint":
+            wm["checkpoint"]}
+
+
+def ds_rows_of_containers(containers, schemas, pk_ids: dict):
+    """(pk id, ts, value bits) rows of published containers, by the
+    native columnar decoder.  A container's part keys are the canonical
+    bytes a chunk carries (``RecordBuilder.series_key``)."""
+    import numpy as np
+    from filodb_tpu_torch.native import ingestfast
+
+    parts = []
+    for c in containers:
+        dec = ingestfast.decode(c, schemas)
+        if dec is None:
+            raise AssertionError("a published container is not columnar")
+        ids = np.asarray([pk_ids.setdefault(bytes(pk), len(pk_ids))
+                          for pk in dec.partkeys], dtype=np.int64)
+        parts.append(np.stack([ids[dec.uniq_idx], dec.ts,
+                               np.asarray(dec.cols[0], np.float64).view(
+                                   np.int64)], axis=1))
+    return np.concatenate(parts) if parts else np.zeros((0, 3), np.int64)
+
+
+def ds_rows_of_chunks(store, dataset: str, schema, pk_ids: dict):
+    """(pk id, ts, value bits) rows of a dataset's chunks, decoded in one
+    native batch."""
+    import numpy as np
+    from filodb_tpu_torch.core.chunk import decode_partitions_batch
+
+    css = list(store.chunksets_by_ingestion_time(dataset, 0, 0, 2**62))
+    parts = []
+    for cs, (ts, cols) in zip(css, decode_partitions_batch(
+            schema, [[cs] for cs in css])):
+        pid = pk_ids.setdefault(bytes(cs.partkey), len(pk_ids))
+        parts.append(np.stack([np.full(len(ts), pid, np.int64), ts,
+                               np.asarray(cols[0], np.float64).view(
+                                   np.int64)], axis=1))
+    return (np.concatenate(parts) if parts else np.zeros((0, 3), np.int64),
+            len(css))
+
+
+def sorted_rows(rows):
+    """Rows by series, each series' rows in the order they came: both
+    sources give one series' rows in time order (a flush task's
+    records, one batch-built chunk)."""
+    import numpy as np
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def batch_job(store, pub: TaskPublisher, itimes: list, device) -> dict:
+    """D5b: ``BatchDownsampler.run_shard`` over store A's chunks of the
+    first round of flush tasks (hour 1's ingestion window, one upstream
+    job run's unit of work); its ds chunks decode row for row to what
+    those flush tasks published, at both resolutions."""
+    import numpy as np
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.downsample import BatchDownsampler, ds_dataset_name
+
+    lo, hi = min(itimes), max(itimes)
+    t0 = time.perf_counter()
+    written = BatchDownsampler("prom", DEFAULT_SCHEMAS, store,
+                               resolutions_ms=DS_RESOLUTIONS,
+                               device=device).run_shard(0, lo, hi)
+    secs = time.perf_counter() - t0
+    out = {"window_ms": [lo, hi], "seconds": secs, "written": written}
+    schema = DEFAULT_SCHEMAS["prom-counter"]
+    for res in DS_RESOLUTIONS:
+        pk_ids: dict = {}
+        flushed = sorted_rows(ds_rows_of_containers(
+            [c for it in set(itimes) for c in pub.by_itime.get((it, res), [])],
+            DEFAULT_SCHEMAS, pk_ids))
+        batch, nchunks = ds_rows_of_chunks(store, ds_dataset_name("prom", res),
+                                           schema, pk_ids)
+        batch = sorted_rows(batch)
+        if nchunks != written[res] or len(batch) == 0 \
+                or len(pk_ids) != REQ_PODS * POD_SERIES \
+                or not np.array_equal(batch, flushed):
+            raise AssertionError(f"D5b at {res} ms: {len(batch)} batch rows "
+                                 f"in {nchunks} chunks, {len(flushed)} "
+                                 f"flush-time rows; equal: "
+                                 f"{np.array_equal(batch, flushed)}")
+        out[str(res)] = {"chunks": nchunks, "rows": int(len(batch)),
+                         "series": len(pk_ids)}
+    log(f"D5b BatchDownsampler.run_shard over store A's first flush round "
+        f"(ingestion times {lo}-{hi}): {written} chunks written in "
+        f"{secs:.3f} s; every row equals the flush-time output, bit for bit "
+        f"(1 min: {out['60000']['rows']} rows, 1 h: "
+        f"{out['3600000']['rows']} rows, {out['60000']['series']} series)")
+    return out
+
+
+def counter_increase(v) -> float:
+    """Prometheus' counter increase over a run of samples: a drop counts
+    as a reset from 0."""
+    import numpy as np
+    v = np.asarray(v, np.float64)
+    d = np.diff(v)
+    return float(np.where(d >= 0, d, v[1:]).sum())
+
+
+def check_hour_increase(ds_shard, series: dict) -> dict:
+    """A counter's downsample keeps its increase: every 1 h dataset value
+    is a raw sample of its period, and each series' increase over its 1 h
+    points equals the raw increase between the rows they carry, exactly
+    (integer-valued f64).  A reset shows in the 1 h data as a point at
+    its pre-reset row followed by a lower one.  Two things hide it, both
+    the reference's design: the counter regrowing past the pre-reset
+    value by the next point, and a split point older than a period end
+    the previous flush already stamped (a partial period), which the
+    dataset drops as out of order.  A series with a hidden reset is
+    counted apart, not checked."""
+    import numpy as np
+
+    pods = sorted(series)
+    ts_raw = np.concatenate([series[p][0] for p in pods])      # [S, rows]
+    v_raw = np.concatenate([series[p][1] for p in pods]).astype(np.float64)
+    phase = ts_raw[:, 0] - T0
+    sidx, t_ds, v_ds = [], [], []
+    for part in list(ds_shard.partitions.values()):
+        t, v = part.read_range(0, 2**62)
+        s = (pods.index(int(part.tags["pod"].split("-")[1])) * POD_SERIES
+             + int(part.tags["instance"].split("-")[1]))
+        sidx.append(np.full(len(t), s))
+        t_ds.append(t)
+        v_ds.append(v)
+    sidx, t_ds, v_ds = (np.concatenate(x) for x in (sidx, t_ds, v_ds))
+    # each point's row: the last raw row of its period holding its value
+    # (samples sit at T0 + row * STEP + phase)
+    hi = np.minimum((t_ds - T0 - phase[sidx]) // STEP, N_ROWS - 1)
+    lo = (t_ds - HOUR - T0 - phase[sidx]) // STEP + 1
+    row = np.full(len(t_ds), -1)
+    for off in range(HOUR // STEP + 1):
+        r = hi - off
+        hit = (row < 0) & (r >= np.maximum(lo, 0)) \
+            & (v_raw[sidx, np.clip(r, 0, N_ROWS - 1)] == v_ds)
+        row[hit] = r[hit]
+    if (row < 0).any():
+        i = int(np.flatnonzero(row < 0)[0])
+        raise AssertionError(f"1 h value {v_ds[i]} at {t_ds[i]} is no raw "
+                             f"sample of its period")
+    same = sidx[1:] == sidx[:-1]
+    d = np.diff(v_ds)
+    ds_inc = np.bincount(sidx[1:], np.where(same, np.where(
+        d >= 0, d, v_ds[1:]), 0.0), minlength=len(v_raw))
+    starts = np.flatnonzero(np.concatenate(([True], ~same)))
+    ends = np.append(starts[1:], len(sidx)) - 1
+    dr = np.diff(v_raw, axis=1)
+    cum = np.concatenate((np.zeros((len(v_raw), 1)), np.cumsum(
+        np.where(dr >= 0, dr, v_raw[:, 1:]), axis=1)), axis=1)
+    s_of = sidx[starts]
+    raw_inc = cum[s_of, row[ends]] - cum[s_of, row[starts]]
+    hidden = resets = 0
+    exact = np.ones(len(starts), bool)
+    for k, (a, b) in enumerate(zip(starts, ends)):
+        s = s_of[k]
+        drops = np.flatnonzero(dr[s, row[a]:row[b]] < 0) + row[a] + 1
+        if not len(drops):
+            continue
+        resets += 1
+        rows = row[a:b + 1]
+        if any(d - 1 not in rows
+               or v_raw[s, rows[rows >= d][0]] >= v_raw[s, d - 1]
+               for d in drops):
+            hidden += 1
+            exact[k] = False
+    bad = exact & (ds_inc[s_of] != raw_inc)
+    if bad.any():
+        k = int(np.flatnonzero(bad)[0])
+        raise AssertionError(f"series {s_of[k]}: 1 h increase "
+                             f"{ds_inc[s_of[k]]}, raw {raw_inc[k]}")
+    return {"series": len(starts), "exact": int(exact.sum()),
+            "with_reset": resets, "reset_hidden": hidden}
+
+
+def check_minute_values(ds_shard, series: dict) -> dict:
+    """The 1 min dataset of one-minute scrapes holds every flushed raw
+    sample: each series' values are its raw rows 0, 1, ..., stamped at
+    the minute's end (a reset's split point at the pre-reset sample's
+    own timestamp), bit for bit."""
+    import numpy as np
+
+    n_rows = 0
+    for part in list(ds_shard.partitions.values()):
+        tags = part.tags
+        pod = int(tags["pod"].split("-")[1])
+        s = int(tags["instance"].split("-")[1])
+        t, v = part.read_range(0, 2**62)
+        rows = (t - T0 - 1) // STEP
+        if not np.array_equal(rows, np.arange(len(rows))) \
+                or not np.array_equal(v.view(np.int64), series[pod][1][s][
+                    rows].astype(np.float64).view(np.int64)):
+            raise AssertionError(f"1 min dataset of {tags}: rows "
+                                 f"{rows[:5]}..., values differ from the "
+                                 f"raw samples")
+        n_rows += len(rows)
+    return {"series": len(ds_shard.partitions), "rows": n_rows}
+
+
+def cpu_twin_ds(ds):
+    """A DownsampledTimeSeriesStore on the CPU holding the card store's
+    ds rows of the first CHECK_PODS pods: the CPU path over the same
+    ds data.  (A second flush-time run would not give the same data:
+    which rows a flush task finds frozen depends on how far its executor
+    lags the ingest, and the 1 h periods split where the chunks do.)"""
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.downsample import (DownsampledTimeSeriesStore,
+                                             ds_dataset_name)
+
+    tds = DownsampledTimeSeriesStore("prom", resolutions_ms=DS_RESOLUTIONS,
+                                     device="cpu")
+    tds.setup(DEFAULT_SCHEMAS, 0)
+    for res in DS_RESOLUTIONS:
+        b = RecordBuilder(DEFAULT_SCHEMAS["prom-counter"])
+        for part in ds.shard(res, 0).partitions.values():
+            tags = part.tags
+            if int(tags["pod"].split("-")[1]) < CHECK_PODS:
+                t, v = part.read_range(0, 2**62)
+                b.add_series(t, [v], tags)
+        for off, c in enumerate(b.containers()):
+            tds.memstore.ingest(ds_dataset_name("prom", res), 0, c, off)
+    return tds
+
+
+def ds_queries(ds, tds, device, counts, reps) -> dict:
+    """D5a: the ds datasets through the engine, on the card's
+    DownsampledTimeSeriesStore and the CPU twin's.  The 1 min dataset is
+    served from the grid (B1; B3 where a block packs); the 1 h one is
+    refused by the grid, as the JAX package's grid refuses it
+    (tests/test_torch_downsample.py), and served by the general path."""
+    import torch
+    from filodb_tpu_torch.downsample import ds_dataset_name
+
+    out = {}
+    for label, kind, q in DS_QUERIES:
+        res_ms = DS_RESOLUTIONS[0] if label == "1m" else DS_RESOLUTIONS[1]
+        span, step = (DS_MIN_SPAN, STEP) if label == "1m" \
+            else (DS_HOUR_SPAN, HOUR)
+        name = ds_dataset_name("prom", res_ms)
+        before = counts()
+        res, host, cold = run_engine(ds.memstore, q, span, None,
+                                     dataset=name, step=step)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in counts().items()}
+        rows = engine_rows(res, host)
+        for k, v in rows.items():
+            if v.shape != (span[1],):
+                raise AssertionError(f"D5a {q}: row {k} shape {v.shape}")
+        if label == "1m" and ran["rate_grid"] + ran["rate_grid_packed"] < 1:
+            raise AssertionError(f"D5a {q}: the grid did not serve the 1 min "
+                                 f"dataset ({ran})")
+        if label == "1h" and any(ran.values()):
+            raise AssertionError(f"D5a {q}: the grid served the 1 h dataset "
+                                 f"({ran}), which the JAX grid refuses")
+        twin = engine_rows(*run_engine(tds.memstore, q, span, None,
+                                       dataset=name, step=step)[:2])
+        err = check_engine(f"D5a {label} {kind}", rows, twin, None, RTOL_CPU)
+        warm, wspread, stages = warm_engine(ds.memstore, q, span, None, reps,
+                                            dataset=name, step=step)
+        served = [k for k, n in ran.items() if n] or ["general path"]
+        out[f"{label}:{kind}"] = {
+            "query": q, "served_by": served, "launches": ran,
+            "cold_wall_ms": cold, "warm_wall_ms": warm,
+            "warm_wall_p10_p90": wspread, "warm_stage_ms": stages,
+            "rows": len(rows), "cpu_check_err": err}
+        log(f"D5a {label} dataset {q!r}: served by {served} (launches "
+            f"{ran}), {len(rows)} rows; cold wall_ms {cold:.3f}, warm "
+            f"median of {reps} {warm:.3f} (p10 {wspread[0]:.3f}, p90 "
+            f"{wspread[1]:.3f}; stage ms {stages}); cpu-twin check ok "
+            f"(max_abs_err {err:.3e}, rtol {RTOL_CPU})")
+    return out
+
+
+def ledger_on_d1(ms, reps: int) -> dict:
+    """D1 through the engine with every launch sampled: each program's
+    ledger launches equal its wrapper's count (``devicestore.grouped``
+    one a query), every sampled time finite and positive, each query's
+    ``device_programs`` present and within its wall; then D1's warm wall
+    at the default 1-in-64 against the ledger switched off."""
+    import math
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.utils import devicewatch as dw
+
+    q = "sum by (pod)(rate(req_total[5m]))"
+    run_engine(ms, q, DURABLE_SPAN, None)             # warm
+    rows0 = {r["program"]: r for r in dw.KERNEL_TIMER.table()}
+    b1 = grid.rate_grid.launches
+    dw.KERNEL_TIMER.configure(sample_1_in=1)
+    try:
+        shares = []
+        for _ in range(reps):
+            res, _host, wall = run_engine(ms, q, DURABLE_SPAN, None)
+            progs = res.stats.device_programs
+            if set(progs) != set(LEDGER_PROGRAMS) or not all(
+                    math.isfinite(s) and s > 0 for s in progs.values()) \
+                    or sum(progs.values()) * 1e3 > wall:
+                raise AssertionError(f"device_programs {progs} of a "
+                                     f"{wall:.3f} ms query")
+            shares.append(sum(progs.values()) * 1e3 / wall)
+    finally:
+        dw.KERNEL_TIMER.configure(sample_1_in=64)
+    rows1 = {r["program"]: r for r in dw.KERNEL_TIMER.table()}
+    want = {"devicestore.grouped": reps,
+            "grid.rate_grid": grid.rate_grid.launches - b1}
+    out = {"queries": reps, "device_share_of_wall": shares}
+    for p in LEDGER_PROGRAMS:
+        a, b = rows0.get(p, {}), rows1[p]
+        n = b["launches"] - a.get("launches", 0)
+        sampled = b["sampled"] - a.get("sampled", 0)
+        secs = b["device_seconds"] - a.get("device_seconds", 0.0)
+        if n != want[p] or sampled != n or not (
+                math.isfinite(secs) and secs > 0):
+            raise AssertionError(f"ledger {p}: {n} launches ({want[p]} "
+                                 f"counted), {sampled} sampled, {secs} s")
+        out[p] = {"launches": n, "sampled_ms_mean": secs * 1e3 / sampled}
+    # in turns, the ledger on (1 in 64) and off, so that drift between
+    # runs falls on both
+    walls: dict = {True: [], False: []}
+    try:
+        for i in range(2 * reps):
+            dw.set_enabled(i % 2 == 0)
+            walls[i % 2 == 0].append(run_engine(ms, q, DURABLE_SPAN,
+                                                None)[2])
+    finally:
+        dw.set_enabled(True)
+    on = (statistics.median(walls[True]),)
+    off = (statistics.median(walls[False]),)
+    out.update(warm_wall_ms_1_in_64=on[0], warm_wall_ms_off=off[0])
+    log(f"ledger over D1's engine query, every launch sampled: "
+        f"{reps} queries, ledger launches "
+        f"{ {p: out[p]['launches'] for p in LEDGER_PROGRAMS} } equal the "
+        f"wrappers' counts, sampled ms "
+        f"{ {p: round(out[p]['sampled_ms_mean'], 4) for p in LEDGER_PROGRAMS} }"
+        f", device_programs at most {max(shares):.3f} of each wall; warm "
+        f"wall_ms in turns, median of {reps} each: at 1-in-64 {on[0]:.3f}, "
+        f"ledger off {off[0]:.3f}")
+    return out
+
+
 def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                   report: dict) -> dict:
     """Persistence, integrity and flush: ``req_total`` (100 pods x 1,024
@@ -3757,11 +4334,18 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
     from filodb_tpu_torch.integrity.scan import verify_chunks
     from filodb_tpu_torch.ops import grid
     from filodb_tpu_torch.query.logical import RangeFunctionId as F
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.downsample import (DownsampledTimeSeriesStore,
+                                             ds_dataset_name)
+    from filodb_tpu_torch.memstore.watermarks import (WatermarkLedger,
+                                                      WatermarkSampler)
+    from filodb_tpu_torch.utils import devicewatch
     from filodb_tpu_torch.utils.devicewatch import FLIGHT, LEDGER
     from filodb_tpu_torch.utils.observability import (flush_metrics,
                                                       integrity_metrics)
 
     out: dict = {}
+    d5: dict = {}
     stores = []                 # every memstore opened, shut down at the end
     # the sqlite files live in the checkout's git-ignored build directory
     build = os.path.join(HERE, "filodb_tpu_torch", "_build")
@@ -3789,10 +4373,29 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
             h0 = hist.counts(dataset="prom")
             seq0 = max((e["seq"] for e in FLIGHT.events(kind="flush")),
                        default=-1)
-            ms_a, shard_a = durable_store(device, os.path.join(root, "card"))
+            ms_a, shard_a = durable_store(device, os.path.join(root, "card"),
+                                          trace=TRACED)
             stores.append(ms_a)
-            run_a = drive(ms_a, shard_a, stream[:crash_at],
-                          flush_remaining=False)
+            # D5: A downsamples every flush at 1 min and 1 h, a watermark
+            # ledger samples it each second, one series is traced, and
+            # the kernel ledger times every period reduce
+            pub_a = TaskPublisher()
+            downsample_into(shard_a, pub_a)
+            ledger = WatermarkLedger(node="chip-smoke-a")
+            ledger.watch("prom", ms_a)
+            sampler = WatermarkSampler(ledger, interval_s=1.0)
+            reduce0 = {r["program"]: r for r in
+                       devicewatch.KERNEL_TIMER.table()}.get(
+                           "griddown.period_reduce", {})
+            devicewatch.KERNEL_TIMER.configure(sample_1_in=1)
+            sampler.start()
+            try:
+                with PathSplit() as split, TraceLines() as trace:
+                    run_a = drive(ms_a, shard_a, stream[:crash_at],
+                                  flush_remaining=False)
+            finally:
+                sampler.stop()
+                devicewatch.KERNEL_TIMER.configure(sample_1_in=64)
             h1 = hist.counts(dataset="prom")
             secs = sorted(e["seconds"] for e in FLIGHT.events(kind="flush")
                           if e["seq"] > seq0)
@@ -3821,7 +4424,49 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"own p50 {ex50:.4g} s p99 {ex99:.4g} s), sqlite "
                 f"{mb:.1f} MB and its write-ahead log {wal_mb:.1f} MB; "
                 f"checkpoints {run_a['checkpoints']}")
-            del run_a["snapped"]
+            d5["watermarks_a"] = check_watermarks(
+                ledger, run_a["snapped"], cps, crash_at - 1, "store A")
+            ledger.close()
+            d5["trace"] = check_trace(shard_a, ms_a.store, trace.lines)
+            red = {r["program"]: r for r in
+                   devicewatch.KERNEL_TIMER.table()}[
+                       "griddown.period_reduce"]
+            n_red = red["launches"] - reduce0.get("launches", 0)
+            red_s = red["device_seconds"] - reduce0.get("device_seconds", 0)
+            if n_red < 1 or red["sampled"] - reduce0.get("sampled", 0) \
+                    != n_red or not red_s > 0:
+                raise AssertionError(f"period reduce on the card: {red}")
+            reduce_ms = period_reduce_ms(device, shard_a, reps)
+            groups, itimes = run_a["task_groups"], run_a["itimes"]
+            ngroups = shard_a.num_groups
+            if sorted(groups[:ngroups]) != list(range(ngroups)) \
+                    or max(itimes[:ngroups]) >= min(itimes[ngroups:]):
+                raise AssertionError("the first flush round is not one "
+                                     "task a group before the second")
+            round1 = itimes[:ngroups]
+            d5["ingest"] = {
+                "flush_task_p50_s": float(ex50),
+                "flush_task_p99_s": float(ex99),
+                "period_reduce": {"launches": n_red, "event_span_s": red_s,
+                                  "ewma_ms": red["ewma_device_s"] * 1e3,
+                                  "device_ms_at_task_shape": reduce_ms},
+                "grid_series": split.grid, "host_series": split.host,
+                "published_containers": {
+                    str(r): len(pub_a.inner.published[r])
+                    for r in DS_RESOLUTIONS}}
+            log(f"D5 store A downsampled as it flushed, at {DS_RESOLUTIONS} "
+                f"ms: flush tasks p50 {ex50:.4g} s p99 {ex99:.4g} s; {n_red} "
+                f"period reduces on the card, {red_s * 1e3:.3f} ms of event "
+                f"span "
+                f"(CUDA events, every launch sampled; EWMA "
+                f"{red['ewma_device_s'] * 1e3:.4f} ms; the reduce alone at a "
+                f"flush task's shape, behind a spin kernel: {reduce_ms:.4f} "
+                f"ms); series on the grid "
+                f"path {split.grid}, on the host path {split.host}; "
+                f"watermarks {d5['watermarks_a']} (each group at its last "
+                f"snapshot, the checkpoint the meta store's); the traced "
+                f"series {TRACED}: {d5['trace']}")
+            del run_a["snapped"], run_a["task_groups"], run_a["itimes"]
             out["store_a"] = run_a
 
         with Phase("durable.read_back"):
@@ -3845,9 +4490,15 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"({rb['verify_gb_s']:.3f} GB/s of {nbytes} blob bytes)")
             out["read_back"] = rb
 
+        with Phase("durable.batch_downsample"):
+            d5["batch"] = batch_job(ms_a.store, pub_a, round1, device)
+
         with Phase("durable.recover"):
-            ms_b, shard_b, run_b = recover(device, os.path.join(root, "card"),
-                                           stream)
+            ms_b, shard_b, run_b = recover(
+                device, os.path.join(root, "card"), stream,
+                on_prepared=partial(check_recovered_watermarks,
+                                    "chip-smoke-b", cps=cps))
+            d5["watermarks_b"] = run_b.pop("prepared")
             stores.append(ms_b)
             if run_b["index"] != REQ_PODS * POD_SERIES:
                 raise AssertionError(f"recover_index: {run_b['index']} part "
@@ -3863,7 +4514,7 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"{run_b['skipped']} records skipped below their group's "
                 f"watermark), {run_b['flush_tasks']} flush tasks, "
                 f"{run_b['chunks']} chunks; recovery {run_b['seconds']:.3f} s")
-            del run_b["snapped"]
+            del run_b["snapped"], run_b["task_groups"], run_b["itimes"]
             out["store_b"] = run_b
 
         with Phase("durable.cpu_twin"):
@@ -3938,6 +4589,9 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"{err:.3e}); warm median of {reps} wall_ms "
                 f"{serve['warm_wall_ms']:.3f} (p10 {p10:.3f}, p90 {p90:.3f})")
             out["serve"] = serve
+
+        with Phase("durable.ledger"):
+            d5["ledger"] = ledger_on_d1(ms_b, LEDGER_REPS)
 
         with Phase("durable.quarantine"):
             ids, _gids, pods, tags = looked
@@ -4049,8 +4703,13 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                                    ref_looked, nsteps, device))
             inside_q = run_engine(ms_b, "sum by (pod)(rate(req_total[5m]))",
                                   DURABLE_SPAN, None)[0]
+            # outside: the windows after the chunk, which the replayed
+            # residents serve (the backfill path is D3's)
+            first = (cs.info.end_time - T0 + WINDOW) // STEP + 1
+            outside = (T0 + first * STEP, N_ROWS - first) \
+                if first < N_ROWS else (T0 + 130 * STEP, 20)
             outside_q = run_engine(ms_b, "sum by (pod)(rate(req_total[5m]))",
-                                   (T0 + 130 * STEP, 20), None)[0]
+                                   outside, None)[0]
             n_in = inside_q.stats.corrupt_chunks_excluded
             n_out = outside_q.stats.corrupt_chunks_excluded
             if (n_in, n_out) != (1, 0):
@@ -4063,7 +4722,8 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                                                                 plan.phase),
                 "mode_after": grid._mode_for(plan2.q, plan2.phase),
                 "cpu_check_err": err2,
-                "corrupt_chunks_excluded": [n_in, n_out]}
+                "corrupt_chunks_excluded": [n_in, n_out],
+                "outside_span": list(outside)}
             log(f"D2: the next query saw the quarantine epoch: LEDGER "
                 f"integrity_quarantine evicted {evicted} blocks, re-staged in "
                 f"{restage:.3f} s, launches {ran2} ({quarantine['mode_before']}"
@@ -4071,7 +4731,9 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 f"the chunk's span out, every other pod "
                 f"{'bit-equal' if same_mode else 'within rtol'}; cpu-twin check "
                 f"ok (max_abs_err {err2:.3e}); engine corrupt_chunks_excluded "
-                f"{n_in} inside the window, {n_out} outside")
+                f"{n_in} inside the window, {n_out} outside (windows "
+                f"ending at rows {(outside[0] - T0) // STEP}-"
+                f"{(outside[0] - T0) // STEP + outside[1] - 1})")
             out["quarantine"] = quarantine
 
         victim = (part.partkey, cs.info.start_time, cs.info.end_time)
@@ -4125,6 +4787,38 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                                            hspan, qg, qs, d3, counts, reps,
                                            device)
             history["d4"] = d4
+
+        with Phase("durable.downsampled"):
+            ds = DownsampledTimeSeriesStore("prom",
+                                            resolutions_ms=DS_RESOLUTIONS,
+                                            device=device)
+            ds.setup(DEFAULT_SCHEMAS, 0)
+            stores.append(ds.memstore)
+            t0 = time.perf_counter()
+            n_ds = ds.ingest_from_publisher(pub_a)
+            ingest_s = time.perf_counter() - t0
+            log(f"D5a: a DownsampledTimeSeriesStore on the card ingested "
+                f"store A's flush-time output, {n_ds} samples at "
+                f"{DS_RESOLUTIONS} ms, in {ingest_s:.3f} s "
+                f"({n_ds / ingest_s:.4g} samples/s)")
+            t0 = time.perf_counter()
+            d5["minute_values"] = check_minute_values(
+                ds.shard(DS_RESOLUTIONS[0], 0), series)
+            log(f"D5a 1 min dataset: every value is its row's raw sample, "
+                f"bit for bit: {d5['minute_values']}, "
+                f"{time.perf_counter() - t0:.3f} s")
+            tds = cpu_twin_ds(ds)
+            stores.append(tds.memstore)
+            d5["queries"] = ds_queries(ds, tds, device, counts, DS_REPS)
+            plan_ds = list(grid_cache(ds.shard(DS_RESOLUTIONS[0], 0),
+                                      False)._plan_memo.values())[-1]
+            t0 = time.perf_counter()
+            d5["hour_increase"] = check_hour_increase(
+                ds.shard(DS_RESOLUTIONS[1], 0), series)
+            log(f"D5a 1 h dataset keeps each counter's increase: "
+                f"{d5['hour_increase']} (exact in f64), "
+                f"{time.perf_counter() - t0:.3f} s")
+            d5["ds_ingest"] = {"samples": n_ds, "seconds": ingest_s}
         launched = {k: v for k, v in counts().items()}
         direct = grid.rate_grid.direct
         if launched["rate_grid"] < 1:
@@ -4136,8 +4830,18 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
         with Phase("durable.kernels_at_path_shapes"):
             rows = [plan_kernel_times("D1", plan, reps, flush)[1],
                     plan_kernel_times("D2", plan2, reps, flush)[1],
-                    plan_kernel_times("D4", plan4, reps, flush)[1]]
-        out.update(launches=launched, rate_grid_direct=direct, rows=rows)
+                    plan_kernel_times("D4", plan4, reps, flush)[1],
+                    plan_kernel_times("D5a", plan_ds, reps, flush)[1]]
+        led = d5["ledger"]
+        log(f"the ledger's sampled ms over D1 (grid.rate_grid "
+            f"{led['grid.rate_grid']['sampled_ms_mean']:.4f}, "
+            f"devicestore.grouped "
+            f"{led['devicestore.grouped']['sampled_ms_mean']:.4f}) beside "
+            f"B1's CUDA-event time at D1's inputs, L2 flushed: "
+            f"{rows[0]['ms']:.4f} ms")
+        d5["d1_kernel_ms"] = rows[0]["ms"]
+        out.update(launches=launched, rate_grid_direct=direct, rows=rows,
+                   d5=d5)
     finally:
         integrity.QUARANTINE.clear()
         for ms in stores:

@@ -180,14 +180,25 @@ class RecordBuilder:
             for i, t in enumerate(timestamps):
                 self.add(int(t), [col[i] for col in columns], tags)
             return n
+        return self.add_series_hashed(timestamps, columns,
+                                      *self.series_key(tags))
+
+    def series_key(self, tags: Mapping[str, str]) -> tuple[int, int, bytes]:
+        """A series' (shard-key hash, partition hash, partkey), its tags
+        normalized to the metric column: what :meth:`add_series_hashed`
+        takes, for callers adding one series more than once."""
         mcol = self.options.metric_column
         if mcol != "__name__" and "__name__" in tags:
             norm = dict(tags)
             norm[mcol] = norm.pop("__name__")
             tags = norm
-        return self.add_series_hashed(
-            timestamps, columns, shard_key_hash(tags, self.options),
-            partition_hash(tags, self.options), canonical_partkey(tags))
+        pk = canonical_partkey(tags)
+        # the partition hash is the partkey's own unless a tag it ignores
+        # is present
+        ignored = self.options.ignore_tags_on_partition_key_hash
+        phash = partition_hash(tags, self.options) \
+            if any(k in tags for k in ignored) else stable_hash32(pk)
+        return shard_key_hash(tags, self.options), phash, pk
 
     def add_series_hashed(self, timestamps: Sequence,
                           columns: Sequence[Sequence], shash: int,
@@ -197,18 +208,30 @@ class RecordBuilder:
         series across batches, so recomputing them per call would be
         a third of its cost.  Numeric schemas only (the caller already
         normalized tags into ``pk``)."""
+        return self.add_records_hashed(
+            timestamps, columns, shash, phash, len(pk),
+            np.frombuffer(pk, dtype=np.uint8).view(f"V{len(pk)}")
+            if pk else None)
+
+    def add_records_hashed(self, timestamps: Sequence,
+                           columns: Sequence[Sequence], shash, phash,
+                           pklen: int, pks) -> int:
+        """Records of many series at once, their partkeys all ``pklen``
+        bytes long: ``shash``, ``phash`` and ``pks`` (``V<pklen>``) are
+        each a value for all records or an array of one a record, in the
+        records' order.  Numeric schemas only."""
         n = len(timestamps)
         if n == 0:
             return 0
-        rec = np.zeros(n, dtype=record_dtype(self.schema, len(pk)))
+        rec = np.zeros(n, dtype=record_dtype(self.schema, pklen))
         rec["schema"] = self.schema.schema_hash
         rec["shash"] = shash
         rec["phash"] = phash
         rec["ts"] = np.asarray(timestamps, dtype=np.int64)
         self._fill_value_cols(rec, columns)
-        rec["pklen"] = len(pk)
-        if pk:
-            rec["pk"] = np.frombuffer(pk, dtype=np.uint8).view(f"V{len(pk)}")
+        rec["pklen"] = pklen
+        if pklen:
+            rec["pk"] = pks
         self.append_encoded(rec.tobytes(), rec.dtype.itemsize, n)
         return n
 

@@ -6,7 +6,7 @@ IngestionConfig.scala:202 and conf/timeseries-dev-source.conf:28-102).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Mapping, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +47,20 @@ class StoreConfig:
     # (1-frac) of budget off the query path (reference: BlockManager
     # ensureHeadroomPercentAvailable headroom task)
     device_headroom_frac: float = 0.1
+    # tag subset selecting series created as TracingTimeSeriesPartition
+    # (reference: `trace-filters` config -> TimeSeriesPartition.scala:451)
+    trace_filters: Optional[Mapping] = None
+
+
+def parse_bool(v) -> bool:
+    """Config booleans arrive as real bools or as strings from config
+    files; ``bool('false')`` is True, which would defeat every
+    string-valued kill switch."""
+    if isinstance(v, str):
+        lv = v.strip().lower()
+        if lv in ("true", "yes", "on", "1"):
+            return True
+        if lv in ("false", "no", "off", "0"):
+            return False
+        raise ValueError(f"not a boolean config value: {v!r}")
+    return bool(v)

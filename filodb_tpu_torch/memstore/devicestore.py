@@ -38,7 +38,9 @@ Each query runs one of four programs, all plain functions on tensors:
 ``series``/``grouped`` over decoded planes (:func:`rate_grid` kernel)
 and ``series_packed``/``grouped_packed`` over one packed block
 (:func:`rate_grid_packed` kernel); the grouped ones reduce lanes to
-``[G, T]`` partials on the device before the one readback.
+``[G, T]`` partials on the device before the one readback.  Each is a
+program of the kernel ledger (``devicestore.series`` and so on,
+``utils/devicewatch.timed``), credited with its plan's resident bytes.
 
 Histogram columns (``hist=True`` caches) give each partition ``hb``
 adjacent device columns, one a cumulative bucket, and run the same
@@ -63,7 +65,7 @@ from filodb_tpu_torch.ops.grid import (DENSE_ONLY_OPS, PHASE_OPS, TS_FREE_OPS,
                                        rate_grid, rate_grid_packed,
                                        supports_grid, widen_words)
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
-from filodb_tpu_torch.utils.devicewatch import LEDGER
+from filodb_tpu_torch.utils.devicewatch import KERNEL_TIMER, LEDGER, timed
 from filodb_tpu_torch.utils.observability import query_metrics
 
 BLOCK_BUCKETS = 128
@@ -300,26 +302,49 @@ def series_inputs(plan: _GridPlan) -> tuple:
     return ts_sl, val_sl, plan.steps0_rel, plan.q, plan.phase
 
 
-def series_program(plan: _GridPlan):
-    """Block concat, row slice and the grid kernel: ``[T, ncols]``."""
+def _series_impl(plan: _GridPlan):
     ts_sl, val_sl, steps0, q, phase = series_inputs(plan)
     return rate_grid(ts_sl, val_sl, steps0, q, phase=phase)
 
 
-def grouped_program(plan: _GridPlan, garr, num_groups: int, op: str):
-    return _grouped_reduce_impl(series_program(plan), garr, num_groups, op)
-
-
-def series_packed_program(plan: _GridPlan):
-    """The packed kernel on one block: ``[T, packed width]``."""
+def _series_packed_impl(plan: _GridPlan):
     return rate_grid_packed(plan.packed, plan.steps0_rel, plan.q,
                             row0=plan.packed_row0,
                             use_phase=plan.packed_use_phase)
 
 
+@timed(program="devicestore.series")
+def series_program(plan: _GridPlan):
+    """Block concat, row slice and the grid kernel: ``[T, ncols]``."""
+    return _series_impl(plan)
+
+
+@timed(program="devicestore.grouped")
+def grouped_program(plan: _GridPlan, garr, num_groups: int, op: str):
+    return _grouped_reduce_impl(_series_impl(plan), garr, num_groups, op)
+
+
+@timed(program="devicestore.series_packed")
+def series_packed_program(plan: _GridPlan):
+    """The packed kernel on one block: ``[T, packed width]``."""
+    return _series_packed_impl(plan)
+
+
+@timed(program="devicestore.grouped_packed")
 def grouped_packed_program(plan: _GridPlan, garr, num_groups: int, op: str):
-    return _grouped_reduce_impl(series_packed_program(plan), garr,
+    return _grouped_reduce_impl(_series_packed_impl(plan), garr,
                                 num_groups, op)
+
+
+def _note_kernel_bytes(prog_fn, plan: _GridPlan) -> None:
+    """Credit the plan's resident bytes to the program about to run: the
+    numerator of the kernel ledger's achieved bytes/s.  The name comes
+    off the callable (``timed`` stamps ``_program``), so a rename cannot
+    decouple the bytes from the launches."""
+    program = getattr(prog_fn, "_program", None)
+    if program:
+        KERNEL_TIMER.note_bytes(
+            program, plan.hbm_dense + plan.hbm_comp + plan.hbm_comp_hist)
 
 
 def _ids_fingerprint(part_ids) -> int:
@@ -572,10 +597,12 @@ class DeviceGridCache:
             n_pk = int(plan.packed["first"].shape[0])
             garr_pk = np.full(n_pk, slots, dtype=np.int32)
             garr_pk[plan.packed_inv] = garr
+            _note_kernel_bytes(grouped_packed_program, plan)
             both = grouped_packed_program(
                 plan, torch.as_tensor(garr_pk, device=self.device),
                 slots, op)
         else:
+            _note_kernel_bytes(grouped_program, plan)
             both = grouped_program(
                 plan, torch.as_tensor(garr, device=self.device), slots, op)
         if self.hist:
@@ -592,10 +619,10 @@ class DeviceGridCache:
         """The plan's program and the requested series out of its
         ``[T, columns]`` answer: ``[S_req, T]``, or ``[S_req, T, hb]``
         for a histogram cache (``hb`` its bucket columns a slot)."""
-        if plan.packed is not None:
-            stepped = series_packed_program(plan)
-        else:
-            stepped = series_program(plan)
+        prog = series_packed_program if plan.packed is not None \
+            else series_program
+        _note_kernel_bytes(prog, plan)
+        stepped = prog(plan)
         dev = stepped.device
         if self.hist:
             # column-granular indirection: a series' columns are

@@ -1294,6 +1294,11 @@ class OnDemandPagingShard(TimeSeriesShard):
             for part, fresh in collected:
                 part.requeue_unflushed(fresh)
             raise
+        # the persisted rows still feed the streaming downsampler, each
+        # victim's chunks once, in one call a schema (the reference: one
+        # call a partition, odp.py:1262-1265)
+        if self.downsample_publisher is not None:
+            self._downsample(collected)
 
     @staticmethod
     def _count_verified(n: int, crcs) -> None:

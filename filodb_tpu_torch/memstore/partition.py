@@ -13,6 +13,7 @@ that fails its decode is reported through the integrity funnel
 
 from __future__ import annotations
 
+import logging
 import struct
 import threading
 from typing import NamedTuple, Optional, Sequence
@@ -495,3 +496,45 @@ class TimeSeriesPartition:
         mask = (ts >= start) & (ts <= end)
         return ts[mask], vals[mask]
 
+
+
+class TracingTimeSeriesPartition(TimeSeriesPartition):
+    """Debug variant logging every ingested sample and every chunk freeze
+    of one traced series to ``filodb.trace`` (reference:
+    TimeSeriesPartition.scala:451 TracingTimeSeriesPartition, chosen per
+    part key by the shard's ``StoreConfig.trace_filters``).  It overrides
+    the hot methods, so the normal partition pays nothing for it.  A
+    freeze is logged where its chunk is installed, which every encode
+    path reaches: the partition's own drain and the flush task's batch."""
+
+    __slots__ = ()
+
+    def ingest(self, timestamp, values):
+        ok = super().ingest(timestamp, values)
+        logging.getLogger("filodb.trace").info(
+            "TRACE ingest part=%d tags=%s ts=%d values=%s accepted=%s",
+            self.part_id, self.tags, timestamp, list(values), ok)
+        return ok
+
+    def ingest_block(self, ts, cols):
+        """The columnar path (the native container decode) traces too:
+        it is the one production ingestion takes."""
+        added, dropped = super().ingest_block(ts, cols)
+        log = logging.getLogger("filodb.trace")
+        for i in range(len(ts)):
+            # histogram columns arrive as (buckets, matrix) pairs
+            row = [c[1][i].tolist() if isinstance(c, tuple) else c[i]
+                   for c in cols]
+            log.info("TRACE ingest part=%d tags=%s ts=%d values=%s",
+                     self.part_id, self.tags, int(ts[i]), row)
+        if dropped:
+            log.info("TRACE ingest part=%d dropped=%d out-of-order rows",
+                     self.part_id, dropped)
+        return added, dropped
+
+    def _install_encoded(self, cs: ChunkSet) -> None:
+        super()._install_encoded(cs)
+        logging.getLogger("filodb.trace").info(
+            "TRACE freeze part=%d chunk_id=%d rows=%d [%d, %d] %dB",
+            self.part_id, cs.info.chunk_id, cs.info.num_rows,
+            cs.info.start_time, cs.info.end_time, cs.nbytes)

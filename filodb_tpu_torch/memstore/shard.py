@@ -52,8 +52,8 @@ from filodb_tpu_torch.memstore.devicestore import (DeviceGridCache,
                                                    resolve_device)
 from filodb_tpu_torch.memstore.index import PartKeyIndex
 from filodb_tpu_torch.memstore.cardinality import CardinalityTracker
-from filodb_tpu_torch.memstore.partition import (TimeSeriesPartition,
-                                                 drain_pending_batch)
+from filodb_tpu_torch.memstore.partition import (
+    TimeSeriesPartition, TracingTimeSeriesPartition, drain_pending_batch)
 from filodb_tpu_torch.native import ingestfast
 from filodb_tpu_torch.store.columnstore import (ColumnStore, NullColumnStore,
                                                 PartKeyRecord)
@@ -181,11 +181,50 @@ class TimeSeriesShard:
         # set_fn-sampled active-series gauges off this shard's index
         self.cardinality = CardinalityTracker(dataset, shard_num)
         self.cardinality.attach_index(self.index)
+        # flush-time downsampling (reference: ShardDownsampler invoked
+        # from doFlushSteps :915-917); set by enable_downsampling()
+        self.downsample_publisher = None
+        self.downsample_resolutions: tuple[int, ...] = ()
+        self._downsamplers: dict[int, object] = {}
         # device-resident grids, one per (schema, value column)
         self.device_caches: dict = {}
         # bumped whenever new rows or chunks could change query results
         # (the grid caches' tail version)
         self.ingest_epoch = 0
+
+    def enable_downsampling(self, publisher, resolutions_ms) -> None:
+        """Downsample every flushed chunkset at ``resolutions_ms`` into
+        ``publisher`` (a ``downsample.DownsamplePublisher``).  The grid
+        path's period reduce runs on this shard's device."""
+        self.downsample_publisher = publisher
+        self.downsample_resolutions = tuple(resolutions_ms)
+        self._downsamplers = {}
+
+    def _downsampler_for(self, schema_hash: int):
+        ds = self._downsamplers.get(schema_hash)
+        if ds is None:
+            # imported here: the downsample package's serving store
+            # imports the memstore, which imports this module
+            from filodb_tpu_torch.downsample.sharddown import \
+                ShardDownsampler
+            ds = ShardDownsampler(self.dataset, self.shard_num,
+                                  self.schemas.by_hash(schema_hash),
+                                  self.downsample_publisher,
+                                  self.downsample_resolutions,
+                                  device=self.device)
+            # keyed by schema hash: bounded by the configured schemas
+            self._downsamplers[schema_hash] = ds
+        return ds
+
+    def _downsample(self, pairs) -> None:
+        """Hand ``(partition, fresh chunksets)`` pairs to each schema's
+        downsampler, once each (the flush task and the eviction)."""
+        by_schema: dict[int, list] = {}
+        for part, fresh in pairs:
+            by_schema.setdefault(part.schema.schema_hash, []).extend(
+                (part.tags, cs) for cs in fresh)
+        for shash, tagged in by_schema.items():
+            self._downsampler_for(shash).downsample_chunksets(tagged)
 
     def close(self) -> None:
         """Release what this shard holds beyond its own objects: a flush
@@ -361,7 +400,7 @@ class TimeSeriesShard:
             # index-only entry (recovered): materialize the partition
             # under its existing part id, keeping the index lifecycle
             rtags = tags if tags is not None else parse_partkey(pk)
-            part = TimeSeriesPartition(pid, schema, pk, rtags,
+            part = self._partition_cls(rtags)(pid, schema, pk, rtags,
                                        part_hash % self.num_groups,
                                        capacity=self.config.max_chunks_size)
             part.on_freeze = self._on_chunk_freeze
@@ -381,7 +420,7 @@ class TimeSeriesShard:
                 self.series_quota.limit_for(tenant) or 0)
         pid = self._next_part_id
         self._next_part_id += 1
-        part = TimeSeriesPartition(pid, schema, pk, tags,
+        part = self._partition_cls(tags)(pid, schema, pk, tags,
                                    part_hash % self.num_groups,
                                    capacity=self.config.max_chunks_size)
         part.on_freeze = self._on_chunk_freeze
@@ -393,6 +432,15 @@ class TimeSeriesShard:
         self.stats.partitions_created += 1
         self.cardinality.note_created()
         return part
+
+    def _partition_cls(self, tags: dict[str, str]):
+        """TracingTimeSeriesPartition for series matching the
+        ``trace_filters`` tag subset (reference:
+        TimeSeriesPartition.scala:451); the normal class otherwise."""
+        tf = self.config.trace_filters
+        if tf and all(tags.get(k) == str(v) for k, v in tf.items()):
+            return TracingTimeSeriesPartition
+        return TimeSeriesPartition
 
     # ------------------------------------------------------------------ flush
 
@@ -458,6 +506,8 @@ class TimeSeriesShard:
             if chunksets:
                 self.store.write_chunks(self.dataset, self.shard_num,
                                         chunksets, task.ingestion_time)
+            if self.downsample_publisher is not None and collected:
+                self._downsample(collected)
             if task.dirty:
                 recs = [PartKeyRecord(self.index.partkey(pid),
                                       self.index.start_time(pid),

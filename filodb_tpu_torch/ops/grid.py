@@ -35,7 +35,9 @@ reduce and a ranking).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its kernel launches
-in ``<wrapper>.launches``.
+in ``<wrapper>.launches``, and is a program of the kernel ledger
+(``utils/devicewatch.timed``, named ``grid.<wrapper>``): the ledger
+counts every call, plain or launched, and times one call in N.
 
 Layout contract (enforced by the caller / device store):
 
@@ -55,6 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from filodb_tpu_torch.ops import aggregate, histogram_ops, kernels
+from filodb_tpu_torch.utils.devicewatch import timed
 
 _IBIG = 2**30
 
@@ -987,6 +990,7 @@ def _plane_pointers(p, m, kind: int, dev) -> tuple:
     return ctypes.c_void_p(p.data_ptr()), ctypes.c_void_p(m.data_ptr())
 
 
+@timed(program="grid.rate_grid")
 def rate_grid(ts, vals, steps0: int, q: GridQuery, phase=None):
     """Per-series windowed function over an aligned grid:
     ``vals [B, S]`` -> ``[T, S]``.
@@ -1064,6 +1068,7 @@ def packed_plane_table(packed: dict) -> list:
     return table
 
 
+@timed(program="grid.rate_grid_packed")
 def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
                      row0: int = 0, use_phase: bool = False):
     """Per-series windowed function over XOR-class packed residents:
@@ -1108,6 +1113,7 @@ def rate_grid_packed(packed: dict, steps0: int, q: GridQuery,
 rate_grid_packed.launches = 0
 
 
+@timed(program="grid.rate_grid_grouped")
 def rate_grid_grouped(ts, vals, steps0: int, q: GridQuery,
                       group_lanes: int = 1024, phase=None):
     """Fused ``sum by (group)(fn(...))``: ``vals [B, S]`` -> ``(sum,
@@ -1414,6 +1420,7 @@ def _grouped_packed_launch(wrapper, packed: dict, q: GridQuery, row0: int,
     return s, c
 
 
+@timed(program="grid.rate_grid_grouped_packed")
 def rate_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
                              group_lanes: int = 1024, row0: int = 0,
                              use_phase: bool = True):
@@ -1444,6 +1451,7 @@ rate_grid_grouped_packed.launches = 0
 rate_grid_grouped_packed.direct = 0
 
 
+@timed(program="grid.hist_grid_grouped_packed")
 def hist_grid_grouped_packed(packed: dict, steps0: int, q: GridQuery,
                              hb: int, group_lanes: int = 1024,
                              row0: int = 0, use_phase: bool = True):
@@ -1472,6 +1480,7 @@ hist_grid_grouped_packed.launches = 0
 hist_grid_grouped_packed.direct = 0
 
 
+@timed(program="grid.hist_quantile_grid_packed")
 def hist_quantile_grid_packed(packed: dict, steps0: int, tops, q: GridQuery,
                               phi: float, hb: int, group_lanes: int = 1024,
                               row0: int = 0, use_phase: bool = True):
@@ -1506,6 +1515,7 @@ _FILTER_OPS = {
 TOPK_ONEHOT_MAX_G = 2048
 
 
+@timed(program="grid.event_topk_grid_packed")
 def event_topk_grid_packed(packed: dict, steps0: int, q: GridQuery, k: int,
                            garr, num_groups: int,
                            filt_packed: Optional[dict] = None,
@@ -1654,6 +1664,7 @@ def m4_grid_ref(vals: torch.Tensor, pixels: int) -> torch.Tensor:
     return torch.stack(planes, dim=1)
 
 
+@timed(program="grid.m4_grid")
 def m4_grid(vals: torch.Tensor, pixels: int) -> torch.Tensor:
     """M4 pixel-bin selection: time-major ``vals [T, S]`` f32 -> planes
     ``[P, 8, S]`` in :data:`M4_PLANES` order.  Index planes are LOCAL to

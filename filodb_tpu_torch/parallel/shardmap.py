@@ -55,6 +55,9 @@ class ShardMapper:
     def update_status(self, shard: int, status: ShardStatus) -> None:
         self._status[shard] = status
 
+    def status(self, shard: int) -> ShardStatus:
+        return self._status[shard]
+
     def active_shards(self, shards: Optional[Sequence[int]] = None
                       ) -> list[int]:
         """Shards in a queryable state."""

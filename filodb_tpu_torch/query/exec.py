@@ -80,6 +80,9 @@ class ExecContext:
     # the root folds the totals into its QueryResult's stats
     _timings: dict = dataclasses.field(default_factory=dict, repr=False)
     _counters: dict = dataclasses.field(default_factory=dict, repr=False)
+    # sampled device seconds a program (utils/devicewatch.KERNEL_TIMER)
+    _device_programs: dict = dataclasses.field(default_factory=dict,
+                                               repr=False)
     _lock: object = dataclasses.field(default_factory=threading.Lock,
                                       repr=False)
 
@@ -111,6 +114,13 @@ class ExecContext:
                   pages=pages, hbm_dense=hbm_dense,
                   hbm_compressed=hbm_compressed, hbm_hist=hbm_hist)
 
+    def note_device_program(self, program: str, seconds: float) -> None:
+        """Fold a sampled launch's measured device seconds into this
+        query's per-program split (``QueryStats.device_programs``)."""
+        with self._lock:
+            d = self._device_programs
+            d[program] = d.get(program, 0.0) + seconds
+
     def note_downsample(self, points_in: int = 0,
                         points_out: int = 0) -> None:
         """DownsampleMapper accounting: finite points entering the M4
@@ -134,6 +144,7 @@ class ExecContext:
                                        ("compressed", "hbm_compressed"),
                                        ("compressed-hist", "hbm_hist"))
                 if c.get(ck)}
+            stats.device_programs = dict(self._device_programs)
 
 
 class PlanDispatcher:

@@ -89,6 +89,27 @@ class QueryStats:
     # device-grid bytes read serving the query, by resident format
     # (keys "dense", "compressed", "compressed-hist")
     hbm_read_bytes: dict = dataclasses.field(default_factory=dict)
+    # measured device seconds a program (utils/devicewatch.KERNEL_TIMER),
+    # from the launches SAMPLED while this query's ExecContext was
+    # active: a slow query names its program.  A grid program's seconds
+    # include its kernel's, which has a row of its own
+    device_programs: dict = dataclasses.field(default_factory=dict)
+
+    def merge(self, other: "QueryStats") -> None:
+        self.samples_scanned += other.samples_scanned
+        self.series_scanned += other.series_scanned
+        self.bytes_scanned += other.bytes_scanned
+        self.chunks_scanned += other.chunks_scanned
+        self.pages_in += other.pages_in
+        self.corrupt_chunks_excluded += other.corrupt_chunks_excluded
+        for k, v in other.timings.items():
+            self.timings[k] = self.timings.get(k, 0.0) + v
+        for k, v in other.hbm_read_bytes.items():
+            self.hbm_read_bytes[k] = self.hbm_read_bytes.get(k, 0) + v
+        self.downsample_points_in += other.downsample_points_in
+        self.downsample_points_out += other.downsample_points_out
+        for k, v in other.device_programs.items():
+            self.device_programs[k] = self.device_programs.get(k, 0.0) + v
 
 
 class QueryError(Exception):

@@ -272,13 +272,104 @@ def workload_metrics() -> dict:
 
 
 def device_metrics() -> dict:
-    """Resident bytes by owner and format, for pools the ledger samples
-    (``devicewatch.LEDGER.register_pool``)."""
+    """Device-resource metrics (``utils/devicewatch.py``): resident bytes
+    by owner and format (tracked tensors and sampled pools), their high
+    watermarks, eviction attribution, and the kernel ledger's families
+    (:class:`~filodb_tpu_torch.utils.devicewatch.KernelTimer`)."""
     return {
         "hbm_bytes": REGISTRY.gauge(
             "filodb_device_hbm_bytes",
-            "resident bytes by owner and format (sampled pools)"),
+            "ledger-tracked device-resident bytes by owner and resident "
+            "format (tracked tensors and sampled pools)"),
+        "hbm_watermark": REGISTRY.gauge(
+            "filodb_device_hbm_high_watermark_bytes",
+            "high watermark of ledger-tracked bytes by owner/format"),
+        "evictions": REGISTRY.counter(
+            "filodb_device_evictions_total",
+            "device/pool resident evictions by owner and reason "
+            "(budget_overflow | epoch_purge | integrity_quarantine)"),
+        "kernel_launches": REGISTRY.counter(
+            "filodb_kernel_launches_total",
+            "timed-program launches (every launch counts; reconciles "
+            "exactly with the kernel ledger's table)"),
+        "kernel_seconds": REGISTRY.counter(
+            "filodb_kernel_device_seconds",
+            "measured device seconds of SAMPLED launches (CUDA events on "
+            "the card, wall time around the plain version on the CPU)"),
+        "kernel_roofline": REGISTRY.gauge(
+            "filodb_kernel_roofline_fraction",
+            "achieved device-memory bytes/s per program as a fraction of "
+            "the configured roof"),
+        "kernel_regressions": REGISTRY.counter(
+            "filodb_kernel_regressions_total",
+            "kernel-regression episodes: sustained EWMA device time >= "
+            "factor x learned baseline"),
+        "kernel_regressed": REGISTRY.gauge(
+            "filodb_kernel_regressed",
+            "1 while the program's EWMA device time counts as regressed "
+            "against its learned baseline, else 0"),
     }
+
+
+def watermark_metrics() -> dict:
+    """Ingest-watermark metrics (``memstore/watermarks.py``): the
+    per-shard monotone offset chain broker_end -> ingested -> flushed ->
+    checkpoint, its lag in rows and seconds, and stall detection."""
+    return {
+        "offset": REGISTRY.gauge(
+            "filodb_ingest_watermark_offset",
+            "per-shard ingest watermark chain by stage "
+            "(broker_end | ingested | flushed | checkpoint)"),
+        "lag_rows": REGISTRY.gauge(
+            "filodb_ingest_lag_rows",
+            "records the broker holds that this shard has not ingested"),
+        "lag_seconds": REGISTRY.gauge(
+            "filodb_ingest_lag_seconds",
+            "seconds since the shard's newest ingested sample, while row "
+            "lag is nonzero (0 when caught up)"),
+        "stalls": REGISTRY.counter(
+            "filodb_ingest_stalls_total",
+            "stall episodes: a lagging shard whose ingested offset made "
+            "no progress for the stall window"),
+        "stalled": REGISTRY.gauge(
+            "filodb_ingest_stalled",
+            "1 while the shard counts as stalled, else 0"),
+    }
+
+
+class PeriodicThread:
+    """Daemon loop calling ``fn`` every ``interval_s`` until stopped;
+    exceptions print and the loop continues (the shared harness for
+    background samplers such as the watermark sampler)."""
+
+    def __init__(self, fn: Callable[[], object], interval_s: float,
+                 name: str):
+        self.fn = fn
+        self.interval_s = float(interval_s)
+        self.name = name
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+
+        def loop():
+            while not self._stop.wait(self.interval_s):
+                try:
+                    self.fn()
+                except Exception:  # noqa: BLE001 — keep looping, loudly
+                    traceback.print_exc()
+
+        self._thread = threading.Thread(target=loop, name=self.name,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
 
 
 # ---------------------------------------------------------------------------
