@@ -24,7 +24,13 @@ Phases, each timed on a line of its own:
    gappy, strides 1 and 2, T = 1 and 2, each case at the wrapper's plan,
    the staged kernel's for the ops the plan sends to the direct kernel,
    and the largest ring, bit for bit against the direct kernel on the
-   same tensors, K = 120 windows on the direct kernel; ``m4_grid`` at
+   same tensors, K = 120 windows on the direct kernel; then
+   kernels.b1_batch: ``rate_grid_batch`` (B1 with a member axis) case by
+   case over the same planes, batches of 8 and 3 members at even start
+   rows, a staged op in each mode, dense and gappy, the direct kernel's
+   irate and stddev and K = 100 windows that no ring holds: one launch a
+   batch, each member bit for bit its own solo ``rate_grid`` launch, the
+   batch within rtol 2e-5 of ``rate_grid_batch_ref``; ``m4_grid`` at
    [T=103, S=16,421] with P=10 and P=50 (gaps, ties, tied
    zeros of both signs, all-NaN bins, an all-NaN series); then
    kernels.b3_sweep: ``rate_grid_packed`` case by case over 256-row packs
@@ -123,6 +129,24 @@ Phases, each timed on a line of its own:
    and selected positions equal), cold and warm wall ms; every result but
    E2's downsampled one, and every aggregation, on the card; then m4_grid
    against its plain version at E2's own [260, 102,400] input, timed;
+5b. batch  — co-arrival batching over the same store: a
+   ``QueryBatcher`` (groups of up to 8) on the shard, the members'
+   queries released together from threads by one barrier: Q2's ``sum by
+   (pod)(rate(req_total[5m]))`` over blocks 0-1 with eight starts a step
+   apart, Q4 (``jit_total``, ts mode) with four, per-series rate with
+   eight, then eight engine queries from PromQL text with deadlines
+   minted; each at the reference's 3 ms window first (what forms there
+   is recorded: the members' host work runs one at a time under the
+   GIL), then at 1.5 times its members' solo calls in turn; a group
+   takes a few rounds to form
+   whole, and then ran ONE ``rate_grid_batch`` launch and no
+   ``rate_grid`` launch; every member equals its solo answer bit for bit
+   (a group-reduced answer within 1e-6 where the batched GEMM took other
+   bits); the batch metrics count the groups and members, the kernel
+   ledger the wrappers' launches; no fallback for an error, the breaker
+   closed; the batched launch at M = 8 and 4 against M solo launches and
+   its plain version, and each group's wall against its members' solo
+   calls in turn;
 6. northstar — ``filodb_tpu_torch/northstar.py``'s four variants at the
    benchmark's widths (bench.py's dense, compressed_resident,
    histogram_quantile and gdelt_topk): data made on the card from the
@@ -158,7 +182,9 @@ Phases, each timed on a line of its own:
    ``prepare_recovery``, the stream from the resume offset through a new
    scheduler) and serves D1, ``sum by (pod)(rate(req_total[5m]))`` and
    per-series ``rate`` over the last hour on ``rate_grid`` (blocks 0-1
-   of the recovered grid), against a CPU twin that runs the first
+   of the recovered grid; its cold run through the engine, whose
+   residency delta must be positive and equal the ledger's change, and
+   0 on the warm repeat), against a CPU twin that runs the first
    CHECK_PODS pods through the same sequence (its chunk rows equal the
    card's); a byte of one of B's chunks is flipped on disk, the
    read-back drops and quarantines it, the next query (D2) evicts the
@@ -229,7 +255,7 @@ DURABLE_WORKERS = 3             # ... the durable stream, beside the build
 MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-REPS = 5                        # timed repetitions (median)
+REPS = 3                        # timed repetitions (median)
 ENGINE_REPS = 3                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
@@ -1790,6 +1816,107 @@ def b1_sweep(device, reps: int, seed: int, rows: list, flush) -> float:
     return worst
 
 
+# B1's member axis (kernels.b1_batch): a staged op in each mode, dense
+# and gappy, the direct kernel's irate and stddev, and two ops whose
+# step (K = 100) no ring holds; M members a launch, each starting at an
+# even row (16-byte aligned at either width)
+B1_BATCH_OPS = (("phase", True, "rate", K), ("ts", True, "increase", K),
+                ("ts", False, "rate", K), ("free", True, "sum", K),
+                ("free", False, "max", K), ("ts", False, "deriv", K),
+                ("free", True, "quantile", K), ("ts", True, "irate", K),
+                ("free", True, "stddev", K), ("phase", True, "rate", 100),
+                ("free", True, "last", 100))
+B1_BATCH_MEMBERS = (8, 3)
+B1_BATCH_ROW0S = (0, 2, 4, 8, 10, 14, 16, 22)
+
+
+def b1_batch_members(members: int, rows: int, q_of) -> tuple:
+    """A batch of ``members`` over planes of ``rows`` rows: (row0s,
+    steps0s, nrows, q), ``q_of(nsteps)`` the case's query at the steps
+    the rows left to every member hold; each member's first window ends
+    K rows after its first row, as its solo launch's would."""
+    row0s = list(B1_BATCH_ROW0S[:members])
+    nrows = rows - max(row0s)
+    q = q_of(nrows)
+    nrows = (q.nsteps - 1) * q.stride + q.kbuckets
+    return row0s, [(r + q.kbuckets) * STEP for r in row0s], nrows, q
+
+
+def b1_batch_cases() -> list:
+    """(width, mode, dense, op, K, stride, members) of the b1_batch
+    sweep."""
+    return [(w, mode, dense, op, k, stride, m)
+            for w in B1_WIDTHS for mode, dense, op, k in B1_BATCH_OPS
+            for stride in ((1, 2) if k == K else (1,))
+            for m in B1_BATCH_MEMBERS]
+
+
+def b1_batch_sweep(device, seed: int, rows: list) -> float:
+    """B1 with a member axis (``rate_grid_batch``) case by case
+    (:func:`b1_batch_cases`) over :func:`b1_planes` of 4,196 and 1,030
+    lanes: one launch a batch (``rate_grid_batch.launches`` +1, no
+    ``rate_grid`` launch; ``.direct`` +1 exactly where the plan stages
+    nothing), each member bit for bit its own solo ``rate_grid`` launch
+    on its rows of the planes (a contiguous slice), and the batch within
+    rtol 2e-5 of ``rate_grid_batch_ref`` with the same NaN cells.
+    Raises naming every case that failed."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.ops import grid
+
+    rng = np.random.default_rng([seed, 13])
+    on_card = {w: {g: tuple(torch.as_tensor(a, device=device)
+                            for a in b1_planes(rng, B1_ROWS, w, g))
+                   for g in (False, True)}
+               for w in B1_WIDTHS}
+    bfn, sfn = grid.rate_grid_batch, grid.rate_grid
+    worst, failed, ncases = 0.0, [], 0
+    for width, mode, dense, op, k, stride, members in b1_batch_cases():
+        ts, vals, ph = on_card[width][not dense]
+        phase = ph if mode == "phase" else None
+        row0s, steps0s, nrows, q = b1_batch_members(
+            members, B1_ROWS, lambda n: sweep_query(
+                op, dense, stride, (n - k) // stride + 1, k=k))
+        plan = grid.series_staged_plan(width, q.nsteps, q.kbuckets,
+                                       q.stride, grid._mode_for(q, phase),
+                                       q.op)
+        case = (f"rate_grid_batch S={width} M={members} stride={stride} "
+                f"K={k} T={q.nsteps} {mode}-{'dense' if dense else 'gappy'}"
+                f"-{op} {'staged' if plan.staged else 'direct'}")
+        ncases += 1
+        try:
+            b0, d0, s0 = bfn.launches, bfn.direct, sfn.launches
+            got = bfn(ts, vals, row0s, steps0s, q, nrows, phase=phase)
+            torch.cuda.synchronize()
+            if (bfn.launches - b0, sfn.launches - s0) != (1, 0) \
+                    or bfn.direct - d0 != int(not plan.staged):
+                raise AssertionError(
+                    f"{case}: {bfn.launches - b0} batched launches "
+                    f"({bfn.direct - d0} direct), {sfn.launches - s0} "
+                    f"rate_grid launches")
+            for m, (r, st) in enumerate(zip(row0s, steps0s)):
+                solo = sfn(None if ts is None else ts[r:r + nrows],
+                           vals[r:r + nrows], st, q, phase=phase)
+                compare_bits(got[m], solo, f"{case} member {m} (solo)")
+            want = grid.rate_grid_batch_ref(ts, vals, row0s, steps0s, q,
+                                            nrows, phase=phase)
+            err = compare(got, want, op, RTOL_KERNEL,
+                          1 if op in CROSSING else None)
+        except AssertionError as e:
+            failed.append(str(e))
+            continue
+        worst = max(worst, err)
+        rows.append({"kernel": "rate_grid", "case": case, "op": op,
+                     "max_abs_err": err})
+    if failed:
+        raise AssertionError(f"b1_batch sweep: {len(failed)} of {ncases} "
+                             f"cases failed:\n" + "\n".join(failed))
+    log(f"b1_batch sweep: {ncases} batches, each one launch, every member "
+        f"bit-equal to its solo launch, within rtol {RTOL_KERNEL} of the "
+        f"plain version (max_abs_err {worst:.3e})")
+    return worst
+
+
 def check_m4(vals, pixels: int) -> float:
     """m4_grid against its plain version on the same card tensor: the
     same NaN cells, and every other cell the same 32 bits (so +0.0 and
@@ -2631,11 +2758,13 @@ def engine_queries():
 
 
 def run_engine(ms, query: str, span, pixels, dataset: str = "prom",
-               step: int = STEP):
+               step: int = STEP, qctx=None):
     """One PromQL range query through the port's entry point: parse ->
     plan -> (DownsampleMapper when ?downsample= is given) -> execute,
     then every batch's values on the host (the API edge).  Returns the
-    result, the host values and the wall ms of all that."""
+    result, the host values and the wall ms of all that.  ``qctx`` (a
+    QueryContext, say with a deadline minted) defaults to one without
+    limits."""
     from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
     from filodb_tpu_torch.parallel.shardmap import ShardMapper
     from filodb_tpu_torch.promql.parser import query_range_to_logical_plan
@@ -2645,7 +2774,8 @@ def run_engine(ms, query: str, span, pixels, dataset: str = "prom",
 
     t0 = time.perf_counter()
     start, nsteps = span
-    qctx = QueryContext(sample_limit=2**40)
+    if qctx is None:
+        qctx = QueryContext(sample_limit=2**40)
     plan = query_range_to_logical_plan(query, start, step,
                                        start + (nsteps - 1) * step)
     ep = SingleClusterPlanner(dataset, ShardMapper(1)).materialize(plan,
@@ -2759,9 +2889,9 @@ class GroupReduces:
         self.ops = []
         self._orig = orig = devicestore._grouped_reduce_impl
 
-        def reduce(stepped, garr, num_groups, op):
+        def reduce(stepped, garr, num_groups, op, *a, **kw):
             self.ops.append(op)
-            return orig(stepped, garr, num_groups, op)
+            return orig(stepped, garr, num_groups, op, *a, **kw)
 
         devicestore._grouped_reduce_impl = reduce
         return self
@@ -2968,6 +3098,391 @@ def engine_phase(device, stores, reps: int, report: dict) -> dict:
               "bound_by": by, "bytes": work[0], "max_abs_err": err}
     report["m4_at_path_shape"] = m4_row
     return {"launches": totals, "m4": m4_row}
+
+
+# ------------------------------------------------------------- phase 5b
+
+BATCH_WINDOW_MS = 3.0           # the reference's co-arrival window
+BATCH_MAX = 8                   # and group size
+# the window the checks run at: the members' solo calls in turn, times
+# this.  Members do their host work before the dispatch (the plan's memo
+# key over 102,400 ids, the group map, the batch key) one at a time
+# under the GIL, so at the store's width their dispatches arrive over
+# more than 3 ms; a group closes as soon as it is full
+BATCH_WINDOW_FACTOR = 1.5
+BATCH_ROUNDS = 5                # rounds a group may take to form whole
+BATCH_AT_3MS_ROUNDS = 2         # rounds at the 3 ms window, recorded
+RTOL_GROUPED_BATCH = 1e-6       # a batched grouped reduce against solo
+
+
+def batch_groups():
+    """(name, kind, metric, first span, members, kernel route) of the
+    batch phase's seam groups: Q2 (phase mode, dense, the decoded
+    blocks 0-1) with eight starts a step apart, Q4 (jit_total, ts mode)
+    with four, and per-series rate over Q2's span with eight."""
+    q2 = next(q for q in queries() if q[0] == "Q2")[4]
+    q4 = next(q for q in queries() if q[0] == "Q4")[4]
+    return [("Q2", "grouped", "req_total", q2, BATCH_MAX),
+            ("Q4", "grouped", "jit_total", q4, 4),
+            ("rate", "series", "req_total", q2, BATCH_MAX)]
+
+
+def member_spans(span, members: int) -> list:
+    """``members`` spans of ``span``'s length, starts a step apart."""
+    start, nsteps = span
+    return [(start + i * STEP, nsteps) for i in range(members)]
+
+
+def member_plan(cache, span, n_series: int):
+    """The plan the grid cache memoized for a query over ``n_series``
+    series whose first window ends at ``span[0]``, of ``span[1]``
+    steps."""
+    return next(p for p in cache._plan_memo.values()
+                if p.q.nsteps == span[1] and len(p.lane_idx) == n_series
+                and p.steps0_rel == span[0] - cache.epoch0)
+
+
+def concurrently(fn, args) -> tuple:
+    """``fn(a)`` for every ``a`` from threads released by one barrier,
+    synchronized: (results in order, wall ms from the release to the
+    last result on the card)."""
+    import torch
+    barrier = threading.Barrier(len(args) + 1)
+    outs: dict = {}
+    errs: list = []
+
+    def worker(i, a):
+        try:
+            barrier.wait()
+            outs[i] = fn(a)
+        except BaseException as e:           # surfaced below
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(i, a), daemon=True)
+          for i, a in enumerate(args)]
+    for t in ts:
+        t.start()
+    try:
+        torch.cuda.synchronize()
+        barrier.wait()
+    except BaseException:
+        barrier.abort()                      # no thread waits forever
+        raise
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if errs:
+        raise errs[0]
+    return [outs[i] for i in range(len(args))], wall
+
+
+def same_answer(name: str, got, want, reduced: bool, finding: dict) -> None:
+    """A member against its solo answer (a tensor, or a dict of them): bit
+    for bit; an answer that went through the group reduce and took other
+    bits there (one GEMM over every member's steps, where the library may
+    block the sum another way) within RTOL_GROUPED_BATCH of them, noted in
+    ``finding``."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        pairs = [(f"{name} {k}", got[k], want[k]) for k in want]
+    else:
+        pairs = [(name, got, want)]
+    for case, g, w in pairs:
+        try:
+            compare_bits(g, w, case)
+        except AssertionError:
+            if not reduced:
+                raise
+            finding["grouped_bits_differ"] = \
+                finding.get("grouped_bits_differ", 0) + 1
+            err = compare(g, w, "sum", RTOL_GROUPED_BATCH)
+            finding["grouped_max_abs_err"] = max(
+                finding.get("grouped_max_abs_err", 0.0), err)
+
+
+def batch_work(vals_all, row0s, nrows: int, q, phase) -> tuple[int, int]:
+    """(bytes, ops) of one batched B1 launch: the distinct plane rows the
+    members read, counted once (the union of their row spans; ts rows too
+    in ts mode, the phase row in phase mode), and every member's [T, S]
+    output; the operations of every member's windows."""
+    from filodb_tpu_torch.ops import grid
+    ns = vals_all.shape[1]
+    spans = sorted((r, r + nrows) for r in row0s)
+    rows, hi = 0, -1
+    for a, b in spans:
+        rows += max(0, b - max(a, hi))
+        hi = max(hi, b)
+    mode = grid._mode_for(q, phase)
+    planes = 2 if mode == "ts" else 1
+    nbytes = planes * rows * ns * 4 + len(row0s) * q.nsteps * ns * 4
+    if mode == "phase":
+        nbytes += ns * 4
+    one = grid_work(None, vals_all[:nrows], q, phase)[1]
+    return nbytes, len(row0s) * one
+
+
+def batch_launch_times(plan, row0s, steps0s, reps: int, flush) -> list:
+    """The batched B1 launch over a plan's concatenated blocks at
+    M = 8 and M = 4 members against M solo launches on the same inputs
+    (CUDA events, L2 flushed), its plain version and its bound."""
+    from filodb_tpu_torch.memstore import devicestore
+    from filodb_tpu_torch.ops import grid
+    ts_all = devicestore._concat(plan.ts_parts, devicestore._seg_ts_device)
+    vals_all = devicestore._concat(plan.val_parts,
+                                   devicestore._seg_vals_device)
+    q, nrows, phase = plan.q, plan.nrows, plan.phase
+    out = []
+    for m in (8, 4):
+        r0, s0 = row0s[:m], steps0s[:m]
+        got = grid.rate_grid_batch(ts_all, vals_all, r0, s0, q, nrows,
+                                   phase=phase)
+        want = grid.rate_grid_batch_ref(ts_all, vals_all, r0, s0, q, nrows,
+                                        phase=phase)
+        err = compare(got, want, q.op, RTOL_KERNEL)
+
+        def solos(r0=r0, s0=s0):
+            for r, st in zip(r0, s0):
+                grid.rate_grid(None if ts_all is None
+                               else ts_all[r:r + nrows],
+                               vals_all[r:r + nrows], st, q, phase=phase)
+
+        work = batch_work(vals_all, r0, nrows, q, phase)
+        bms, by = bound_ms(*work)
+        row = {"members": m, "shape": [nrows, int(vals_all.shape[1])],
+               "ms": cuda_ms(partial(grid.rate_grid_batch, ts_all, vals_all,
+                                     r0, s0, q, nrows, phase=phase),
+                             reps, flush),
+               "solo_ms": cuda_ms(solos, reps, flush),
+               "plain_ms": cuda_ms(partial(grid.rate_grid_batch_ref, ts_all,
+                                           vals_all, r0, s0, q, nrows,
+                                           phase=phase), reps, flush),
+               "bound_ms": bms, "bound_by": by, "bytes": work[0],
+               "max_abs_err": err}
+        log(f"rate_grid_batch M={m} [{nrows}, {vals_all.shape[1]}] "
+            f"{grid._mode_for(q, phase)}-{q.op}: ms {row['ms']:.4f} "
+            f"against {m} solo launches {row['solo_ms']:.4f}, plain_ms "
+            f"{row['plain_ms']:.4f} bound_ms {bms:.4f} ({by}, {work[0]} "
+            f"bytes) max_abs_err {err:.3e} ok")
+        out.append(row)
+    return out
+
+
+def batch_phase(device, stores, reps: int, report: dict) -> dict:
+    """Co-arrival groups through the port's query batcher on the main
+    path's store (groups of up to 8): Q2's ``sum by (pod)(rate)`` over
+    blocks 0-1 with eight starts, Q4 (ts mode) with four, per-series rate
+    with eight, each from threads released by one barrier; then one group
+    of engine queries from PromQL text with deadlines minted.  Each at
+    the reference's 3 ms window first (what forms is recorded), then at
+    a window of BATCH_WINDOW_FACTOR times its members' solo calls in
+    turn.  Each group, once whole (a group may take a few rounds to
+    form), ran ONE batched B1 launch and no solo one; every
+    member equals its solo answer (bit for bit; a grouped reduce within
+    1e-6 where its bits differ); the batch metrics count the groups and
+    members, the kernel ledger the launches; no fallback for an error,
+    the breaker closed.  Timed: the batched launch at M = 8 and 4 against
+    M solo launches, and each group's wall against its members' solo
+    seam calls in turn."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.batching import QueryBatcher, batching_broken
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.query.logical import RangeFunctionId as F
+    from filodb_tpu_torch.query.model import QueryContext
+    from filodb_tpu_torch.utils import devicewatch as dw
+    from filodb_tpu_torch.utils.observability import batch_metrics
+    from filodb_tpu_torch.workload import deadline as wdl
+
+    ms, shard, _rms, looked, _hist_ref = stores
+    met = batch_metrics()
+    flush = make_flush(device)
+    bat = QueryBatcher(window_ms=BATCH_WINDOW_MS, max_batch=BATCH_MAX,
+                       dataset="prom")
+    finding: dict = {}
+    path = {"rate_grid": 0, "rate_grid_batch": 0, "batch_direct": 0}
+
+    def ledger_launches():
+        return {r["program"]: r["launches"]
+                for r in dw.KERNEL_TIMER.table()}
+
+    def round_of(run, spans):
+        """One concurrent round: (members, wall ms, its counts)."""
+        led0 = ledger_launches()
+        c0 = (grid.rate_grid.launches, grid.rate_grid_batch.launches,
+              grid.rate_grid_batch.direct, met["groups"].value(
+                  dataset="prom"), met["members"].value(dataset="prom"))
+        outs, wall = concurrently(run, spans)
+        led1 = ledger_launches()
+        d = {"rate_grid": grid.rate_grid.launches - c0[0],
+             "rate_grid_batch": grid.rate_grid_batch.launches - c0[1],
+             "batch_direct": grid.rate_grid_batch.direct - c0[2],
+             "groups": int(met["groups"].value(dataset="prom") - c0[3]),
+             "members": int(met["members"].value(dataset="prom") - c0[4])}
+        for k in ("rate_grid", "rate_grid_batch", "batch_direct"):
+            path[k] += d[k]
+        # the kernel ledger counts every launch its wrappers count
+        for prog, n in (("grid.rate_grid_batch", d["rate_grid_batch"]),
+                        ("grid.rate_grid", d["rate_grid"])):
+            got = led1.get(prog, 0) - led0.get(prog, 0)
+            if got != n:
+                raise AssertionError(f"kernel ledger {prog}: {got} "
+                                     f"launches, the wrapper counted {n}")
+        return outs, wall, d
+
+    def whole(name, run, spans, grouped, solos):
+        """Rounds until one forms a single group of every member (at most
+        BATCH_ROUNDS); every round's members equal their solo answers."""
+        for i in range(BATCH_ROUNDS):
+            outs, wall, d = round_of(run, spans)
+            for m, (got, want) in enumerate(zip(outs, solos)):
+                same_answer(f"{name} round {i} member {m}", got, want,
+                            grouped, finding)
+            if d == {"rate_grid": 0, "rate_grid_batch": 1,
+                     "batch_direct": d["batch_direct"], "groups": 1,
+                     "members": len(spans)}:
+                return wall, d, i + 1
+            log(f"{name} round {i}: {d} (not one whole group)")
+        raise AssertionError(f"{name}: no round of {BATCH_ROUNDS} formed "
+                             f"one group of {len(spans)}")
+
+    def groups_of(name, run, spans, grouped, solos, seq_ms):
+        """BATCH_AT_3MS_ROUNDS rounds at the 3 ms window (what co-arrives
+        there, recorded), then at the members' solo calls in turn times
+        BATCH_WINDOW_FACTOR: rounds until a group formed (the key hot),
+        then ``reps`` whole groups.  (at3, warm rounds, walls, counts,
+        rounds)."""
+        at3 = []
+        for i in range(BATCH_AT_3MS_ROUNDS):
+            outs, _wall, d = round_of(run, spans)
+            for m, (got, want) in enumerate(zip(outs, solos)):
+                same_answer(f"{name} 3 ms round {i} member {m}", got, want,
+                            grouped, finding)
+            at3.append({k: d[k] for k in ("groups", "members",
+                                          "rate_grid")})
+        bat.configure(window_ms=max(BATCH_WINDOW_MS,
+                                    BATCH_WINDOW_FACTOR * seq_ms))
+        groups0 = met["groups"].value(dataset="prom")
+        warm = 0
+        while met["groups"].value(dataset="prom") == groups0:
+            warm += 1                   # the key hot: a group formed
+            if warm > BATCH_ROUNDS:
+                raise AssertionError(f"{name}: no group formed in "
+                                     f"{BATCH_ROUNDS} warm rounds")
+            round_of(run, spans)
+        walls, d, tries = [], None, 0
+        for _ in range(reps):
+            wall, d, n = whole(name, run, spans, grouped, solos)
+            walls.append(wall)
+            tries += n
+        return at3, warm, walls, d, tries
+
+    rows = []
+    plans = {}
+    err0 = met["fallbacks"].value(dataset="prom", reason="error")
+    try:
+        # the group maps as arrays once (a server holds its plans' maps)
+        looked_np = {m: (v[0], np.asarray(v[1], np.int32)) + tuple(v[2:])
+                     for m, v in looked.items()}
+        for name, kind, metric, span, members in batch_groups():
+            spans = member_spans(span, members)
+            grouped = kind == "grouped"
+
+            def run(sp, kind=kind, metric=metric):
+                out = run_query(shard, kind, F.RATE, sp, looked_np[metric])
+                return out if kind == "grouped" else out[1]
+
+            shard.query_batcher = None
+            for _ in range(2):      # the members' plans memoized, blocks built
+                solos = [run(sp) for sp in spans]
+            torch.cuda.synchronize()
+            seq_walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                for sp in spans:
+                    run(sp)
+                torch.cuda.synchronize()
+                seq_walls.append((time.perf_counter() - t0) * 1e3)
+            cache = grid_cache(shard, False)
+            plans[name] = [member_plan(cache, sp, len(looked[metric][0]))
+                           for sp in spans]
+            seq = statistics.median(seq_walls)
+            shard.query_batcher = bat
+            at3, warm, walls, d, tries = groups_of(
+                name, run, spans, grouped, solos, seq)
+            row = {"group": name, "kind": kind, "metric": metric,
+                   "members": members, "steps": span[1],
+                   "window_ms": bat.window_ms,
+                   "group_wall_ms": statistics.median(walls),
+                   "solo_seam_calls_ms": seq, "rounds": tries,
+                   "warm_rounds": warm, "at_3ms_window": at3,
+                   "batch_direct": d["batch_direct"]}
+            bat.configure(window_ms=BATCH_WINDOW_MS)
+            log(f"batch {name} ({kind} {metric}, {members} members, "
+                f"{span[1]} steps): at the 3 ms window {at3}; at "
+                f"{row['window_ms']:.1f} ms one batched B1 launch a whole "
+                f"group ({'direct' if d['batch_direct'] else 'staged'}), "
+                f"every member equal to its solo answer; group wall "
+                f"median of {reps} {row['group_wall_ms']:.3f} ms against "
+                f"{members} solo seam calls in turn {seq:.3f} ms ({tries} "
+                f"rounds for {reps} whole groups, {warm} warm)")
+            rows.append(row)
+
+        # one group through the engine, from PromQL text, deadlines minted
+        query = "sum by (pod)(rate(req_total[5m]))"
+        q2 = batch_groups()[0][3]
+        spans = member_spans(q2, BATCH_MAX)
+
+        def engine_run(sp):
+            qctx = wdl.mint(QueryContext(sample_limit=2**40,
+                                         timeout_ms=60_000))
+            res, host, _wall = run_engine(ms, query, sp, None, qctx=qctx)
+            return torch.as_tensor(np.stack(host))
+
+        shard.query_batcher = None
+        esolos = [engine_run(sp) for sp in spans]
+        seq = time.perf_counter()
+        for sp in spans:
+            engine_run(sp)
+        seq = (time.perf_counter() - seq) * 1e3
+        shard.query_batcher = bat
+        at3, warm, walls, d, tries = groups_of("engine", engine_run, spans,
+                                               True, esolos, seq)
+        row = {"group": "engine", "promql": query, "members": BATCH_MAX,
+               "window_ms": bat.window_ms,
+               "group_wall_ms": statistics.median(walls),
+               "solo_engine_calls_ms": seq, "rounds": tries,
+               "warm_rounds": warm, "at_3ms_window": at3}
+        bat.configure(window_ms=BATCH_WINDOW_MS)
+        log(f"batch engine {query!r} x {BATCH_MAX} (deadlines minted): at "
+            f"the 3 ms window {at3}; at {row['window_ms']:.1f} ms one group "
+            f"of {BATCH_MAX}, one batched launch, every member's rows "
+            f"equal to its solo engine answer (a reduced answer within "
+            f"{RTOL_GROUPED_BATCH} where its bits differ); group wall "
+            f"median of {reps} {row['group_wall_ms']:.3f} ms against "
+            f"{BATCH_MAX} solo engine calls in turn {seq:.3f} ms")
+        rows.append(row)
+    finally:
+        shard.query_batcher = None
+    errors = met["fallbacks"].value(dataset="prom", reason="error") - err0
+    if errors or batching_broken():
+        raise AssertionError(f"batched launches failed: {errors} fallbacks "
+                             f"for an error, breaker open "
+                             f"{batching_broken()}")
+    # the batched launch timed at M = 8 and 4 over Q2's members' plans
+    q2p = plans["Q2"]
+    if q2p[0].packed is not None or q2p[0].phase is None:
+        raise AssertionError("Q2's members do not run B1 in phase mode")
+    times = batch_launch_times(q2p[0], [p.row0 for p in q2p],
+                               [p.steps0_rel for p in q2p], reps, flush)
+    report["batch"] = {"groups": rows, "launch_times": times,
+                       "finding": finding, "launches": path}
+    log(f"batch path launches {path}; grouped reduce bits "
+        f"{'differ from solo in ' + str(finding['grouped_bits_differ']) + ' planes' if finding else 'equal to solo'}")
+    return {"launches": path, "times": times, "finding": finding}
 
 
 # ------------------------------------------------------------- phase 6
@@ -3219,6 +3734,7 @@ def northstar_second_ops(cases, reps: int, flush) -> list:
 DURABLE_HOURS = (60, 60, 60, 60, 20)   # rows of each hour's container set
 DURABLE_CRASH = 3                      # hours store A ingests before its crash
 DURABLE_SPAN = (T0 + 201 * STEP, 60)   # the last hour: windows end at rows 200-259
+D1_QUERY = "sum by (pod)(rate(req_total[5m]))"
 # the paging shard's page cache (``page-cache-size``): a deployment
 # choice, sized to hold the node's series paged whole (481 MB at 261
 # rows here), so that a dashboard's repeat hit over the history is served
@@ -4258,7 +4774,7 @@ def ledger_on_d1(ms, reps: int) -> dict:
     from filodb_tpu_torch.ops import grid
     from filodb_tpu_torch.utils import devicewatch as dw
 
-    q = "sum by (pod)(rate(req_total[5m]))"
+    q = D1_QUERY
     run_engine(ms, q, DURABLE_SPAN, None)             # warm
     rows0 = {r["program"]: r for r in dw.KERNEL_TIMER.table()}
     b1 = grid.rate_grid.launches
@@ -4549,12 +5065,32 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
 
         with Phase("durable.serve"):
             grid.reset_launch_counts()          # the durable path's run
-            t0 = time.perf_counter()
             before = counts()
+            # D1's cold run through the engine: the residency delta it
+            # notes is the ledger's change over the run (its blocks
+            # staged), positive; the warm repeat's is 0
+            gc.collect()
+            resident0 = LEDGER.total_bytes()
+            t0 = time.perf_counter()
+            res, _host, _wall = run_engine(ms_b, D1_QUERY, DURABLE_SPAN,
+                                           None)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            delta = res.stats.hbm_resident_delta_bytes
+            tracked = LEDGER.total_bytes() - resident0
+            if not 0 < delta == tracked:
+                raise AssertionError(f"D1 cold: residency delta {delta}, "
+                                     f"the ledger tracked {tracked}")
+            warm_delta = run_engine(ms_b, D1_QUERY, DURABLE_SPAN, None)[
+                0].stats.hbm_resident_delta_bytes
+            if warm_delta != 0:
+                raise AssertionError(f"D1 warm: residency delta "
+                                     f"{warm_delta}")
+            log(f"D1 through the engine: cold residency delta {delta} "
+                f"bytes, equal to the ledger's change; warm 0")
             got_g = run_query(shard_b, "grouped", F.RATE, DURABLE_SPAN,
                               looked)
             torch.cuda.synchronize()
-            cold = time.perf_counter() - t0
             got_s = run_query(shard_b, "series", F.RATE, DURABLE_SPAN,
                               looked)
             torch.cuda.synchronize()
@@ -4581,10 +5117,12 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                 walls.append((time.perf_counter() - t0) * 1e3)
             p10, p90 = spread(walls)
             serve = {"cold_s": cold, "launches": ran, "cpu_check_err": err,
+                     "cold_resident_delta_bytes": delta,
                      "warm_wall_ms": statistics.median(walls),
                      "warm_wall_p10_p90": (p10, p90), "blocks": len(plan.segs)}
             log(f"D1 sum by (pod)(rate(req_total[5m])) over the last hour: "
-                f"cold {cold:.3f} s ({len(plan.segs)} blocks staged), "
+                f"cold (engine) {cold:.3f} s ({len(plan.segs)} blocks "
+                f"staged), "
                 f"launches {ran}, cpu-twin check ok (max_abs_err "
                 f"{err:.3e}); warm median of {reps} wall_ms "
                 f"{serve['warm_wall_ms']:.3f} (p10 {p10:.3f}, p90 {p90:.3f})")
@@ -4910,6 +5448,10 @@ def run_phases(args, device, encoding: PodHours) -> int:
             sweep_err = max(sweep_err, b1_sweep(
                 device, REPS, args.seed, report["b1_sweep"],
                 make_flush(device)))
+        with Phase("kernels.b1_batch"):
+            report["b1_batch"] = []
+            sweep_err = max(sweep_err, b1_batch_sweep(
+                device, args.seed, report["b1_batch"]))
         with Phase("kernels.b3_sweep"):
             sweep_err = max(sweep_err, b3_sweep(device, args.seed, report))
         sweep_err = max(sweep_err, grouped_sweep(device, REPS, args.seed,
@@ -4919,8 +5461,9 @@ def run_phases(args, device, encoding: PodHours) -> int:
     with Phase("main"):
         main = main_path(device, args.seed, REPS, report)
     with Phase("engine"):
-        engine = engine_phase(device, main.pop("stores"), ENGINE_REPS,
-                              report)
+        engine = engine_phase(device, main["stores"], ENGINE_REPS, report)
+    with Phase("batch"):
+        batch = batch_phase(device, main.pop("stores"), REPS, report)
     with Phase("northstar"):
         northstar = northstar_phase(device, args.seed, REPS, report)
     # after every other phase: none of them may see its quarantine.  The
@@ -4930,7 +5473,8 @@ def run_phases(args, device, encoding: PodHours) -> int:
     torch.cuda.empty_cache()
     with Phase("durable"):
         durable = durable_phase(device, args.seed, REPS, encoding, report)
-    entries = kernel_entries(main, engine, northstar, durable, report)
+    entries = kernel_entries(main, engine, batch, northstar, durable,
+                             report)
     report["kernels"] = entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -4945,13 +5489,15 @@ def run_phases(args, device, encoding: PodHours) -> int:
     return 0
 
 
-def kernel_entries(main: dict, engine: dict, northstar: dict,
+def kernel_entries(main: dict, engine: dict, batch: dict, northstar: dict,
                    durable: dict, report: dict) -> list:
     """The ``{"kernels": [...]}`` record: each kernel at the input of its
     primary query (rate_grid at Q2, rate_grid_packed at Q1, m4_grid at
     E2, the grouped kernels at the north-star widths), with its launches
-    on the paths that run it (rate_grid's: the main path's and the
-    durable path's)."""
+    on the paths that run it (rate_grid's: the main path's, the batch
+    phase's, solo and batched, and the durable path's; its batched
+    launches also in ``launches_batched``, their times in
+    ``batched``)."""
     primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
     replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
                 "rate_grid_packed": "filodb_tpu/ops/grid.py:1086",
@@ -4968,9 +5514,13 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
     for k, n in durable["launches"].items():
         launches[k] += n
-    direct = main["rate_grid_direct"] + durable["rate_grid_direct"]
+    bl = batch["launches"]
+    launches["rate_grid"] += bl["rate_grid"] + bl["rate_grid_batch"]
+    direct = main["rate_grid_direct"] + durable["rate_grid_direct"] \
+        + bl["batch_direct"]
     sweep = (report["kernel_sweep"] + report["b1_sweep"] + report["b3_sweep"]
-             + report["grouped_sweep"] + northstar["second_ops"])
+             + report["b1_batch"] + report["grouped_sweep"]
+             + northstar["second_ops"])
     sources = {k: "filodb_tpu_torch/csrc/grid_kernels.cu" for k in replaces}
     sources["rate_grid"] = "filodb_tpu_torch/csrc/series_staged.cu"
     sources["hist_grid_grouped_packed"] = \
@@ -4984,13 +5534,19 @@ def kernel_entries(main: dict, engine: dict, northstar: dict,
     split = {"rate_grid": {
         "launches_staged": launches["rate_grid"] - direct,
         "launches_direct": direct,
-        "source_direct": "filodb_tpu_torch/csrc/grid_kernels.cu"}}
+        "source_direct": "filodb_tpu_torch/csrc/grid_kernels.cu",
+        "launches_batched": bl["rate_grid_batch"],
+        "batched": [{k: r[k] for k in ("members", "ms", "solo_ms",
+                                       "plain_ms", "bound_ms", "bound_by")}
+                    for r in batch["times"]]}}
     for kname in replaces:
         row = path_rows[kname]
         errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
         errs += [r["max_abs_err"] for r in durable["rows"]
                  if r["kernel"] == kname]
         errs += [r["max_abs_err"] for r in sweep if r["kernel"] == kname]
+        if kname == "rate_grid":
+            errs += [r["max_abs_err"] for r in batch["times"]]
         entries.append({
             "name": kname, "route": "cuda",
             "source": sources[kname],

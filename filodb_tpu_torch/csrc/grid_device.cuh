@@ -1175,6 +1175,39 @@ inline bool args_ok(int op, int K) {
       && (family_of(op) != F_SORT || (K >= 1 && K <= kSortMaxK));
 }
 
+// B1's member axis (the reference's vmap of rate_grid over the members of
+// a co-arrival batch, filodb_tpu/ops/grid.py:1539-1556).  A batched
+// launch reads M members' windows from ONE shared plane: member m =
+// blockIdx.y starts at plane row row0s[m] (its values and, in ts mode,
+// its timestamps), ends its first window at steps0s[m], and writes
+// [T, ns] rows [m*T, (m+1)*T) of the [M*T, ns] output; the phase row is
+// shared.  A solo launch passes no arrays and is member 0 at row 0.  The
+// member's arithmetic is its solo launch's, so its bits are too.
+struct MemberOffsets {
+  long rows;     // elements of the plane before the member's first row
+  long out;      // elements of the output before the member's rows
+};
+
+__device__ __forceinline__ MemberOffsets member_offsets(const int* row0s,
+                                                        const int* steps0s,
+                                                        long ns,
+                                                        Params& P) {
+  if (row0s == nullptr) return {0, 0};
+  const int m = static_cast<int>(blockIdx.y);
+  P.steps0 = steps0s[m];
+  return {static_cast<long>(row0s[m]) * ns,
+          static_cast<long>(m) * P.T * ns};
+}
+
+// The member arrays a launch takes: none (a solo launch, one member), or
+// both, for 1 to 65,535 members (grid.y's limit).
+inline bool members_ok(const void* row0s, const void* steps0s,
+                       int members) {
+  return row0s == nullptr
+      ? steps0s == nullptr && members == 1
+      : steps0s != nullptr && members >= 1 && members <= 65535;
+}
+
 }  // namespace
 
 // Function arguments of the second op set: predict_linear's horizon

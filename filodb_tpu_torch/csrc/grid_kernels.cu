@@ -97,13 +97,22 @@
 
 namespace {
 
+// The direct kernels take B1's member axis as the staged one does
+// (member_offsets, grid_device.cuh): blockIdx.y is the member of a
+// co-arrival batch, none for a solo launch.
 __global__ void rate_grid_kernel(const float* __restrict__ vals,
                                  const int* __restrict__ ts,
                                  const int* __restrict__ phase,
-                                 float* __restrict__ out, int ns, Params P,
-                                 int mode) {
+                                 float* __restrict__ out,
+                                 const int* __restrict__ row0s,
+                                 const int* __restrict__ steps0s, int ns,
+                                 Params P, int mode) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= ns) return;
+  const MemberOffsets mo = member_offsets(row0s, steps0s, ns, P);
+  vals += mo.rows;
+  if (ts) ts += mo.rows;
+  out += mo.out;
   DenseSrc src{vals + lane, ns};
   const float ph = (mode == PHASE) ? static_cast<float>(phase[lane]) : 0.f;
   StoreSink sink{out + lane, ns};
@@ -113,10 +122,16 @@ __global__ void rate_grid_kernel(const float* __restrict__ vals,
 template <int Fam>
 __global__ void rate_grid_ext_kernel(const float* __restrict__ vals,
                                      const int* __restrict__ ts,
-                                     float* __restrict__ out, int ns,
-                                     Params P) {
+                                     float* __restrict__ out,
+                                     const int* __restrict__ row0s,
+                                     const int* __restrict__ steps0s,
+                                     int ns, Params P) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= ns) return;
+  const MemberOffsets mo = member_offsets(row0s, steps0s, ns, P);
+  vals += mo.rows;
+  if (ts) ts += mo.rows;
+  out += mo.out;
   DenseSrc src{vals + lane, ns};
   StoreSink sink{out + lane, ns};
   lane_windows_ext<Fam>(src, ts ? ts + lane : nullptr, ns, P, sink);
@@ -561,15 +576,19 @@ const char* grid_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
 
-int rate_grid_launch(const void* vals, const void* ts, const void* phase,
-                     void* out, int nb, int ns, int T, int K, int stride,
-                     int g, int steps0, int op, int mode, int dense,
-                     int is_rate, FN_ARGS, void* stream) {
-  if (!args_ok(op, K)) return static_cast<int>(cudaErrorInvalidValue);
-  (void)nb;
+// rate_grid_launch and rate_grid_batch_launch: the member arrays (none
+// for a solo launch) on grid.y.
+static int rate_grid_members(const void* vals, const void* ts,
+                             const void* phase, void* out, const int* row0s,
+                             const int* steps0s, int members, int ns, int T,
+                             int K, int stride, int g, int steps0, int op,
+                             int mode, int dense, int is_rate, FN_ARGS,
+                             void* stream) {
+  if (!args_ok(op, K) || !members_ok(row0s, steps0s, members))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params P{T, K, stride, g, steps0, op, dense, is_rate, farg, farg2,
            rank_lo, rank_hi, w_lo, w_hi, fill};
-  const int grid = (ns + kBlock - 1) / kBlock;
+  const dim3 grid((ns + kBlock - 1) / kBlock, members);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const int* t = static_cast<const int*>(ts);
@@ -580,35 +599,73 @@ int rate_grid_launch(const void* vals, const void* ts, const void* phase,
   switch (fam) {
     case F_BASE:
       rate_grid_kernel<<<grid, kBlock, 0, s>>>(
-          v, t, static_cast<const int*>(phase), o, ns, P, mode);
+          v, t, static_cast<const int*>(phase), o, row0s, steps0s, ns, P,
+          mode);
       break;
     case F_PAIR:
-      rate_grid_ext_kernel<F_PAIR><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      rate_grid_ext_kernel<F_PAIR><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_LINREG:
-      rate_grid_ext_kernel<F_LINREG><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      rate_grid_ext_kernel<F_LINREG><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_STAMP:
-      rate_grid_ext_kernel<F_STAMP><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      rate_grid_ext_kernel<F_STAMP><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_CHANGES:
-      rate_grid_ext_kernel<F_CHANGES><<<grid, kBlock, 0, s>>>(v, t, o, ns,
-                                                              P);
+      rate_grid_ext_kernel<F_CHANGES><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_MOMENTS:
-      rate_grid_ext_kernel<F_MOMENTS><<<grid, kBlock, 0, s>>>(v, t, o, ns,
-                                                              P);
+      rate_grid_ext_kernel<F_MOMENTS><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_SORT:
-      rate_grid_ext_kernel<F_SORT><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      rate_grid_ext_kernel<F_SORT><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     case F_HOLT:
-      rate_grid_ext_kernel<F_HOLT><<<grid, kBlock, 0, s>>>(v, t, o, ns, P);
+      rate_grid_ext_kernel<F_HOLT><<<grid, kBlock, 0, s>>>(
+          v, t, o, row0s, steps0s, ns, P);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int rate_grid_launch(const void* vals, const void* ts, const void* phase,
+                     void* out, int nb, int ns, int T, int K, int stride,
+                     int g, int steps0, int op, int mode, int dense,
+                     int is_rate, FN_ARGS, void* stream) {
+  (void)nb;
+  return rate_grid_members(vals, ts, phase, out, nullptr, nullptr, 1, ns, T,
+                           K, stride, g, steps0, op, mode, dense, is_rate,
+                           farg, farg2, rank_lo, rank_hi, w_lo, w_hi, fill,
+                           stream);
+}
+
+// A co-arrival batch of `members` queries over ONE plane through the
+// direct kernel in one launch: member m's windows start at plane row
+// row0s[m] and end first at steps0s[m] (int32 arrays on the device), its
+// answer rows [m*T, (m+1)*T) of out [members*T, ns].  The other arguments
+// are rate_grid_launch's, less nb and steps0 (the host checks that each
+// member's rows lie inside the plane).
+int rate_grid_batch_launch(const void* vals, const void* ts,
+                           const void* phase, void* out, const void* row0s,
+                           const void* steps0s, int members, int ns, int T,
+                           int K, int stride, int g, int op, int mode,
+                           int dense, int is_rate, FN_ARGS, void* stream) {
+  if (row0s == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rate_grid_members(vals, ts, phase, out,
+                           static_cast<const int*>(row0s),
+                           static_cast<const int*>(steps0s), members, ns, T,
+                           K, stride, g, 0, op, mode, dense, is_rate, farg,
+                           farg2, rank_lo, rank_hi, w_lo, w_hi, fill,
+                           stream);
 }
 
 // Every class plane of a pack in one launch: nplanes (1 to 4) planes in

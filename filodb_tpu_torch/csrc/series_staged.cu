@@ -57,9 +57,12 @@
 // by the instruction rate and latency of its serial steps at about 24
 // consumer warps an SM, which the lane count caps.
 
-// The launch is laid out over blockIdx.x (tiles), leaving blockIdx.y and
-// blockIdx.z free for a member axis (the reference's vmap of rate_grid
-// over the members of a batch, filodb_tpu/ops/grid.py:1539-1556).
+// The launch is laid out over blockIdx.x (tiles) and blockIdx.y
+// (members): a co-arrival batch of M queries over the same resident plane
+// (grid.rate_grid_batch) is one launch of M x tiles CTAs, each member's
+// CTAs reading its own rows of the one plane (member_offsets,
+// grid_device.cuh), with no copied [M, rows, ns] input.  Members share
+// the plan: their q, ns and rows are the same.
 
 #include "grid_device.cuh"
 
@@ -91,10 +94,16 @@ __global__ void __launch_bounds__(kTile + kProducers, kSeriesCtas)
 series_staged_kernel(const uint32_t* __restrict__ vals,
                      const int* __restrict__ ts,
                      const int* __restrict__ phase, float* __restrict__ out,
-                     int ns, Params P, int mode, int ring_bytes) {
+                     const int* __restrict__ row0s,
+                     const int* __restrict__ steps0s, int ns, Params P,
+                     int mode, int ring_bytes) {
   extern __shared__ __align__(16) unsigned char sh[];
   __shared__ RingBars bars;
   const int tid = static_cast<int>(threadIdx.x);
+  const MemberOffsets mo = member_offsets(row0s, steps0s, ns, P);
+  vals += mo.rows;
+  if (ts) ts += mo.rows;
+  out += mo.out;
   // the values' ring; in ts mode, theirs beside it
   uint32_t* ring = reinterpret_cast<uint32_t*>(sh);
   int* ts_ring = reinterpret_cast<int*>(sh + ring_bytes);
@@ -140,17 +149,77 @@ series_staged_kernel(const uint32_t* __restrict__ vals,
       RingTs<kTile>{ts_ring + j, mask, 0}, 0, phase, lane, P, mode, sink);
 }
 
+// Where a launch's member arrays live: none for a solo launch.
+struct Members {
+  const int* row0s;
+  const int* steps0s;
+  int count;
+};
+
 template <int Fam>
 int staged_launch(const uint32_t* vals, const int* ts, const int* phase,
-                  float* out, int ns, const Params& P, int mode,
+                  float* out, Members mb, int ns, const Params& P, int mode,
                   int ring_bytes, cudaStream_t s) {
   const size_t shared = static_cast<size_t>(ring_bytes) * (ts ? 2 : 1);
   const cudaError_t rc = allow_shared(series_staged_kernel<Fam>, shared);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  series_staged_kernel<Fam><<<(ns + kTile - 1) / kTile, kTile + kProducers,
-                              shared, s>>>(vals, ts, phase, out, ns, P, mode,
-                                           ring_bytes);
+  const dim3 grid((ns + kTile - 1) / kTile, mb.count);
+  series_staged_kernel<Fam><<<grid, kTile + kProducers, shared, s>>>(
+      vals, ts, phase, out, mb.row0s, mb.steps0s, ns, P, mode, ring_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entries' checks and launch: nb is the rows each member may read
+// from its first row on (the plane's rows for a solo launch).
+int series_staged(const void* vals, const void* ts, const void* phase,
+                  void* out, Members mb, int nb, int ns, int T, int K,
+                  int stride, int g, int steps0, int op, int mode,
+                  int dense, int is_rate, int ring_bytes, FN_ARGS,
+                  void* stream) {
+  const int fam = family_of(op);
+  if (!args_ok(op, K) || ns < 1 || T < 1 || stride < 1 || mode < FREE
+      || mode > TS || nb < static_cast<long>(T - 1) * stride + K
+      || ((reads_ts(fam) || (fam == F_BASE && mode == TS)) && !ts)
+      || (fam == F_BASE && mode == PHASE && !phase)
+      || !members_ok(mb.row0s, mb.steps0s, mb.count))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P{T, K, stride, g, steps0, op, dense, is_rate, farg, farg2,
+           rank_lo, rank_hi, w_lo, w_hi, fill};
+  if (!series_plan_ok(ring_bytes, P))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* v = static_cast<const uint32_t*>(vals);
+  const int* t = static_cast<const int*>(ts);
+  const int* ph = static_cast<const int*>(phase);
+  float* o = static_cast<float*>(out);
+  switch (fam) {
+    case F_BASE:
+      return staged_launch<F_BASE>(v, t, ph, o, mb, ns, P, mode, ring_bytes,
+                                   s);
+    case F_PAIR:
+      return staged_launch<F_PAIR>(v, t, ph, o, mb, ns, P, mode, ring_bytes,
+                                   s);
+    case F_LINREG:
+      return staged_launch<F_LINREG>(v, t, ph, o, mb, ns, P, mode,
+                                     ring_bytes, s);
+    case F_STAMP:
+      return staged_launch<F_STAMP>(v, t, ph, o, mb, ns, P, mode,
+                                    ring_bytes, s);
+    case F_CHANGES:
+      return staged_launch<F_CHANGES>(v, t, ph, o, mb, ns, P, mode,
+                                      ring_bytes, s);
+    case F_MOMENTS:
+      return staged_launch<F_MOMENTS>(v, t, ph, o, mb, ns, P, mode,
+                                      ring_bytes, s);
+    case F_SORT:
+      return staged_launch<F_SORT>(v, t, ph, o, mb, ns, P, mode, ring_bytes,
+                                   s);
+    case F_HOLT:
+      return staged_launch<F_HOLT>(v, t, ph, o, mb, ns, P, mode, ring_bytes,
+                                   s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -164,44 +233,34 @@ int series_staged_launch(const void* vals, const void* ts, const void* phase,
                          void* out, int nb, int ns, int T, int K, int stride,
                          int g, int steps0, int op, int mode, int dense,
                          int is_rate, int ring_bytes, FN_ARGS, void* stream) {
-  const int fam = family_of(op);
-  if (!args_ok(op, K) || ns < 1 || T < 1 || stride < 1 || mode < FREE
-      || mode > TS || nb < static_cast<long>(T - 1) * stride + K
-      || ((reads_ts(fam) || (fam == F_BASE && mode == TS)) && !ts)
-      || (fam == F_BASE && mode == PHASE && !phase))
+  return series_staged(vals, ts, phase, out, Members{nullptr, nullptr, 1},
+                       nb, ns, T, K, stride, g, steps0, op, mode, dense,
+                       is_rate, ring_bytes, farg, farg2, rank_lo, rank_hi,
+                       w_lo, w_hi, fill, stream);
+}
+
+// A co-arrival batch of `members` queries over ONE plane vals [*, ns] (and
+// ts, phase) through the staged kernel, in one launch: member m's windows
+// start at plane row row0s[m] and end first at steps0s[m] (int32 arrays
+// on the device), its answer rows [m*T, (m+1)*T) of out [members*T, ns].
+// nrows is the rows a member reads from its first row on (the host checks
+// that each member's lie inside the plane).  The other arguments are
+// series_staged_launch's.
+int series_staged_batch_launch(const void* vals, const void* ts,
+                               const void* phase, void* out,
+                               const void* row0s, const void* steps0s,
+                               int members, int nrows, int ns, int T, int K,
+                               int stride, int g, int op, int mode,
+                               int dense, int is_rate, int ring_bytes,
+                               FN_ARGS, void* stream) {
+  if (row0s == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params P{T, K, stride, g, steps0, op, dense, is_rate, farg, farg2,
-           rank_lo, rank_hi, w_lo, w_hi, fill};
-  if (!series_plan_ok(ring_bytes, P))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* v = static_cast<const uint32_t*>(vals);
-  const int* t = static_cast<const int*>(ts);
-  const int* ph = static_cast<const int*>(phase);
-  float* o = static_cast<float*>(out);
-  switch (fam) {
-    case F_BASE:
-      return staged_launch<F_BASE>(v, t, ph, o, ns, P, mode, ring_bytes, s);
-    case F_PAIR:
-      return staged_launch<F_PAIR>(v, t, ph, o, ns, P, mode, ring_bytes, s);
-    case F_LINREG:
-      return staged_launch<F_LINREG>(v, t, ph, o, ns, P, mode, ring_bytes,
-                                     s);
-    case F_STAMP:
-      return staged_launch<F_STAMP>(v, t, ph, o, ns, P, mode, ring_bytes, s);
-    case F_CHANGES:
-      return staged_launch<F_CHANGES>(v, t, ph, o, ns, P, mode, ring_bytes,
-                                      s);
-    case F_MOMENTS:
-      return staged_launch<F_MOMENTS>(v, t, ph, o, ns, P, mode, ring_bytes,
-                                      s);
-    case F_SORT:
-      return staged_launch<F_SORT>(v, t, ph, o, ns, P, mode, ring_bytes, s);
-    case F_HOLT:
-      return staged_launch<F_HOLT>(v, t, ph, o, ns, P, mode, ring_bytes, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return series_staged(
+      vals, ts, phase, out,
+      Members{static_cast<const int*>(row0s),
+              static_cast<const int*>(steps0s), members},
+      nrows, ns, T, K, stride, g, 0, op, mode, dense, is_rate, ring_bytes,
+      farg, farg2, rank_lo, rank_hi, w_lo, w_hi, fill, stream);
 }
 
 }  // extern "C"

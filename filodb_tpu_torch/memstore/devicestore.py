@@ -38,9 +38,16 @@ Each query runs one of four programs, all plain functions on tensors:
 ``series``/``grouped`` over decoded planes (:func:`rate_grid` kernel)
 and ``series_packed``/``grouped_packed`` over one packed block
 (:func:`rate_grid_packed` kernel); the grouped ones reduce lanes to
-``[G, T]`` partials on the device before the one readback.  Each is a
-program of the kernel ledger (``devicestore.series`` and so on,
-``utils/devicewatch.timed``), credited with its plan's resident bytes.
+``[G, T]`` partials on the device before the one readback.  Where the
+shard has a ``query_batcher`` (``batching.QueryBatcher``), concurrent
+queries over the same decoded planes that differ only in their start
+meet there and run ``series_batch``/``grouped_batch`` once for the
+whole group: the blocks concatenated once, one :func:`rate_grid_batch`
+launch over every member, one reduce over every member's steps; each
+member reads its slice.  Each program is a program of the kernel ledger
+(``devicestore.series`` and so on, ``utils/devicewatch.timed``),
+credited with its plan's resident bytes (a batched program once a
+group).
 
 Histogram columns (``hist=True`` caches) give each partition ``hb``
 adjacent device columns, one a cumulative bucket, and run the same
@@ -62,8 +69,9 @@ from filodb_tpu_torch.ops import aggregate as segops
 from filodb_tpu_torch.ops.grid import (DENSE_ONLY_OPS, PHASE_OPS, TS_FREE_OPS,
                                        GridQuery, bits_to_f32, max_k_for,
                                        phase_eligible, prefix_xor,
-                                       rate_grid, rate_grid_packed,
-                                       supports_grid, widen_words)
+                                       rate_grid, rate_grid_batch,
+                                       rate_grid_packed, supports_grid,
+                                       widen_words)
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
 from filodb_tpu_torch.utils.devicewatch import KERNEL_TIMER, LEDGER, timed
 from filodb_tpu_torch.utils.observability import query_metrics
@@ -189,12 +197,20 @@ def hist_state_from_planes(both: torch.Tensor, num_groups: int, hb: int,
     return {"hist_sum": hist_sum, "count": count, "bucket_tops": tops}
 
 
-def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
-    """Device-side segment reduce of a grid kernel's ``[T, lanes]``
-    output into ``[G, T]`` partials, on the device.  ``garr`` maps
-    lane -> group (``num_groups`` = the drop bucket for unrequested and
-    padding lanes).  sum/avg/count at modest G are a one-hot matmul;
-    beyond ``_ONEHOT_MAX_G`` an index_add."""
+def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str,
+                         exact: bool = False):
+    """Device-side segment reduce of a grid kernel's ``[T, lanes]`` output
+    into ``[G, T]`` partials, on the device.  ``garr`` maps lane -> group
+    (``num_groups`` = the drop bucket for unrequested and padding lanes).
+    sum/avg/count at modest G are a one-hot matmul; beyond
+    ``_ONEHOT_MAX_G`` an index_add.  ``exact`` accumulates the sums in
+    f64 and rounds them to the output's dtype once: a group's f32 values
+    then sum exactly, or within f64's rounding, which the final f32
+    rounding hides but for values within 1e-16 of an f32 tie, so the
+    answer does not depend on the order the library sums in, and a
+    co-arrival group's stacked reduce equals each member's own (a scalar
+    cache's; a histogram cache's ``num_groups*hb``-slot one-hot would
+    take twice its f32 bytes, and never batches)."""
     v = stepped.T                                # [lanes, T]
     G = num_groups
     if op in ("sum", "avg", "count", "moments"):
@@ -203,15 +219,20 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
         planes = [vz, fin.to(v.dtype)]
         if op == "moments":                      # stddev/stdvar partials
             planes.append(vz * vz)
+        acc = torch.float64 if exact else v.dtype
         if G + 1 <= _ONEHOT_MAX_G:
             onehot = (garr[:, None] == torch.arange(
                 G, dtype=garr.dtype, device=garr.device)[None, :]
-                ).to(v.dtype)                    # [lanes, G]
-            outs = [segops.f32_matmul(onehot.T, p) for p in planes]
+                ).to(acc)                        # [lanes, G]
+            # steps are the product's rows ([T, lanes] @ [lanes, G]), as
+            # in a co-arrival group's stacked [M*T, lanes] product
+            outs = [segops.f32_matmul(p.T.to(acc), onehot).T.to(v.dtype)
+                    for p in planes]
         else:
             idx = garr.to(torch.int64)
-            outs = [torch.zeros((G + 1, v.shape[1]), dtype=v.dtype,
-                                device=v.device).index_add_(0, idx, p)[:G]
+            outs = [torch.zeros((G + 1, v.shape[1]), dtype=acc,
+                                device=v.device).index_add_(
+                                    0, idx, p.to(acc))[:G].to(v.dtype)
                     for p in planes]
         return torch.stack(outs)
     if op == "min":
@@ -219,6 +240,14 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str):
     if op == "max":
         return segops.seg_max(v, garr, G + 1)[:G]
     raise ValueError(f"unsupported grouped op {op}")
+
+
+def _active_query_context():
+    """The QueryContext of the query whose ExecContext is active on this
+    thread (its deadline and permit gate the batcher), or None."""
+    from filodb_tpu_torch.query.exec import active_exec_ctx
+    ctx = active_exec_ctx()
+    return ctx.query_context if ctx is not None else None
 
 
 _HBM_METRIC = None
@@ -320,8 +349,10 @@ def series_program(plan: _GridPlan):
 
 
 @timed(program="devicestore.grouped")
-def grouped_program(plan: _GridPlan, garr, num_groups: int, op: str):
-    return _grouped_reduce_impl(_series_impl(plan), garr, num_groups, op)
+def grouped_program(plan: _GridPlan, garr, num_groups: int, op: str,
+                    exact: bool = False):
+    return _grouped_reduce_impl(_series_impl(plan), garr, num_groups, op,
+                                exact)
 
 
 @timed(program="devicestore.series_packed")
@@ -331,9 +362,44 @@ def series_packed_program(plan: _GridPlan):
 
 
 @timed(program="devicestore.grouped_packed")
-def grouped_packed_program(plan: _GridPlan, garr, num_groups: int, op: str):
+def grouped_packed_program(plan: _GridPlan, garr, num_groups: int, op: str,
+                           exact: bool = False):
     return _grouped_reduce_impl(_series_packed_impl(plan), garr,
-                                num_groups, op)
+                                num_groups, op, exact)
+
+
+def _series_batch_impl(plan: _GridPlan, row0s, steps0s):
+    """The blocks concatenated once, then one :func:`rate_grid_batch`
+    launch over the members' rows: ``[M, T, ncols]``."""
+    ts_all = _concat(plan.ts_parts, _seg_ts_device)
+    val_all = _concat(plan.val_parts, _seg_vals_device)
+    return rate_grid_batch(ts_all, val_all, row0s, steps0s, plan.q,
+                           plan.nrows, phase=plan.phase)
+
+
+@timed(program="devicestore.series_batch")
+def series_batch_program(plan: _GridPlan, row0s, steps0s):
+    """A co-arrival group's ``series`` program: ``[M, T, ncols]``, member
+    m's answer bit for bit its solo ``series_program``'s."""
+    return _series_batch_impl(plan, row0s, steps0s)
+
+
+@timed(program="devicestore.grouped_batch")
+def grouped_batch_program(plan: _GridPlan, row0s, steps0s, garr,
+                          num_groups: int, op: str):
+    """A co-arrival group's ``grouped`` program: one launch, then ONE
+    reduce over every member's steps with the members' shared group map
+    (``[M*T]`` columns; the one-hot matmul once, not M times), its sums
+    accumulated exactly as a scalar cache's solo reduce does.  Returns
+    ``[M, ...]``, member m's partials laid out as its solo
+    ``grouped_program``'s."""
+    stacked = _series_batch_impl(plan, row0s, steps0s)
+    M, T, n = stacked.shape
+    both = _grouped_reduce_impl(stacked.reshape(M * T, n), garr,
+                                num_groups, op, exact=True)
+    # [..., G, M*T] -> [M, ..., G, T], each member's block contiguous
+    both = both.reshape(*both.shape[:-1], M, T)
+    return both.movedim(-2, 0).contiguous()
 
 
 def _note_kernel_bytes(prog_fn, plan: _GridPlan) -> None:
@@ -600,11 +666,19 @@ class DeviceGridCache:
             _note_kernel_bytes(grouped_packed_program, plan)
             both = grouped_packed_program(
                 plan, torch.as_tensor(garr_pk, device=self.device),
-                slots, op)
+                slots, op, not self.hist)
         else:
-            _note_kernel_bytes(grouped_program, plan)
-            both = grouped_program(
-                plan, torch.as_tensor(garr, device=self.device), slots, op)
+            def grouped_solo():
+                # the per-query program: also every batching fallback
+                _note_kernel_bytes(grouped_program, plan)
+                return grouped_program(
+                    plan, torch.as_tensor(garr, device=self.device), slots,
+                    op, not self.hist)
+
+            both = None if self.hist else self._batched_grouped(
+                plan, garr, slots, op, grouped_solo)
+            if both is None:
+                both = grouped_solo()
         if self.hist:
             return hist_state_from_planes(both, num_groups, stride, tops)
         if op == "count":
@@ -615,14 +689,75 @@ class DeviceGridCache:
             return {"sum": both[0], "count": both[1], "sumsq": both[2]}
         return {op: both}
 
+    def _batched_grouped(self, plan: _GridPlan, garr: np.ndarray,
+                         num_groups: int, op: str, grouped_solo):
+        """Offer a grouped program to the shard's query batcher.  Members
+        must share the group map exactly (its bytes are part of the key):
+        the stacked program reduces every member with the one map (the
+        leader uploads it; a member that joins uploads nothing).
+        Returns the member's partials (a view of the stacked output), or
+        None for the solo program."""
+        batcher = getattr(self._shard, "query_batcher", None)
+        if batcher is None or not batcher.enabled:
+            return None
+        key = ("grouped", tuple(id(p) for p in plan.ts_parts),
+               tuple(id(p) for p in plan.val_parts), id(plan.phase),
+               plan.q, plan.ncols, plan.nrows, num_groups, op,
+               garr.tobytes())
+
+        def batch_launch(row0s, steps0s):
+            _note_kernel_bytes(grouped_batch_program, plan)
+            return grouped_batch_program(
+                plan, row0s, steps0s,
+                torch.as_tensor(garr, device=self.device), num_groups, op)
+
+        return batcher.dispatch(key, plan.row0, plan.steps0_rel,
+                                _active_query_context(), batch_launch,
+                                grouped_solo)
+
+    def _series_solo(self, plan: _GridPlan) -> torch.Tensor:
+        """The per-query decoded-plane program: also every batching
+        fallback (the same launch, so the same bits)."""
+        _note_kernel_bytes(series_program, plan)
+        return series_program(plan)
+
+    def _batched_series(self, plan: _GridPlan):
+        """Offer a decoded-plane series program to the shard's query
+        batcher.  Members share the resident planes (their identity),
+        the phase row, the query, the width and the rows they read, and
+        differ only in ``(row0, steps0)``; the lanes each requests are
+        taken from its own slice.  Returns the member's ``[T, ncols]``
+        (a view of the stacked output on the store's device), or None
+        when the batcher declined and the caller runs the solo
+        program."""
+        batcher = getattr(self._shard, "query_batcher", None)
+        if batcher is None or not batcher.enabled or self.hist:
+            return None
+        key = ("series", tuple(id(p) for p in plan.ts_parts),
+               tuple(id(p) for p in plan.val_parts), id(plan.phase),
+               plan.q, plan.ncols, plan.nrows)
+
+        def batch_launch(row0s, steps0s):
+            _note_kernel_bytes(series_batch_program, plan)
+            return series_batch_program(plan, row0s, steps0s)
+
+        return batcher.dispatch(key, plan.row0, plan.steps0_rel,
+                                _active_query_context(), batch_launch,
+                                lambda: self._series_solo(plan))
+
     def _dispatch_series(self, plan: _GridPlan, hb) -> torch.Tensor:
         """The plan's program and the requested series out of its
         ``[T, columns]`` answer: ``[S_req, T]``, or ``[S_req, T, hb]``
-        for a histogram cache (``hb`` its bucket columns a slot)."""
-        prog = series_packed_program if plan.packed is not None \
-            else series_program
-        _note_kernel_bytes(prog, plan)
-        stepped = prog(plan)
+        for a histogram cache (``hb`` its bucket columns a slot).  The
+        packed program first; then, for a decoded-plane plan of a scalar
+        column, the query batcher; then the solo program."""
+        if plan.packed is not None:
+            _note_kernel_bytes(series_packed_program, plan)
+            stepped = series_packed_program(plan)
+        else:
+            stepped = self._batched_series(plan)
+            if stepped is None:
+                stepped = self._series_solo(plan)
         dev = stepped.device
         if self.hist:
             # column-granular indirection: a series' columns are

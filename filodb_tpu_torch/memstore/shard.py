@@ -188,6 +188,9 @@ class TimeSeriesShard:
         self._downsamplers: dict[int, object] = {}
         # device-resident grids, one per (schema, value column)
         self.device_caches: dict = {}
+        # the co-arrival batcher the grid caches offer their dispatches
+        # to (batching.QueryBatcher); None = every query launches alone
+        self.query_batcher = None
         # bumped whenever new rows or chunks could change query results
         # (the grid caches' tail version)
         self.ingest_epoch = 0
@@ -609,6 +612,19 @@ class TimeSeriesShard:
             self.stats.partitions_purged += 1
             self.cardinality.note_removed("purge")
         return len(doomed)
+
+    def mark_stopped_series(self, now_ms: int, stale_ms: int) -> int:
+        """Set the index end time of every series that stopped ingesting:
+        latest sample older than ``now_ms - stale_ms``, end time still
+        open (reference: updateIndexWithEndTime during flush,
+        :1037-1057).  Returns how many it marked."""
+        n = 0
+        for pid, part in list(self.partitions.items()):
+            if part.latest_timestamp < now_ms - stale_ms \
+                    and self.index.end_time(pid) == np.iinfo(np.int64).max:
+                self.index.update_end_time(pid, part.latest_timestamp)
+                n += 1
+        return n
 
     def _check_integrity(self) -> None:
         """Hard tripwire: once bookkeeping is known broken, refuse to

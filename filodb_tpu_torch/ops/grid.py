@@ -17,7 +17,9 @@ Each function below has a hand-written CUDA kernel
 version beside it (``<name>_ref``):
 
 - :func:`rate_grid` — decoded planes (``vals`` plus, per mode, a ts
-  plane or a per-lane phase row) -> ``[T, S]``;
+  plane or a per-lane phase row) -> ``[T, S]``; :func:`rate_grid_batch`
+  is the same kernel over M members' rows of one set of planes in one
+  launch -> ``[M, T, S]``;
 - :func:`rate_grid_packed` — XOR-class packed planes
   (``codecs/xorgrid.py``) decoded inside the kernel -> ``[T, width]`` in
   packed lane order;
@@ -1048,6 +1050,120 @@ rate_grid.launches = 0
 rate_grid.direct = 0
 
 
+def _member_ints(row0s, steps0s) -> tuple[list, list]:
+    """A batch's member starts as host ints (from lists, arrays or
+    tensors), one (row0, steps0) a member."""
+    r0 = [int(r) for r in torch.as_tensor(row0s).reshape(-1).tolist()]
+    s0 = [int(s) for s in torch.as_tensor(steps0s).reshape(-1).tolist()]
+    if not r0 or len(r0) != len(s0):
+        raise ValueError(f"a batch takes one row0 and one steps0 a member "
+                         f"(at least one), not {len(r0)} and {len(s0)}")
+    return r0, s0
+
+
+def _member_rows(r0: list, nrows: int, nb: int) -> None:
+    if any(r < 0 or r + nrows > nb for r in r0):
+        raise ValueError(f"member rows {r0} + {nrows} leave the plane's "
+                         f"{nb} rows")
+
+
+def rate_grid_batch_ref(ts_all, vals_all, row0s, steps0s, q: GridQuery,
+                        nrows: int, phase=None):
+    """Plain version of :func:`rate_grid_batch`: each member's rows
+    ``[row0, row0 + nrows)`` of the shared planes through
+    :func:`rate_grid_ref` at its ``steps0`` -> ``[M, T, S]``."""
+    r0, s0 = _member_ints(row0s, steps0s)
+    _member_rows(r0, nrows, vals_all.shape[0])
+    return torch.stack([
+        rate_grid_ref(None if ts_all is None else ts_all[r:r + nrows],
+                      vals_all[r:r + nrows], s, q, phase=phase)
+        for r, s in zip(r0, s0)])
+
+
+@timed(program="grid.rate_grid_batch")
+def rate_grid_batch(ts_all, vals_all, row0s, steps0s, q: GridQuery,
+                    nrows: int, phase=None):
+    """B1 with a member axis: a co-arrival batch of M queries over ONE
+    set of planes (``vals_all [nb, S]``, ``ts_all`` in ts mode, the
+    shared ``phase`` row in phase mode) -> ``[M, T, S]``.  Member m reads
+    rows ``[row0s[m], row0s[m] + nrows)`` and ends its first window at
+    ``steps0s[m]``; its answer is bit for bit :func:`rate_grid` on those
+    rows at that ``steps0``.
+
+    CPU tensors run :func:`rate_grid_batch_ref`; CUDA tensors launch
+    B1's kernel ONCE or raise, the member on the launch's second grid
+    axis and no copied ``[M, nrows, S]`` input: the staged kernel at
+    :func:`series_staged_plan`'s plan (the same for every member), or
+    the direct one where it stages nothing (counted in ``.direct``)."""
+    if vals_all.device.type == "cpu":
+        return rate_grid_batch_ref(ts_all, vals_all, row0s, steps0s, q,
+                                   nrows, phase=phase)
+    _cuda_device(vals_all, "rate_grid_batch")
+    return _series_batch_launch(ts_all, vals_all, row0s, steps0s, q, nrows,
+                                phase)
+
+
+def _series_batch_launch(ts_all, vals_all, row0s, steps0s, q: GridQuery,
+                         nrows: int, phase):
+    """One launch of :func:`rate_grid_batch`'s kernel on ``vals_all``'
+    device (counted on the wrapper; the emulation calls it on CPU
+    tensors)."""
+    _check_op(q)
+    fn_args = _fn_args(q)
+    dev = vals_all.device
+    nb, ns = vals_all.shape
+    r0, s0 = _member_ints(row0s, steps0s)
+    if nrows < _rows_needed(q):
+        raise ValueError(f"members read {nrows} rows; need (nsteps-1)*"
+                         f"stride+K = {_rows_needed(q)}")
+    _member_rows(r0, nrows, nb)
+    mode, ts_ptr, ph_ptr = _dense_pointers(ts_all, vals_all, q, phase)
+    # each member's rows start where its solo launch's row slice would:
+    # on a 16-byte boundary, as the producer's cp.async copies want
+    for name, t in (("vals", vals_all), ("ts", ts_all if mode == "ts"
+                                         else None)):
+        if t is not None and any((t.data_ptr() + r * ns * 4) % 16
+                                 for r in r0):
+            raise ValueError(f"a member's first {name} row is not 16-byte "
+                             f"aligned (rows {r0} of {ns} lanes)")
+    _int32_args(*s0)
+    M = len(r0)
+    out = torch.empty((M, q.nsteps, ns), dtype=torch.float32, device=dev)
+    if ns == 0:
+        return out
+    members = torch.tensor([r0, s0], dtype=torch.int32)
+    if dev.type == "cuda":
+        members = members.pin_memory().to(dev, non_blocking=True)
+    lib = kernels.library()
+    plan = series_staged_plan(ns, q.nsteps, q.kbuckets, q.stride, mode, q.op)
+    ptrs = (ctypes.c_void_p(vals_all.data_ptr()), ts_ptr, ph_ptr,
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(members[0].data_ptr()),
+            ctypes.c_void_p(members[1].data_ptr()))
+    with torch.cuda.device(dev):
+        if plan.staged:
+            rc = lib.series_staged_batch_launch(
+                *ptrs, *_int32_args(M, nrows, ns, q.nsteps, q.kbuckets,
+                                    q.stride, q.gstep_ms, _OP_CODE[q.op],
+                                    _MODE_CODE[mode], q.dense, q.is_rate,
+                                    plan.ring_bytes),
+                *fn_args, _stream())
+        else:
+            rc = lib.rate_grid_batch_launch(
+                *ptrs, *_int32_args(M, ns, q.nsteps, q.kbuckets, q.stride,
+                                    q.gstep_ms, _OP_CODE[q.op],
+                                    _MODE_CODE[mode], q.dense, q.is_rate),
+                *fn_args, _stream())
+            rate_grid_batch.direct += 1
+    rate_grid_batch.launches += 1
+    _launch_check(rc, "rate_grid_batch")
+    return out
+
+
+rate_grid_batch.launches = 0
+rate_grid_batch.direct = 0
+
+
 class PlaneEntry(NamedTuple):
     """One class plane of a pack, as the packed kernel's table gives it."""
     plane: torch.Tensor      # [B, n] words
@@ -1696,6 +1812,8 @@ m4_grid.launches = 0
 
 
 # every kernel wrapper, each counting its launches in ``.launches``
+# (B1's batched entry, rate_grid_batch, launches B1's kernels and counts
+# its own)
 KERNEL_WRAPPERS = (rate_grid, rate_grid_packed, rate_grid_grouped,
                    rate_grid_grouped_packed, hist_grid_grouped_packed,
                    m4_grid)
@@ -1707,9 +1825,10 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in KERNEL_WRAPPERS + (rate_grid_batch,):
         fn.launches = 0
     rate_grid.direct = 0
+    rate_grid_batch.direct = 0
     rate_grid_grouped.direct = 0
     rate_grid_grouped_packed.direct = 0
     hist_grid_grouped_packed.direct = 0

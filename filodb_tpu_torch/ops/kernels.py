@@ -172,13 +172,23 @@ def library() -> ctypes.CDLL:
             #  stream)
             lib.series_staged_launch.argtypes = \
                 [ptr] * 4 + [i32] * 12 + fn_args + [ptr]
+            # B1's member axis: (vals, ts, phase, out, row0s, steps0s;
+            #  members, nrows, ns, T, K, stride, g, op, mode, dense,
+            #  is_rate, ring_bytes; function arguments; stream), and the
+            #  direct kernel's (the same less nrows and ring_bytes)
+            lib.series_staged_batch_launch.argtypes = \
+                [ptr] * 6 + [i32] * 12 + fn_args + [ptr]
+            lib.rate_grid_batch_launch.argtypes = \
+                [ptr] * 6 + [i32] * 10 + fn_args + [ptr]
             # (vals, out; T, S, P, W; stream)
             lib.m4_grid_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             for fn in (lib.rate_grid_launch, lib.rate_grid_packed_launch,
                        lib.rate_grid_grouped_launch,
                        lib.grouped_packed_launch, lib.hist_staged_launch,
                        lib.grouped_staged_launch, lib.dense_staged_launch,
-                       lib.series_staged_launch, lib.m4_grid_launch):
+                       lib.series_staged_launch,
+                       lib.series_staged_batch_launch,
+                       lib.rate_grid_batch_launch, lib.m4_grid_launch):
                 fn.restype = i32
             lib.grid_error_string.restype = ctypes.c_char_p
             lib.grid_error_string.argtypes = [i32]

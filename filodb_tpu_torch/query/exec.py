@@ -83,7 +83,9 @@ class ExecContext:
     # sampled device seconds a program (utils/devicewatch.KERNEL_TIMER)
     _device_programs: dict = dataclasses.field(default_factory=dict,
                                                repr=False)
-    _lock: object = dataclasses.field(default_factory=threading.Lock,
+    # reentrant: the device ledger's finalizers note a residency delta
+    # here, and one may run inside a GC that a counter update set off
+    _lock: object = dataclasses.field(default_factory=threading.RLock,
                                       repr=False)
 
     def note_corrupt_excluded(self, n: int) -> None:
@@ -106,13 +108,16 @@ class ExecContext:
     def note_counts(self, samples: int = 0, bytes_: int = 0,
                     chunks: int = 0, pages: int = 0,
                     hbm_dense: int = 0, hbm_compressed: int = 0,
-                    hbm_hist: int = 0) -> None:
+                    hbm_hist: int = 0, hbm_delta: int = 0) -> None:
         """Scan volume; ``chunks``/``pages`` are the chunks and
         partitions the paging shard read back from the column store for
-        this query."""
+        this query; ``hbm_delta`` is signed: the device ledger credits
+        the bytes it committed and debits those freed while this query
+        was active."""
         self._add(samples=samples, bytes=bytes_, chunks=chunks,
                   pages=pages, hbm_dense=hbm_dense,
-                  hbm_compressed=hbm_compressed, hbm_hist=hbm_hist)
+                  hbm_compressed=hbm_compressed, hbm_hist=hbm_hist,
+                  hbm_delta=hbm_delta)
 
     def note_device_program(self, program: str, seconds: float) -> None:
         """Fold a sampled launch's measured device seconds into this
@@ -145,6 +150,7 @@ class ExecContext:
                                        ("compressed-hist", "hbm_hist"))
                 if c.get(ck)}
             stats.device_programs = dict(self._device_programs)
+            stats.hbm_resident_delta_bytes = c.get("hbm_delta", 0)
 
 
 class PlanDispatcher:
@@ -183,6 +189,14 @@ class ExecPlan:
         raise NotImplementedError
 
     def execute(self, ctx: ExecContext) -> QueryResult:
+        # deadline tripwire: one clock read a plan node, so that a deep
+        # scatter-gather stops the moment its end-to-end budget is gone
+        # (reference: queryTimeoutMillis checked inside ExecPlan
+        # execution); DeadlineExceeded is a QueryError
+        qctx = self.query_context
+        if qctx.deadline_ms:
+            from filodb_tpu_torch.workload import deadline as dl
+            dl.check(qctx, where=type(self).__name__)
         # one span per plan node (reference: Kamon.spanBuilder in
         # ExecPlan.execute, ExecPlan.scala:99-126); tags carry the plan
         # type and, for data leaves, dataset/shard

@@ -61,9 +61,23 @@ class QueryContext:
     """Per-query knobs (reference: core/query/QueryContext.scala:22)."""
 
     query_id: str = ""
+    submit_time_ms: int = 0
     sample_limit: int = 1_000_000
     group_by_cardinality_limit: int = 100_000
+    timeout_ms: int = 30_000
     spread: Optional[int] = None
+    # absolute epoch-ms deadline (``workload.deadline.mint``: submit time
+    # plus timeout); 0 = no deadline.  ExecPlan.execute checks it at
+    # every plan node, and the query batcher checks it before a query
+    # waits in a co-arrival window
+    deadline_ms: int = 0
+    # the co-arrival batcher (``batching``): the live admission permit
+    # while the query runs inside its admission window (the batch leader
+    # re-checks ``permit.released`` at stack time), and the insights
+    # ledger's batch-compatibility key, under which realized group sizes
+    # are noted
+    admission_permit: object = None
+    batch_key: str = ""
 
 
 @dataclasses.dataclass
@@ -94,6 +108,10 @@ class QueryStats:
     # active: a slow query names its program.  A grid program's seconds
     # include its kernel's, which has a row of its own
     device_programs: dict = dataclasses.field(default_factory=dict)
+    # net change of ledger-tracked device-resident bytes this query
+    # caused: blocks committed minus blocks freed while its ExecContext
+    # was active (utils/devicewatch.LEDGER); 0 for a fully warm query
+    hbm_resident_delta_bytes: int = 0
 
     def merge(self, other: "QueryStats") -> None:
         self.samples_scanned += other.samples_scanned
@@ -110,6 +128,7 @@ class QueryStats:
         self.downsample_points_out += other.downsample_points_out
         for k, v in other.device_programs.items():
             self.device_programs[k] = self.device_programs.get(k, 0.0) + v
+        self.hbm_resident_delta_bytes += other.hbm_resident_delta_bytes
 
 
 class QueryError(Exception):

@@ -115,12 +115,30 @@ class HbmLedger:
             m["hbm_watermark"].set_fn(
                 lambda: float(self._marks.get(lkey, 0)),
                 owner=owner, format=fmt)
+        self._note_query_delta(nbytes)
 
     def _untrack(self, key: int, lkey: tuple, nbytes: int) -> None:
         with self._lock:
             self._fins.pop(key, None)
             self._bytes[lkey] = self._bytes.get(lkey, 0) - nbytes
             self._counts[lkey] = self._counts.get(lkey, 0) - 1
+        self._note_query_delta(-nbytes)
+
+    @staticmethod
+    def _note_query_delta(nbytes: int) -> None:
+        """Attribute a residency change to the query whose ExecContext is
+        active on this thread (``QueryStats.hbm_resident_delta_bytes``):
+        a commit credits it, a free debits it.  Called with the ledger's
+        lock released: the finalizer runs on whichever thread drops the
+        last reference, also inside a GC that ``track`` set off.
+        Accounting never raises into the work it accounts."""
+        try:
+            from filodb_tpu_torch.query.exec import active_exec_ctx
+            ctx = active_exec_ctx()
+            if ctx is not None:
+                ctx.note_counts(hbm_delta=nbytes)
+        except Exception:  # noqa: BLE001 — interpreter teardown included
+            pass
 
     def register_pool(self, name: str, bytes_fn: Callable[[], int],
                       budget_fn: Optional[Callable[[], int]] = None,

@@ -44,6 +44,11 @@ class Counter:
     def value(self, **labels) -> float:
         return self._values.get(tuple(sorted(labels.items())), 0.0)
 
+    def total(self) -> float:
+        """The sum over every label set."""
+        with self._lock:
+            return sum(self._values.values())
+
 
 class Gauge:
     def __init__(self, name: str, help_: str = ""):
@@ -308,6 +313,28 @@ def device_metrics() -> dict:
             "filodb_kernel_regressed",
             "1 while the program's EWMA device time counts as regressed "
             "against its learned baseline, else 0"),
+    }
+
+
+def batch_metrics() -> dict:
+    """Co-arrival batching metrics (``batching/batcher.py``): realized
+    group sizes and the fallback ladder, named in one place."""
+    return {
+        "groups": REGISTRY.counter(
+            "filodb_batch_groups_total",
+            "batched device launches serving >= 2 queries, per dataset"),
+        "members": REGISTRY.counter(
+            "filodb_batch_members_total",
+            "queries served from a batched launch, per dataset "
+            "(members/groups = realized mean batch size)"),
+        "fallbacks": REGISTRY.counter(
+            "filodb_batch_fallbacks_total",
+            "dispatches demoted to the per-query chain, per dataset "
+            "and reason (breaker | deadline | solo-window | "
+            "member-expired | timeout | error)"),
+        "peak": REGISTRY.gauge(
+            "filodb_batch_realized_peak",
+            "largest realized batch size since start, per dataset"),
     }
 
 

@@ -23,6 +23,9 @@ from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
 from filodb_tpu_torch.core.storeconfig import StoreConfig
 from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
+from filodb_tpu_torch.batching import QueryBatcher
+from filodb_tpu_torch.query.model import QueryContext
+from filodb_tpu_torch.workload import deadline
 
 STEP, T0 = 60_000, 1_700_000_040_000
 ms = TimeSeriesMemStore(device="cpu")
@@ -40,6 +43,12 @@ ids = shard.lookup_partitions([ColumnFilter("_metric_", Equals("m"))],
 st = shard.scan_grid_grouped(ids, F.RATE, T0 + 10 * STEP, 20, STEP,
                              5 * STEP, [0, 0, 1, 1], 2, "sum")
 assert st is not None and np.isfinite(st["sum"]).all(), st
+# a batcher attached: a cold key passes through to the same answer
+shard.query_batcher = QueryBatcher(dataset="prom")
+again = shard.scan_grid_grouped(ids, F.RATE, T0 + 10 * STEP, 20, STEP,
+                                5 * STEP, [0, 0, 1, 1], 2, "sum")
+assert (again["sum"] == st["sum"]).all()
+assert deadline.remaining_ms(deadline.mint(QueryContext())) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "filodb_tpu"
              or m.startswith("filodb_tpu."))
@@ -62,6 +71,13 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_cover_the_batcher_and_deadlines():
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {os.path.join("batching", "batcher.py"),
+            os.path.join("batching", "__init__.py"),
+            os.path.join("workload", "deadline.py")} <= rel
 
 
 def _forbidden(name: str) -> bool:

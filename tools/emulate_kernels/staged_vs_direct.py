@@ -43,6 +43,13 @@ plan and, where that is linear, again forced to the wrapping layout, and
 once through the library's direct entry (chip_smoke.grouped_dense_direct):
 the same bits, and within rtol 2e-5 of the plain version.
 
+B1's member axis (``b1_batch``): chip_smoke.b1_batch_cases at 100 and
+130 lanes over chip_smoke.B1_ROWS rows, each batch of M = 8 or 3 members
+(starting at even rows of the shared planes) through the batched launcher
+at its plan and forced to the direct kernel, each member held bit for
+bit against its own solo launch on its rows, and the batch within rtol
+2e-5 of rate_grid_batch_ref.
+
 B1 (``b1``): decoded f32 planes (chip_smoke.b1_planes, dense and gappy
 lanes, a scrape phase a lane, ts rows, a reset at row 1, a missed row 0,
 a dead lane) of 64 rows and 100
@@ -60,6 +67,7 @@ held bit for bit against the library's direct entry
     python3 tools/emulate_kernels/staged_vs_direct.py b4
     python3 tools/emulate_kernels/staged_vs_direct.py b2
     python3 tools/emulate_kernels/staged_vs_direct.py b1
+    python3 tools/emulate_kernels/staged_vs_direct.py b1_batch
 
 Takes about 10 minutes for every hb, and about 12 for B4, one CPU thread
 a CUDA thread.
@@ -363,7 +371,71 @@ def main_b1() -> int:
     return 0
 
 
+def main_b1_batch() -> int:
+    """B1's member axis: each case of chip_smoke.B1_BATCH_OPS at 100 and
+    130 lanes, M = 8 and 3 members from chip_smoke.B1_BATCH_ROW0S,
+    strides 1 and 2, through the batched launcher at the wrapper's plan
+    and forced to the direct kernel: every member bit for bit its own
+    solo launch (the same plan) on its rows, and within rtol 2e-5 of
+    rate_grid_batch_ref."""
+    emulate(build.build(os.path.join(build.REPO, "filodb_tpu_torch",
+                                     "_build", "emu")))
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(13)
+    n, t0 = 0, time.time()
+    direct = grid.SeriesPlan(0, 0)
+    for width in B1_WIDTHS:
+        planes = {}
+        for g in (False, True):
+            ts, vals, ph = (a[..., :width].copy() for a in cs.b1_planes(
+                rng, cs.B1_ROWS, width + 512, g))
+            vals[:, 7] = np.nan                       # a dead lane
+            planes[g] = tuple(torch.as_tensor(a) for a in (ts, vals, ph))
+        for w, mode, dense, op, k, stride, members in cs.b1_batch_cases():
+            if w != cs.B1_WIDTHS[0]:
+                continue                  # each case once a width here
+            ts, vals, ph = planes[not dense]
+            phase = ph if mode == "phase" else None
+            row0s, steps0s, nrows, q = cs.b1_batch_members(
+                members, cs.B1_ROWS, lambda r: cs.sweep_query(
+                    op, dense, stride, (r - k) // stride + 1, k=k))
+            plan = grid.series_staged_plan(width, q.nsteps, q.kbuckets,
+                                           q.stride,
+                                           grid._mode_for(q, phase), q.op)
+            want = grid.rate_grid_batch_ref(ts, vals, row0s, steps0s, q,
+                                            nrows, phase=phase)
+            for which, p in (("planned", plan), ("direct", direct)):
+                if which == "direct" and not plan.staged:
+                    continue
+                real = grid.series_staged_plan
+                grid.series_staged_plan = lambda *a, _p=p, **kw: _p
+                try:
+                    got = grid._series_batch_launch(ts, vals, row0s,
+                                                    steps0s, q, nrows, phase)
+                    solos = [grid._series_launch(ts[r:r + nrows],
+                                                 vals[r:r + nrows], st, q,
+                                                 phase)
+                             for r, st in zip(row0s, steps0s)]
+                finally:
+                    grid.series_staged_plan = real
+                case = (f"S={width} M={members} stride={stride} K={k} "
+                        f"T={q.nsteps} {mode}-"
+                        f"{'dense' if dense else 'gappy'}-{op} {which}")
+                for m, solo in enumerate(solos):
+                    cs.compare_bits(got[m], solo, f"{case} member {m}")
+                cs.compare(got, want, op, cs.RTOL_KERNEL,
+                           1 if op in cs.CROSSING else None)
+                n += 1
+        print(f"S={width}: {n} batches, {time.time() - t0:.1f} s",
+              flush=True)
+    print(f"batched B1 == solo B1 member by member, bit for bit: {n} "
+          f"batches")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["b1_batch"]:
+        sys.exit(main_b1_batch())
     if sys.argv[1:] == ["b1"]:
         sys.exit(main_b1())
     if sys.argv[1:] == ["b4"]:
