@@ -11,7 +11,10 @@ Phases, each timed on a line of its own:
 2. build   — ``nvcc`` builds the CUDA kernels from ``filodb_tpu_torch/
    csrc/grid_kernels.cu``, ``csrc/hist_staged.cu``,
    ``csrc/grouped_staged.cu``, ``csrc/dense_staged.cu`` and
-   ``csrc/series_staged.cu`` (one ``nvcc`` a source, in parallel);
+   ``csrc/series_staged.cu`` (one ``nvcc`` a source, in parallel), on a
+   thread while the main path's stores ingest (phase ``stores``: phase
+   4's ``main.ingest``, ``main.reference_cpu_store`` and
+   ``main.hist_ingest``, which launch no kernel of the library);
 3. kernels — every op/mode of ``rate_grid`` and every class plane of
    ``rate_grid_packed`` at a mid shape (B=128, S=16384, K=5): all 22 ops
    of the TPU kernels, each in every mode the TPU kernel serves it, at
@@ -198,12 +201,33 @@ Phases, each timed on a line of its own:
    kernel ledger), a watermark ledger samples it (each group's flushed
    watermark its last snapshot, the checkpoint the meta store's, B's
    groups starting there), one traced series logs exactly its rows and
-   freezes; D5b, the batch job over A's first flush round, equals what
+   freezes; D5b, the batch job over the first DS_BATCH_TASKS tasks of
+   A's first flush round, equals what
    those flushes published, row for row; the ledger over D1 reconciles
    with the wrappers' counts; a DownsampledTimeSeriesStore on the card
    serves the 1 min dataset from the grid (B1) and the 1 h one on the
    general path, against the CPU over the same ds rows, and keeps each
-   counter's increase.
+   counter's increase;
+8. rollup  — in a process of its own on the same card, beside the
+   durable phase (the two share no store; neither one's kernel timings
+   share the card with the other's work): the live rollup tiers: the
+   durable phase's hourly
+   container sets (the first ROLLUP_HOURS hours) fed hour by hour into
+   a fresh store on the card (an
+   in-memory column store), a ``RollupEngine`` at the default ladder (1
+   min / 15 min / 1 h) on its flush listener, ``run_once`` after each
+   hour's flush (tick seconds, the engine's stages, records emitted per
+   tier, the ``griddown.period_reduce`` ledger row); no open period
+   emitted, each series' newest record in its last closed period and
+   ``rolled_through`` the oldest of them, the first CHECK_PODS pods'
+   records equal to ``BatchDownsampler``'s over the same raw chunks bit
+   for bit; then ``sum by (pod)(rate(req_total[1h]))`` at a 15 min
+   step through the ``RollupRouterPlanner`` (R1 auto: the 15 min tier
+   stitched to raw at the live edge; R2 pinned raw; R3 pinned raw under
+   a 1 ms raw retention: the 1 min tier stitched to raw past its
+   watermark), each leg's path (grid or general), the raw leg on
+   B1 or B3, against a CPU twin over the first CHECK_PODS pods' rows
+   (rtol 1e-5), the wrappers' launches equal to the kernel ledger's.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -256,6 +280,7 @@ MID_SERIES = 16384              # phase 3's mid shape: B=128 x S
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 REPS = 3                        # timed repetitions (median)
+SWEEP_PLAIN_REPS = 1            # timed runs of a sweep case's plain version
 ENGINE_REPS = 3                 # warm repetitions of each engine query
 RTOL_KERNEL = 2e-5              # sums / rate chain, kernel vs plain
 RTOL_CPU = 1e-5                 # card (f32) vs CPU store (f64)
@@ -643,7 +668,8 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
         ms = cuda_ms(lambda: grid.rate_grid(ts, vals, steps0, q, phase=ph),
                      reps, flush)
         pms = cuda_ms(lambda: grid.rate_grid_ref(ts, vals, steps0, q,
-                                                 phase=ph), reps, flush)
+                                                 phase=ph), SWEEP_PLAIN_REPS,
+                      flush)
         bms, by = bound_ms(*grid_work(ts, vals, q, ph))
         log(f"{name}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms "
             f"{bms:.4f} ({by}) max_abs_err {err:.3e} ok")
@@ -712,7 +738,8 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
             ms = cuda_ms(lambda: grid.rate_grid_packed(
                 packed, 0, q, row0=row0, use_phase=use_phase), reps, flush)
             pms = cuda_ms(lambda: grid.rate_grid_packed_ref(
-                packed, 0, q, row0=row0, use_phase=use_phase), reps, flush)
+                packed, 0, q, row0=row0, use_phase=use_phase),
+                SWEEP_PLAIN_REPS, flush)
             bms, by = bound_ms(*packed_work(packed, q, row0, use_phase))
             name = (f"rate_grid_packed {label} "
                     f"{'phase' if use_phase else 'free'}-"
@@ -740,7 +767,8 @@ def kernel_sweep(device, reps: int, seed: int, report: dict) -> float:
         err = check_m4(vals, pixels)
         worst = max(worst, err)
         ms = cuda_ms(lambda: grid.m4_grid(vals, pixels), reps, flush)
-        pms = cuda_ms(lambda: grid.m4_grid_ref(vals, pixels), reps, flush)
+        pms = cuda_ms(lambda: grid.m4_grid_ref(vals, pixels),
+                      SWEEP_PLAIN_REPS, flush)
         bms, by = bound_ms(*m4_work(M4_T, S, pixels))
         name = f"m4_grid T={M4_T} S={S} P={pixels}"
         log(f"{name}: ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
@@ -2203,44 +2231,89 @@ def _hist_pod_task(seed: int, n_series: int, pod: int) -> tuple:
     return conts, hist_rate_sums(vals, phase, ENGINE_SPAN)
 
 
-def ingest_hist(shards, seed: int, pods: int, ref_pods: int):
-    """Encode ``pods`` pods of ``lat`` in a pool of worker processes (one
-    pod a task, seeded by pod) and ingest each pod's containers into
-    ``shards[0]`` and, for the first ``ref_pods`` pods, into the rest of
-    ``shards`` as it arrives; then flush.  Each worker also computes its
-    pod's share of E7's plain reference (:func:`hist_rate_sums`).
-    Returns the samples the first shard ingested, the seconds each shard
-    spent in ``ingest_container`` with the seconds of the flushes last,
-    and E7's reference (``[T, B]``, every pod)."""
-    import multiprocessing
+def _encoder_init() -> None:
+    """An encoding worker runs at the lowest scheduling priority of this
+    script's processes: it takes the host's cores the phases leave idle
+    (the build's, the card's waits) and yields them to the phases'
+    own host work."""
+    os.nice(19)
 
+
+class HistPods:
+    """``pods`` pods of ``lat`` encoded in a pool of HIST_WORKERS
+    processes (one pod a task, seeded by pod), started at once: the
+    script starts it before the build, so the encoding runs beside the
+    ``nvcc`` processes and the phases before the main path's, and
+    :func:`ingest_hist` takes the pods in order as they are done.  Each
+    worker also computes its pod's share of E7's plain reference
+    (:func:`hist_rate_sums`)."""
+
+    def __init__(self, seed: int, pods: int):
+        import multiprocessing
+
+        self.t0 = time.perf_counter()
+        self.done_at = None         # seconds from the start to the last pod
+        self._left = pods
+        self._pool = multiprocessing.get_context("spawn").Pool(
+            min(HIST_WORKERS, pods), initializer=_encoder_init)
+        task = partial(_hist_pod_task, seed, HIST_SERIES)
+        self._res = [self._pool.apply_async(task, (pod,),
+                                            callback=self._note_done)
+                     for pod in range(pods)]
+        self._pool.close()
+
+    def _note_done(self, _result) -> None:
+        self._left -= 1             # the pool's one result thread
+        if self._left == 0:
+            self.done_at = time.perf_counter() - self.t0
+
+    def __iter__(self):
+        return (r.get() for r in self._res)
+
+    def close(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
+
+
+def ingest_hist(shards, pods: HistPods, ref_pods: int):
+    """Ingest each encoded pod's containers into ``shards[0]`` and, for
+    the first ``ref_pods`` pods, into the rest of ``shards`` as it
+    arrives; then flush.  Returns the samples the first shard ingested,
+    the seconds each shard spent in ``ingest_container`` with the seconds
+    of the flushes last, E7's reference (``[T, B]``, every pod) and the
+    seconds spent waiting for the encoding."""
     samples = 0
     offset = 10**6                  # past the counter metrics' offsets
     seconds = [0.0] * (len(shards) + 1)
     ref = 0.0
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(HIST_WORKERS, pods)) as pool:
-        for pod, (conts, part) in enumerate(pool.imap(
-                partial(_hist_pod_task, seed, HIST_SERIES), range(pods))):
-            ref = ref + part
-            for c in conts:
-                n = []
-                for i, sh in enumerate(shards[:1 if pod >= ref_pods
-                                              else len(shards)]):
-                    t0 = time.perf_counter()
-                    n.append(sh.ingest_container(c, offset))
-                    seconds[i] += time.perf_counter() - t0
-                if len(set(n)) != 1:
-                    raise AssertionError(f"stores ingested {n} samples")
-                samples += n[0]
-                offset += 1
-        pool.close()
-        pool.join()
+    waited = 0.0
+    it = iter(pods)
+    pod = 0
+    while True:
+        t0 = time.perf_counter()
+        try:
+            conts, part = next(it)
+        except StopIteration:
+            break
+        waited += time.perf_counter() - t0
+        ref = ref + part
+        for c in conts:
+            n = []
+            for i, sh in enumerate(shards[:1 if pod >= ref_pods
+                                          else len(shards)]):
+                t0 = time.perf_counter()
+                n.append(sh.ingest_container(c, offset))
+                seconds[i] += time.perf_counter() - t0
+            if len(set(n)) != 1:
+                raise AssertionError(f"stores ingested {n} samples")
+            samples += n[0]
+            offset += 1
+        pod += 1
     t0 = time.perf_counter()
     for sh in shards:
         sh.flush_all()
     seconds[-1] = time.perf_counter() - t0
-    return samples, seconds, ref
+    return samples, seconds, ref, waited
 
 
 def lookup(shard, metric: str, pods=None):
@@ -2451,10 +2524,12 @@ def profile_queries(shard, looked) -> None:
                                       row_limit=8, max_name_column_width=40))
 
 
-def main_path(device, seed: int, reps: int, report: dict) -> dict:
-    import torch
-    from filodb_tpu_torch.ops import grid
-
+def main_stores(device, seed: int, report: dict, hist_pods: HistPods
+                ) -> dict:
+    """The main path's stores: the card's (``req_total``, ``jit_total``,
+    ``lat``) and the CPU store of the first CHECK_PODS pods.  The
+    ingest launches no kernel of the library, so it runs while ``nvcc``
+    builds it (:class:`KernelBuild`)."""
     with Phase("main.ingest"):
         t0 = time.perf_counter()
         _ms, shard, samples = build_store(device, seed, REQ_PODS, JIT_PODS)
@@ -2469,20 +2544,35 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
         # the plain reference the encoding workers compute
         check_hist_encoder(seed)
         t0 = time.perf_counter()
-        hist_samples, ingest_times, hist_ref = ingest_hist(
-            [shard, ref_shard], seed, HIST_PODS, CHECK_PODS)
+        hist_samples, ingest_times, hist_ref, waited = ingest_hist(
+            [shard, ref_shard], hist_pods, CHECK_PODS)
+        hist_pods.close()           # every pod in
         log(f"hist ingest: {hist_samples} samples a store "
             f"({HIST_PODS} pods x {HIST_SERIES} series x {N_ROWS} rows x "
             f"{len(HIST_TOPS)} buckets) in {time.perf_counter() - t0:.3f} s "
-            f"(encoding in {HIST_WORKERS} processes); the card's store "
-            f"ingested them in {ingest_times[0]:.3f} s "
+            f"(encoded in {HIST_WORKERS} processes started with the build, "
+            f"the last pod {hist_pods.done_at:.3f} s after they started; "
+            f"{waited:.3f} s waited here); the card's store ingested them in "
+            f"{ingest_times[0]:.3f} s "
             f"({hist_samples / ingest_times[0]:.4g} samples/s), flushed "
             f"in {ingest_times[2]:.3f} s")
         report["hist_ingest"] = {"samples": hist_samples,
                                  "card_store_seconds": ingest_times[0],
                                  "cpu_store_seconds": ingest_times[1],
-                                 "flush_seconds": ingest_times[2]}
+                                 "flush_seconds": ingest_times[2],
+                                 "encoding_waited_seconds": waited}
+    report["ingest_seconds"] = ingest_s
+    report["ingest_samples"] = samples
+    return {"ms": _ms, "shard": shard, "ref_ms": _rms,
+            "ref_shard": ref_shard, "hist_ref": hist_ref}
 
+
+def main_path(device, seed: int, reps: int, report: dict,
+              stores: dict) -> dict:
+    import torch
+    from filodb_tpu_torch.ops import grid
+
+    shard, ref_shard = stores["shard"], stores["ref_shard"]
     with Phase("main.lookup"):
         looked, ref_looked = {}, {}
         for metric in ("req_total", "jit_total", "lat"):
@@ -2613,8 +2703,6 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
     report["queries"] = qrows
     with Phase("main.profile"):
         profile_queries(shard, looked)
-    report["ingest_seconds"] = ingest_s
-    report["ingest_samples"] = samples
 
     # each kernel against its plain version on the main path's inputs
     flush = make_flush(device)
@@ -2630,7 +2718,8 @@ def main_path(device, seed: int, reps: int, report: dict) -> dict:
                                             looked["lat"], reps, flush)
     return {"launches": totals, "rate_grid_direct": direct_total,
             "rows": kern_rows,
-            "stores": (_ms, shard, _rms, looked, hist_ref)}
+            "stores": (stores["ms"], shard, stores["ref_ms"], looked,
+                       stores["hist_ref"])}
 
 
 def plan_kernel_times(name: str, plan, reps: int, flush) -> tuple:
@@ -3782,19 +3871,23 @@ class PodHours:
 
         self.t0 = time.perf_counter()
         self._pool = multiprocessing.get_context("spawn").Pool(
-            DURABLE_WORKERS)
+            DURABLE_WORKERS, initializer=_encoder_init)
         self._res = self._pool.map_async(partial(_pod_hours_task, seed),
                                          range(pods))
         self._pool.close()
+        self._got = None
 
     def get(self) -> tuple:
         """(hours, seconds from the start until every pod was encoded,
-        seconds waited here)."""
-        t0 = time.perf_counter()
-        hours = dict(enumerate(self._res.get()))
-        waited = time.perf_counter() - t0
-        self._pool.join()
-        return hours, time.perf_counter() - self.t0, waited
+        seconds waited here); the durable phase collects it, the rollup
+        phase takes it again."""
+        if self._got is None:
+            t0 = time.perf_counter()
+            hours = dict(enumerate(self._res.get()))
+            waited = time.perf_counter() - t0
+            self._pool.join()
+            self._got = hours, time.perf_counter() - self.t0, waited
+        return self._got
 
     def close(self) -> None:
         self._pool.terminate()
@@ -4304,7 +4397,8 @@ DS_QUERIES = (("1m", "grouped", "sum by (pod)(rate(req_total[5m]))"),
               ("1m", "series", "rate(req_total[5m])"),
               ("1h", "grouped", "sum by (pod)(increase(req_total[2h]))"))
 TRACED = {"pod": "pod-007", "instance": "i-0042"}   # the traced series
-DS_REPS = 2                            # warm runs of each D5a query
+DS_REPS = 1                            # warm runs of each D5a query
+DS_BATCH_TASKS = 15                    # D5b: the first round's first tasks
 LEDGER_REPS = 3                        # D1 engine runs a ledger setting
 LEDGER_PROGRAMS = ("devicestore.grouped", "grid.rate_grid")
 
@@ -4540,11 +4634,13 @@ def sorted_rows(rows):
     return rows[np.argsort(rows[:, 0], kind="stable")]
 
 
-def batch_job(store, pub: TaskPublisher, itimes: list, device) -> dict:
-    """D5b: ``BatchDownsampler.run_shard`` over store A's chunks of the
-    first round of flush tasks (hour 1's ingestion window, one upstream
-    job run's unit of work); its ds chunks decode row for row to what
-    those flush tasks published, at both resolutions."""
+def batch_job(store, pub: TaskPublisher, itimes: list, device,
+              series: int) -> dict:
+    """D5b: ``BatchDownsampler.run_shard`` over store A's chunks of
+    flush tasks of the first round (the ingestion window of ``itimes``,
+    a share of hour 1's, one upstream job run's unit of work; ``series``
+    the partitions those tasks flushed); its ds chunks decode row for
+    row to what those flush tasks published, at both resolutions."""
     import numpy as np
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
     from filodb_tpu_torch.downsample import BatchDownsampler, ds_dataset_name
@@ -4566,7 +4662,7 @@ def batch_job(store, pub: TaskPublisher, itimes: list, device) -> dict:
                                            schema, pk_ids)
         batch = sorted_rows(batch)
         if nchunks != written[res] or len(batch) == 0 \
-                or len(pk_ids) != REQ_PODS * POD_SERIES \
+                or len(pk_ids) != series \
                 or not np.array_equal(batch, flushed):
             raise AssertionError(f"D5b at {res} ms: {len(batch)} batch rows "
                                  f"in {nchunks} chunks, {len(flushed)} "
@@ -4574,8 +4670,9 @@ def batch_job(store, pub: TaskPublisher, itimes: list, device) -> dict:
                                  f"{np.array_equal(batch, flushed)}")
         out[str(res)] = {"chunks": nchunks, "rows": int(len(batch)),
                          "series": len(pk_ids)}
-    log(f"D5b BatchDownsampler.run_shard over store A's first flush round "
-        f"(ingestion times {lo}-{hi}): {written} chunks written in "
+    log(f"D5b BatchDownsampler.run_shard over the first {len(itimes)} tasks "
+        f"of store A's first flush round (ingestion times {lo}-{hi}): "
+        f"{written} chunks written in "
         f"{secs:.3f} s; every row equals the flush-time output, bit for bit "
         f"(1 min: {out['60000']['rows']} rows, 1 h: "
         f"{out['3600000']['rows']} rows, {out['60000']['series']} series)")
@@ -4831,7 +4928,7 @@ def ledger_on_d1(ms, reps: int) -> dict:
 
 
 def durable_phase(device, seed: int, reps: int, encoding: PodHours,
-                  report: dict) -> dict:
+                  report: dict, before_timing=None) -> dict:
     """Persistence, integrity and flush: ``req_total`` (100 pods x 1,024
     series, 260 rows) streamed hour by hour into store A on the card
     over sqlite files, flushed by a FlushScheduler; A crashes after
@@ -4959,7 +5056,15 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
                     or max(itimes[:ngroups]) >= min(itimes[ngroups:]):
                 raise AssertionError("the first flush round is not one "
                                      "task a group before the second")
-            round1 = itimes[:ngroups]
+            # D5b's window: the ingestion times of the round's first
+            # DS_BATCH_TASKS tasks, and every task inside it
+            first = itimes[:DS_BATCH_TASKS]
+            window = [(g, it) for g, it in zip(groups, itimes)
+                      if min(first) <= it <= max(first)]
+            round1 = [it for _g, it in window]
+            in_batch = {g for g, _it in window}
+            batch_series = sum(1 for p in shard_a.partitions.values()
+                               if p.group in in_batch)
             d5["ingest"] = {
                 "flush_task_p50_s": float(ex50),
                 "flush_task_p99_s": float(ex99),
@@ -5007,7 +5112,8 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
             out["read_back"] = rb
 
         with Phase("durable.batch_downsample"):
-            d5["batch"] = batch_job(ms_a.store, pub_a, round1, device)
+            d5["batch"] = batch_job(ms_a.store, pub_a, round1, device,
+                                    batch_series)
 
         with Phase("durable.recover"):
             ms_b, shard_b, run_b = recover(
@@ -5365,6 +5471,8 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
         log(f"durable path launches {launched}, rate_grid on its direct "
             f"kernel {direct}")
 
+        if before_timing is not None:
+            before_timing()
         with Phase("durable.kernels_at_path_shapes"):
             rows = [plan_kernel_times("D1", plan, reps, flush)[1],
                     plan_kernel_times("D2", plan2, reps, flush)[1],
@@ -5391,6 +5499,653 @@ def durable_phase(device, seed: int, reps: int, encoding: PodHours,
     return out
 
 
+ROLLUP_STEP = 900_000                  # the dashboard's step, 15 min
+ROLLUP_QUERY = "sum by (pod)(rate(req_total[1h]))"
+# the rollup phase's range: the first step with a full hour's window to
+# the step after the last sample (the live edge, past every tier's
+# rolled watermark); R1 lets the router pick, R2 pins raw, R3 pins raw
+# under a raw retention of 1 ms: raw may serve nothing the tiers hold,
+# so the router serves the finest tier and raw only past its watermark
+ROLLUP_REPS = 1                        # warm runs of each R query
+ROLLUP_HOURS = 2                       # hours of the encoding fed
+
+
+def rollup_rows() -> int:
+    """Rows of each series the rollup phase feeds."""
+    return sum(DURABLE_HOURS[:ROLLUP_HOURS])
+
+
+def rollup_span() -> tuple:
+    """(start, stop) of the rollup phase's queries, on the 15 min grid."""
+    last = T0 + (rollup_rows() - 1) * STEP + STEP - 1  # any series' last
+    start = ((T0 + HOUR) // ROLLUP_STEP + 1) * ROLLUP_STEP
+    return start, (last // ROLLUP_STEP + 1) * ROLLUP_STEP
+
+
+class StageClock:
+    """Wall seconds and calls of functions while installed: each
+    ``(owner, attribute, stage)`` is wrapped, and unwrapped on exit."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds: dict = {}
+        self.calls: dict = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        self._saved = []
+        for owner, attr, stage in self.targets:
+            real = getattr(owner, attr)
+            self._saved.append((owner, attr, real))
+            setattr(owner, attr, self._wrap(real, stage))
+        return self
+
+    def _wrap(self, real, stage):
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.seconds[stage] = self.seconds.get(stage, 0.0) + dt
+                    self.calls[stage] = self.calls.get(stage, 0) + 1
+        return timed_call
+
+    def __exit__(self, *exc):
+        for owner, attr, real in reversed(self._saved):
+            setattr(owner, attr, real)
+        return False
+
+
+def check_tiers(store, published: dict, series: dict, engine,
+                device) -> dict:
+    """The tiers' emitted records (the published containers): no open
+    period of any series; each series' newest record in its last closed
+    period, each tier's ``rolled_through`` the oldest of those; and the
+    first CHECK_PODS pods' records equal to ``BatchDownsampler`` over
+    the same raw chunks (the offline pass, here on the card), bit for
+    bit over closed periods."""
+    import numpy as np
+    from filodb_tpu_torch.core.record import canonical_partkey
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.downsample import BatchDownsampler, ds_dataset_name
+    from filodb_tpu_torch.rollup.config import DEFAULT_RESOLUTIONS_MS
+    from filodb_tpu_torch.store.columnstore import InMemoryColumnStore
+
+    pk_ids: dict = {}
+    last = []                 # pk id -> the series' newest sample
+    for pod in range(REQ_PODS):
+        ts = series[pod][0]
+        for s in range(POD_SERIES):
+            tags = dict(series_tags("req_total", pod, s))
+            tags["_metric_"] = tags.pop("__name__")
+            pk_ids[canonical_partkey(tags)] = len(pk_ids)
+            last.append(int(ts[s, rollup_rows() - 1]))
+    last_ts = np.asarray(last, np.int64)
+    n_check = CHECK_PODS * POD_SERIES           # ids of the first pods
+    # the batch job over the first pods' raw chunks, as they were flushed
+    sub = InMemoryColumnStore()
+    by_itime: dict = {}
+    for itime, cs in store.chunksets_with_ingestion_time("prom", 0, 0,
+                                                         2**62):
+        if pk_ids[bytes(cs.partkey)] < n_check:
+            by_itime.setdefault(itime, []).append(cs)
+    for itime, css in by_itime.items():
+        sub.write_chunks("prom", 0, css, itime)
+    t0 = time.perf_counter()
+    written = BatchDownsampler("prom", DEFAULT_SCHEMAS, sub,
+                               resolutions_ms=DEFAULT_RESOLUTIONS_MS,
+                               device=device).run_shard(0, 0, 2**62)
+    batch_s = time.perf_counter() - t0
+    schema = DEFAULT_SCHEMAS["prom-counter"]
+    out = {"batch_seconds": batch_s, "batch_chunks": written,
+           "batch_series": n_check}
+    for res in DEFAULT_RESOLUTIONS_MS:
+        t0 = time.perf_counter()
+        got = ds_rows_of_containers(published[res], DEFAULT_SCHEMAS, pk_ids)
+        decode_s = time.perf_counter() - t0
+        if len(pk_ids) != len(last_ts):
+            raise AssertionError(f"tier {res}: a record of an unknown series")
+        closed = (last_ts - 1) // res * res            # per series
+        opened = got[:, 1] > closed[got[:, 0]]
+        if opened.any():
+            raise AssertionError(f"tier {res}: {int(opened.sum())} records of "
+                                 f"open periods emitted")
+        # each series' newest record stamps its last closed period: the
+        # period's end, or inside it the pre-reset sample's own time
+        # where a reset split the period
+        newest = np.full(len(last_ts), -1, np.int64)
+        np.maximum.at(newest, got[:, 0], got[:, 1])
+        if (newest <= closed - res).any():
+            raise AssertionError(f"tier {res}: "
+                                 f"{int((newest <= closed - res).sum())} "
+                                 f"series short of their last closed period")
+        through = engine.rolled_through("prom", res)
+        if through != int(newest.min()):
+            raise AssertionError(f"tier {res}: rolled_through {through}, the "
+                                 f"last closed periods' oldest stamp "
+                                 f"{int(newest.min())}")
+        mine = got[got[:, 0] < n_check]
+        mine = mine[np.lexsort((mine[:, 1], mine[:, 0]))]
+        want, nchunks = ds_rows_of_chunks(sub, ds_dataset_name("prom", res),
+                                          schema, pk_ids)
+        want = want[np.lexsort((want[:, 1], want[:, 0]))]
+        want_closed = want[want[:, 1] <= closed[want[:, 0]]]
+        if len(mine) == 0 or not np.array_equal(mine, want_closed):
+            raise AssertionError(f"tier {res}: {len(mine)} emitted records of "
+                                 f"the first pods, {len(want_closed)} closed-"
+                                 f"period rows of the batch job ({len(want)} "
+                                 f"in all); equal: "
+                                 f"{np.array_equal(mine, want_closed)}")
+        out[str(res)] = {"records": int(len(got)),
+                         "decode_seconds": decode_s,
+                         "checked_records": int(len(mine)),
+                         "batch_rows": int(len(want)),
+                         "open_rows_left_out": int(len(want)
+                                                   - len(want_closed)),
+                         "rolled_through": through}
+    return out
+
+
+def rollup_router(ms, engine, **kw):
+    """A RollupRouterPlanner over the raw dataset and its three tiers,
+    its watermarks the engine's (and ``kw`` the retention and clock)."""
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.downsample import ds_dataset_name
+    from filodb_tpu_torch.parallel.shardmap import ShardMapper
+    from filodb_tpu_torch.rollup import RollupRouterPlanner
+    from filodb_tpu_torch.rollup.config import DEFAULT_RESOLUTIONS_MS
+
+    tiers = {r: SingleClusterPlanner(ds_dataset_name("prom", r),
+                                     ShardMapper(1))
+             for r in DEFAULT_RESOLUTIONS_MS}
+    return RollupRouterPlanner(
+        "prom", SingleClusterPlanner("prom", ShardMapper(1)), tiers,
+        rolled_through_fn=lambda r: engine.rolled_through("prom", r), **kw)
+
+
+def rollup_queries() -> list:
+    """(name, resolution pin, router knobs) of R1-R3."""
+    _start, stop = rollup_span()
+    retention = dict(raw_retention_ms=1, now_ms_fn=lambda: stop)
+    return [("R1", "auto", {}), ("R2", "raw", {}), ("R3", "raw", retention)]
+
+
+def run_routed(ms, router, pin: str):
+    """ROLLUP_QUERY through ``router`` over rollup_span(): (result, host
+    values, wall ms, exec plan, QueryContext)."""
+    from filodb_tpu_torch.promql.parser import query_range_to_logical_plan
+    from filodb_tpu_torch.query.exec import ExecContext
+    from filodb_tpu_torch.query.model import QueryContext
+
+    start, stop = rollup_span()
+    t0 = time.perf_counter()
+    qctx = QueryContext(sample_limit=2**40, resolution_pref=pin)
+    plan = query_range_to_logical_plan(ROLLUP_QUERY, start, ROLLUP_STEP, stop)
+    ep = router.materialize(plan, qctx)
+    res = ep.execute(ExecContext(ms, qctx))
+    host = [b.np_values() for b in res.batches]
+    return res, host, (time.perf_counter() - t0) * 1e3, ep, qctx
+
+
+def grid_hits(ms, datasets) -> dict:
+    """{dataset: its shard's grid cache hits}: a hit is one grid program
+    run, the grid kernel's launch with it."""
+    return {d: sum(c.hits for c in ms.get_shard(d, 0).device_caches.values())
+            for d in datasets}
+
+
+def leg_paths(ep, hits: dict) -> list:
+    """Each leg of a stitched plan (or the plan, unstitched): its leaf
+    dataset and time range, and its path: the grid where its dataset's
+    grid caches were hit while the plan ran (``hits``), else the
+    general path."""
+    from filodb_tpu_torch.query.exec import StitchRvsExec
+
+    legs = list(ep.children) if isinstance(ep, StitchRvsExec) else [ep]
+    out = []
+    for leg in legs:
+        leaf = leg
+        while getattr(leaf, "dataset", None) is None and leaf.children:
+            leaf = leaf.children[0]
+        out.append({"dataset": leaf.dataset, "start": leaf.start_ms,
+                    "end": leaf.end_ms, "grid_hits": hits[leaf.dataset],
+                    "path": "grid" if hits[leaf.dataset] else "general"})
+    return out
+
+
+def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
+                 before_timing=None) -> dict:
+    """The live rollup tiers: ``req_total``'s hourly container sets (the
+    durable phase's encoding) fed hour by hour into a fresh store on the
+    card over an in-memory column store, a ``RollupEngine`` at the
+    default ladder on its flush listener, ``run_once`` after each hour's
+    flush; the tiers against the offline batch job, then R1-R3 through
+    the ``RollupRouterPlanner`` on the card against a CPU twin."""
+    import numpy as np
+    import torch
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.core.storeconfig import StoreConfig
+    from filodb_tpu_torch.downsample import ShardDownsampler, ds_dataset_name
+    from filodb_tpu_torch.downsample import sharddown
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import grid
+    from filodb_tpu_torch.query.exec import StitchRvsExec
+    from filodb_tpu_torch.rollup import RollupEngine
+    from filodb_tpu_torch.rollup import engine as rollup_engine
+    from filodb_tpu_torch.rollup.config import (DEFAULT_RESOLUTIONS_MS,
+                                                RollupConfig)
+    from filodb_tpu_torch.store.columnstore import InMemoryColumnStore
+    from filodb_tpu_torch.utils import devicewatch
+
+    out: dict = {}
+    series = {p: pod_series(p, seed, False)[:2] for p in range(REQ_PODS)}
+    cfg = RollupConfig()                     # the reference's defaults
+    if cfg.resolutions_ms != DEFAULT_RESOLUTIONS_MS:
+        raise AssertionError(f"the default ladder is {cfg.resolutions_ms}")
+    ms = TimeSeriesMemStore(InMemoryColumnStore(), device=device)
+    shard = ms.setup("prom", DEFAULT_SCHEMAS, 0,
+                     StoreConfig(device_cache_compress=True))
+    published: dict = {r: [] for r in cfg.resolutions_ms}
+    offsets: dict = {}
+    publish_s: dict = {r: 0.0 for r in cfg.resolutions_ms}
+
+    def publisher(res):
+        name = ds_dataset_name("prom", res)
+
+        def publish(shard_num, container):
+            t0 = time.perf_counter()
+            off = offsets.get(name, -1) + 1
+            offsets[name] = off
+            published[res].append(container)
+            ms.ingest(name, shard_num, container, off)
+            publish_s[res] += time.perf_counter() - t0
+        return publish
+
+    publish_for = {}
+    for res in cfg.resolutions_ms:
+        ms.setup(ds_dataset_name("prom", res), DEFAULT_SCHEMAS, 0)
+        publish_for[res] = publisher(res)
+    engine = RollupEngine(node="chip-smoke")
+    engine.watch("prom", ms, DEFAULT_SCHEMAS, cfg, publish_for,
+                 column_store=ms.store, meta_store=ms.meta)
+    kernel_rows = {r["program"]: r for r in devicewatch.KERNEL_TIMER.table()}
+    red0 = kernel_rows.get("griddown.period_reduce", {})
+    hourly = []
+    offset = 0
+    targets = [(sharddown, "decode_concat_with_keys", "decode"),
+               (ShardDownsampler, "prepare_decoded", "stage"),
+               (ShardDownsampler, "downsample_arrays", "reduce"),
+               (RollupEngine, "_emit_tier", "reduce+emit"),
+               (RollupEngine, "_emit_shared", "emit.shared"),
+               (RollupEngine, "_emit_series", "emit.series"),
+               (rollup_engine._SeriesState, "append", "buffer"),
+               (rollup_engine.RollupEngine, "_persist", "persist")]
+    # every period reduce timed by the kernel ledger (one a tick)
+    devicewatch.KERNEL_TIMER.configure(sample_1_in=1)
+    with Phase("rollup.feed"), StageClock(targets) as clock:
+        for h, nrows in enumerate(DURABLE_HOURS[:ROLLUP_HOURS]):
+            t0 = time.perf_counter()
+            samples = 0
+            for pod in range(REQ_PODS):
+                for c in hours[pod][h]:
+                    samples += shard.ingest_container(c, offset)
+                    offset += 1
+            t1 = time.perf_counter()
+            shard.flush_all(ingestion_time=1000 + h)
+            t2 = time.perf_counter()
+            queued = sum(len(sr.queue) for sr in
+                         engine._datasets["prom"].shards.values())
+            engine.run_once("prom")
+            t3 = time.perf_counter()
+            d = engine._datasets["prom"]
+            states = [st for sr in d.shards.values()
+                      for st in sr.series.values()]
+            buffered = sum(st.buffered for st in states)
+            state_bytes = sum(st.ts.nbytes + sum(c.nbytes for c in st.cols)
+                              for st in states if st.ts is not None)
+            if d.tier_errors:
+                raise AssertionError(f"hour {h}: tier errors {d.tier_errors}")
+            row = {"hour": h, "rows": nrows, "samples": samples,
+                   "ingest_s": t1 - t0, "flush_s": t2 - t1,
+                   "flush_batches": queued, "tick_s": t3 - t2,
+                   "series_states": len(states), "buffered_samples": buffered,
+                   "state_bytes": state_bytes,
+                   "written": dict(d.samples_written)}
+            hourly.append(row)
+            log(f"rollup hour {h}: {samples} samples ingested in "
+                f"{row['ingest_s']:.3f} s, flushed in {row['flush_s']:.3f} s "
+                f"({queued} flush batches queued), run_once "
+                f"{row['tick_s']:.3f} s; {len(states)} series states holding "
+                f"{buffered} samples ({state_bytes / 2**20:.1f} MiB); "
+                f"records emitted so far {row['written']}")
+    devicewatch.KERNEL_TIMER.configure(sample_1_in=64)
+    stages = {k: round(v, 3) for k, v in clock.seconds.items()}
+    stages.update({f"publish.{r}": round(v, 3) for r, v in publish_s.items()})
+    calls = dict(clock.calls)
+    kernel_rows = {r["program"]: r for r in devicewatch.KERNEL_TIMER.table()}
+    red = kernel_rows.get("griddown.period_reduce", {})
+    reduce_row = {k: red.get(k, 0) - red0.get(k, 0)
+                  for k in ("launches", "sampled", "device_seconds")}
+    reduce_row["ewma_device_s"] = red.get("ewma_device_s")
+    if reduce_row["launches"] < 1 \
+            or reduce_row["sampled"] != reduce_row["launches"] \
+            or not reduce_row["device_seconds"] > 0:
+        raise AssertionError(f"the period reduce on the card: {reduce_row}")
+    out.update(hourly=hourly, stages_s=stages, stage_calls=calls,
+               period_reduce=reduce_row,
+               records={str(r): n for r, n in
+                        engine._datasets["prom"].samples_written.items()})
+    log(f"rollup engine: tick seconds by hour "
+        f"{[round(r['tick_s'], 3) for r in hourly]}; stage seconds {stages} "
+        f"(calls {calls}); records emitted per tier {out['records']}; "
+        f"griddown.period_reduce ledger row over the feed {reduce_row}")
+
+    with Phase("rollup.check_tiers"):
+        out["tiers"] = check_tiers(ms.store, published, series, engine,
+                                   device)
+        log(f"rollup tiers: no open period emitted, each series' newest "
+            f"record in its last closed period, rolled_through the oldest of "
+            f"them; the first {CHECK_PODS} pods' records equal "
+            f"BatchDownsampler's over the same raw chunks, bit for bit, over "
+            f"closed periods: {out['tiers']}")
+    published.clear()
+
+    with Phase("rollup.twin"):
+        twin = TimeSeriesMemStore(device="cpu")
+        twin.setup("prom", DEFAULT_SCHEMAS, 0)
+        toff = 0
+        for h in range(ROLLUP_HOURS):
+            for pod in range(CHECK_PODS):
+                for c in hours[pod][h]:
+                    twin.ingest("prom", 0, c, toff)
+                    toff += 1
+        from filodb_tpu_torch.core.record import RecordBuilder
+        for res in cfg.resolutions_ms:
+            name = ds_dataset_name("prom", res)
+            twin.setup(name, DEFAULT_SCHEMAS, 0)
+            b = RecordBuilder(DEFAULT_SCHEMAS["prom-counter"])
+            for part in list(ms.get_shard(name, 0).partitions.values()):
+                if int(part.tags["pod"].split("-")[1]) < CHECK_PODS:
+                    t, v = part.read_range(0, 2**62)
+                    b.add_series(t, [v], part.tags)
+            for off, c in enumerate(b.containers()):
+                twin.ingest(name, 0, c, off)
+    del hours
+
+    def counts():
+        return {k: getattr(grid, k).launches
+                for k in ("rate_grid", "rate_grid_packed")}
+
+    queries = {}
+    ledger_progs = ("grid.rate_grid", "grid.rate_grid_packed")
+    datasets = ["prom"] + [ds_dataset_name("prom", r)
+                           for r in cfg.resolutions_ms]
+
+    def ledger_launches():
+        rows = {r["program"]: r["launches"]
+                for r in devicewatch.KERNEL_TIMER.table()}
+        return {p: rows.get(p, 0) for p in ledger_progs}
+
+    # the card's runs only (the CPU twin's calls reach the ledger too)
+    ledger = {p: 0 for p in ledger_progs}
+    card = {"rate_grid": 0, "rate_grid_packed": 0}
+    with Phase("rollup.queries"):
+        grid.reset_launch_counts()          # the rollup path's run
+        d0 = grid.rate_grid.direct
+        plans = {}
+        for name, pin, kw in rollup_queries():
+            router = rollup_router(ms, engine, **kw)
+            before = counts()
+            led0 = ledger_launches()
+            hits0 = grid_hits(ms, datasets)
+            res, host, cold, ep, qctx = run_routed(ms, router, pin)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in counts().items()}
+            hits = {k: v - hits0[k] for k, v in grid_hits(ms,
+                                                          datasets).items()}
+            for p, v in ledger_launches().items():
+                ledger[p] += v - led0[p]
+            for k, v in ran.items():
+                card[k] += v
+            rows = engine_rows(res, host)
+            start, stop = rollup_span()
+            nsteps = (stop - start) // ROLLUP_STEP + 1
+            for k, v in rows.items():
+                if v.shape != (nsteps,) or not np.isfinite(v).any():
+                    raise AssertionError(f"{name}: row {k} shape {v.shape}, "
+                                         f"finite {np.isfinite(v).sum()}")
+            if len(rows) != REQ_PODS:
+                raise AssertionError(f"{name}: {len(rows)} groups")
+            stitched = isinstance(ep, StitchRvsExec)
+            if name != "R2" and not stitched:
+                raise AssertionError(f"{name}: not a stitch: "
+                                     f"{type(ep).__name__}")
+            legs = leg_paths(ep, hits)
+            raw_legs = [g for g in legs if g["dataset"] == "prom"]
+            if not raw_legs or any(g["path"] != "grid" for g in raw_legs) \
+                    or sum(ran.values()) < sum(hits.values()):
+                raise AssertionError(f"{name}: the raw leg did not launch B1 "
+                                     f"or B3: {legs}, launches {ran}")
+            trouter = rollup_router(twin, engine, **kw)
+            tres, thost, _tw, tep, tq = run_routed(twin, trouter, pin)
+            if (tq.rollup_resolution_ms, tq.rollup_tiers) != \
+                    (qctx.rollup_resolution_ms, qctx.rollup_tiers):
+                raise AssertionError(f"{name}: the twin routed otherwise")
+            err = check_engine(f"{name}", rows, engine_rows(tres, thost),
+                               None, RTOL_CPU)
+            walls = []
+            led0 = ledger_launches()         # the twin's runs left out
+            before = counts()
+            for _ in range(ROLLUP_REPS):
+                walls.append(run_routed(ms, router, pin)[2])
+            torch.cuda.synchronize()
+            warm = statistics.median(walls)
+            for p, v in ledger_launches().items():
+                ledger[p] += v - led0[p]
+            for k, v in counts().items():
+                card[k] += v - before[k]
+            queries[name] = {
+                "pin": pin, "knobs": sorted(kw),
+                "resolution_ms": qctx.rollup_resolution_ms,
+                "tiers": list(qctx.rollup_tiers), "stitched": stitched,
+                "legs": legs, "launches": ran, "cold_wall_ms": cold,
+                "warm_wall_ms": warm, "warm_wall_p10_p90": spread(walls),
+                "samples_scanned": res.stats.samples_scanned,
+                "cpu_check_err": err}
+            log(f"{name} {ROLLUP_QUERY!r} resolution={pin} "
+                f"{'+'.join(k for k in sorted(kw)) or ''}: tier "
+                f"{qctx.rollup_resolution_ms} ms, tiers {qctx.rollup_tiers}, "
+                f"{'StitchRvsExec' if stitched else type(ep).__name__}; legs "
+                + "; ".join(f"{g['dataset']} [{(g['start'] - T0) // STEP}, "
+                            f"{(g['end'] - T0) // STEP}] min: {g['path']} "
+                            f"({g['grid_hits']} grid hits)" for g in legs)
+                + f"; launches {ran}; cold wall_ms {cold:.3f}, warm median of "
+                f"{ROLLUP_REPS} {warm:.3f}; samples scanned "
+                f"{res.stats.samples_scanned}; cpu-twin check ok (max_abs_err "
+                f"{err:.3e}, rtol {RTOL_CPU})")
+            for g in legs:
+                if g["path"] == "grid":
+                    cache = grid_cache(ms.get_shard(g["dataset"], 0), False)
+                    plans[name, g["dataset"]] = \
+                        list(cache._plan_memo.values())[-1]
+        torch.cuda.synchronize()
+        launched = counts()
+        direct = grid.rate_grid.direct - d0
+        if ledger != {"grid.rate_grid": card["rate_grid"],
+                      "grid.rate_grid_packed": card["rate_grid_packed"]} \
+                or launched["rate_grid"] + launched["rate_grid_packed"] < 1:
+            raise AssertionError(f"rollup path launches {launched} (the "
+                                 f"card's runs {card}), the kernel ledger's "
+                                 f"{ledger}")
+        log(f"rollup path launches {launched} (rate_grid on its direct kernel "
+            f"{direct}); the card's runs' {card}, equal to the kernel "
+            f"ledger's {ledger}")
+    if before_timing is not None:
+        before_timing()
+    with Phase("rollup.kernels_at_path_shapes"):
+        flush = make_flush(device)
+        # R2's raw plan (the whole range on the raw grid) and each grid
+        # plan of a tier leg
+        rows = [plan_kernel_times(f"rollup {q} {ds}", plan, reps, flush)[1]
+                for (q, ds), plan in sorted(plans.items())
+                if (q, ds) == ("R2", "prom") or ds != "prom"]
+    engine.stop()
+    ms.reset()
+    twin.reset()
+    out.update(queries=queries, launches=launched, rate_grid_direct=direct,
+               ledger_launches=ledger, rows=rows)
+    report["rollup"] = out
+    return out
+
+
+class KernelBuild:
+    """``kernels.library()``, the ``nvcc`` build, on a thread of its own,
+    so that the main path's stores ingest while ``nvcc`` runs (the ingest
+    launches no kernel of the library; a wrapper that did would wait at
+    the library's lock)."""
+
+    def __init__(self):
+        from filodb_tpu_torch.ops import kernels
+
+        self.t0 = time.perf_counter()
+        self.seconds = None
+        self._error = None
+        self._thread = threading.Thread(target=self._run, args=(kernels,),
+                                        name="nvcc-build", daemon=True)
+        self._thread.start()
+
+    def _run(self, kernels) -> None:
+        try:
+            kernels.library()
+        except BaseException as e:          # re-raised by join
+            self._error = e
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self) -> None:
+        """Until the build ends, whatever its outcome: no ``nvcc`` is
+        left running."""
+        self._thread.join()
+
+    def join(self) -> float:
+        """The build's seconds from its start; raises its error."""
+        self.wait()
+        if self._error is not None:
+            raise self._error
+        return self.seconds
+
+
+class RollupBeside:
+    """The rollup phase in a process of its own on the same card, run
+    beside the durable phase: the two share no store, and each spends
+    most of its time on the host.  The process takes the durable
+    encoding's first ROLLUP_HOURS hours through a pipe (nothing is
+    encoded again) and runs :func:`rollup_phase`.  No kernel timing
+    shares the card with the other process's work: the rollup's
+    (``rollup.kernels_at_path_shapes``) wait until the durable phase
+    reaches its own, which wait until the rollup process is done.
+    Where that process cannot open the card, the phase runs here after
+    the durable phase."""
+
+    def __init__(self, device, seed: int, reps: int, encoding: PodHours):
+        import multiprocessing
+
+        t0 = time.perf_counter()
+        hours = encoding.get()[0]
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_rollup_beside, name="rollup",
+                                 args=(child, str(device), seed, reps))
+        self._proc.start()
+        child.close()
+        for pod in range(REQ_PODS):
+            self._conn.send(hours[pod][:ROLLUP_HOURS])
+        self._msg = None
+        log(f"rollup: its process started beside the durable phase, the "
+            f"encoding's first {ROLLUP_HOURS} hours handed over in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    def _recv(self) -> tuple:
+        try:
+            return self._conn.recv()
+        except EOFError:
+            self._proc.join(timeout=30)
+            return ("error", f"the rollup process ended (exit code "
+                             f"{self._proc.exitcode})", "phase")
+
+    def time_alone(self) -> None:
+        """Where the durable phase's kernel timings start: the rollup
+        process times its kernels while this one waits, then sends its
+        record."""
+        t0 = time.perf_counter()
+        msg = self._recv()
+        if msg[0] == "ready":
+            self._conn.send("go")
+            msg = self._recv()
+        self._msg = msg
+        log(f"rollup: {time.perf_counter() - t0:.3f} s waited for its "
+            f"process's kernel timings and record")
+
+    def result(self, device, seed: int, reps: int, encoding: PodHours,
+               report: dict) -> dict:
+        if self._msg is None:
+            self.time_alone()
+        kind, payload = self._msg[:2]
+        if kind == "done":
+            report["rollup"] = payload
+            return payload
+        if self._msg[2] == "setup":
+            log(f"rollup: its process could not open the card "
+                f"({payload.strip().splitlines()[-1]}); the phase runs "
+                f"here, after the durable phase")
+            with Phase("rollup"):
+                return rollup_phase(device, seed, reps, encoding.get()[0],
+                                    report)
+        raise AssertionError(f"the rollup phase failed in its process:\n"
+                             f"{payload}")
+
+    def close(self) -> None:
+        self._conn.close()
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join()
+
+
+def _rollup_beside(conn, device: str, seed: int, reps: int) -> None:
+    """:class:`RollupBeside`'s process: the hours from the pipe, then
+    the rollup phase; ``("done", its record)`` or ``("error", the
+    traceback, "setup" or "phase")`` back."""
+    import traceback
+
+    stage = "setup"
+    try:
+        hours = {pod: conn.recv() for pod in range(REQ_PODS)}
+        sys.path.insert(0, HERE)
+        import torch
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            from filodb_tpu_torch.ops import kernels
+            torch.cuda.set_device(dev)
+            torch.empty(1, device=dev)
+            kernels.library()               # the build the parent made
+        stage = "phase"
+
+        def time_alone():
+            conn.send(("ready",))
+            if conn.recv() != "go":
+                raise AssertionError("the card was not handed over")
+
+        with Phase("rollup"):
+            out = rollup_phase(dev, seed, reps, hours, {}, time_alone)
+        conn.send(("done", out))
+    except BaseException:
+        conn.send(("error", traceback.format_exc(), stage))
+    finally:
+        conn.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5411,15 +6166,18 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    # the durable phase's stream, encoded beside the build
+    # the main path's histogram pods and the durable phase's stream,
+    # encoded beside the build
+    hist_pods = HistPods(args.seed, HIST_PODS)
     encoding = PodHours(args.seed, REQ_PODS)
     try:
-        return run_phases(args, device, encoding)
+        return run_phases(args, device, hist_pods, encoding)
     finally:
+        hist_pods.close()
         encoding.close()
 
 
-def run_phases(args, device, encoding: PodHours) -> int:
+def run_phases(args, device, hist_pods: HistPods, encoding: PodHours) -> int:
     """Every phase in order; the last two lines on success."""
     import torch
     from filodb_tpu_torch.ops import kernels
@@ -5432,11 +6190,20 @@ def run_phases(args, device, encoding: PodHours) -> int:
             f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
         log(f"nvidia-smi: {smi}")
         report["device"] = {"name": kind, "nvidia_smi": smi}
+    # nvcc builds the kernels on a thread while the main path's stores
+    # ingest
+    build = KernelBuild()
+    try:
+        with Phase("stores"):
+            stores = main_stores(device, args.seed, report, hist_pods)
+    except BaseException:
+        build.wait()
+        raise
     with Phase("build"):
         t0 = time.perf_counter()
-        kernels.library()
-        build_s = time.perf_counter() - t0
-        log(f"build seconds {build_s:.3f}")
+        build_s = build.join()
+        log(f"build seconds {build_s:.3f} (beside the stores' ingest; "
+            f"{time.perf_counter() - t0:.3f} s waited after it)")
         for line in ptxas_summary(kernels.build_log):
             log(f"  csrc: {line}")
         report["build_seconds"] = build_s
@@ -5459,7 +6226,8 @@ def run_phases(args, device, encoding: PodHours) -> int:
         log(f"kernel sweep: every case within tolerance (max_abs_err "
             f"{sweep_err:.3e})")
     with Phase("main"):
-        main = main_path(device, args.seed, REPS, report)
+        main = main_path(device, args.seed, REPS, report, stores)
+    del stores
     with Phase("engine"):
         engine = engine_phase(device, main["stores"], ENGINE_REPS, report)
     with Phase("batch"):
@@ -5471,10 +6239,18 @@ def run_phases(args, device, encoding: PodHours) -> int:
     # durable stores' allocations do not pay for scanning them
     gc.collect()
     torch.cuda.empty_cache()
-    with Phase("durable"):
-        durable = durable_phase(device, args.seed, REPS, encoding, report)
+    beside = RollupBeside(device, args.seed, REPS, encoding)
+    try:
+        with Phase("durable"):
+            durable = durable_phase(device, args.seed, REPS, encoding,
+                                    report, beside.time_alone)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rollup = beside.result(device, args.seed, REPS, encoding, report)
+    finally:
+        beside.close()
     entries = kernel_entries(main, engine, batch, northstar, durable,
-                             report)
+                             rollup, report)
     report["kernels"] = entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -5490,13 +6266,13 @@ def run_phases(args, device, encoding: PodHours) -> int:
 
 
 def kernel_entries(main: dict, engine: dict, batch: dict, northstar: dict,
-                   durable: dict, report: dict) -> list:
+                   durable: dict, rollup: dict, report: dict) -> list:
     """The ``{"kernels": [...]}`` record: each kernel at the input of its
     primary query (rate_grid at Q2, rate_grid_packed at Q1, m4_grid at
     E2, the grouped kernels at the north-star widths), with its launches
     on the paths that run it (rate_grid's: the main path's, the batch
-    phase's, solo and batched, and the durable path's; its batched
-    launches also in ``launches_batched``, their times in
+    phase's, solo and batched, the durable path's and the rollup path's;
+    its batched launches also in ``launches_batched``, their times in
     ``batched``)."""
     primary = {"rate_grid": "Q2", "rate_grid_packed": "Q1"}
     replaces = {"rate_grid": "filodb_tpu/ops/grid.py:848",
@@ -5512,12 +6288,13 @@ def kernel_entries(main: dict, engine: dict, batch: dict, northstar: dict,
     launches = {**main["launches"],
                 "m4_grid": engine["launches"]["m4_grid"],
                 **{k: northstar["launches"][k] for k in northstar["rows"]}}
-    for k, n in durable["launches"].items():
-        launches[k] += n
+    for path in (durable, rollup):
+        for k, n in path["launches"].items():
+            launches[k] += n
     bl = batch["launches"]
     launches["rate_grid"] += bl["rate_grid"] + bl["rate_grid_batch"]
     direct = main["rate_grid_direct"] + durable["rate_grid_direct"] \
-        + bl["batch_direct"]
+        + rollup["rate_grid_direct"] + bl["batch_direct"]
     sweep = (report["kernel_sweep"] + report["b1_sweep"] + report["b3_sweep"]
              + report["b1_batch"] + report["grouped_sweep"]
              + northstar["second_ops"])
@@ -5542,8 +6319,8 @@ def kernel_entries(main: dict, engine: dict, batch: dict, northstar: dict,
     for kname in replaces:
         row = path_rows[kname]
         errs = [r["max_abs_err"] for r in main["rows"].get(kname, [row])]
-        errs += [r["max_abs_err"] for r in durable["rows"]
-                 if r["kernel"] == kname]
+        errs += [r["max_abs_err"] for path in (durable, rollup)
+                 for r in path["rows"] if r["kernel"] == kname]
         errs += [r["max_abs_err"] for r in sweep if r["kernel"] == kname]
         if kname == "rate_grid":
             errs += [r["max_abs_err"] for r in batch["times"]]
@@ -5560,4 +6337,9 @@ def kernel_entries(main: dict, engine: dict, batch: dict, northstar: dict,
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # the pools are closed (main's finally); skip the interpreter's
+    # teardown of the stores' millions of objects
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -43,7 +43,15 @@ from filodb_tpu_torch.query.transformers import (AbsentFunctionMapper,
 HIERARCHICAL_REDUCE_AT = 16
 
 
-class SingleClusterPlanner:
+class QueryPlanner:
+    """Planner interface (reference: queryplanner/QueryPlanner.scala:16)."""
+
+    def materialize(self, plan: lp.LogicalPlan,
+                    qctx: Optional[QueryContext] = None) -> ExecPlan:
+        raise NotImplementedError
+
+
+class SingleClusterPlanner(QueryPlanner):
     def __init__(self, dataset: str, shard_mapper: ShardMapper,
                  options: Optional[DatasetOptions] = None,
                  spread_default: int = 1):

@@ -103,6 +103,9 @@ class Histogram:
         return float(quantile_bulk(self.buckets.bucket_tops(),
                                    self.values[np.newaxis, :], q)[0])
 
+    def top_bucket_value(self) -> float:
+        return float(self.values[-1])
+
     def __add__(self, other: "Histogram") -> "Histogram":
         if self.buckets != other.buckets:
             raise ValueError("bucket scheme mismatch")
@@ -173,3 +176,10 @@ def quantile_bulk(tops: np.ndarray, rows: np.ndarray, q: float) -> np.ndarray:
     return out
 
 
+def hist_max_quantile_bulk(tops: np.ndarray, rows: np.ndarray,
+                           maxes: np.ndarray, q: float) -> np.ndarray:
+    """histogram_max_quantile: clamp the top interpolation bound to the
+    observed max column (reference hist-max schema handling,
+    query/exec/rangefn and Histogram.scala ``quantile`` with max)."""
+    base = quantile_bulk(tops, rows, q)
+    return np.where(np.isfinite(maxes) & (base > maxes), maxes, base)

@@ -264,32 +264,36 @@ class ShardDownsampler:
         results = []
         if staged is not None:
             got = griddown.grid_outputs(staged, resolution_ms,
-                                        self.downsamplers, self.marker)
+                                        self.downsamplers, self.marker,
+                                        self.device)
             if got is not None:
                 served, outs, pends, plive = got
                 # the planes are host arrays (one readback a reduce)
-                outs = [np.asarray(o) if o is not None else None
-                        for o in outs]
+                outs = [np.asarray(o) for o in outs if o is not None]
                 pends = np.asarray(pends)
                 plive = np.asarray(plive)
-                pe_all = pends.astype(np.int64)
-                for si, (tags, _ts, _cols) in enumerate(decoded):
-                    if not served[si]:
-                        continue
-                    pm = plive[:, si]
-                    if pm.all():
-                        # fully-live series (the aligned common case):
-                        # column views, no mask scan/copy per column
-                        pe = pe_all
-                        cols = [out[:, si] for out in outs
-                                if out is not None]
-                    elif pm.any():
-                        pe = pends[pm].astype(np.int64)
-                        cols = [out[pm, si] for out in outs
-                                if out is not None]
-                    else:
-                        continue
-                    results.append((tags, pe, cols))
+                # series live over the same periods share one
+                # period-end vector and one block of their columns
+                sidx = np.flatnonzero(np.asarray(served, bool)
+                                      & plive.any(axis=0))
+                _p, first, which = np.unique(
+                    np.packbits(plive[:, sidx], axis=0).T, axis=0,
+                    return_index=True, return_inverse=True)
+                which = which.reshape(-1)
+                rank = np.empty(len(sidx), np.int64)   # column in block
+                blocks = []
+                for k, f in enumerate(first):
+                    pm = plive[:, sidx[f]]
+                    members = np.flatnonzero(which == k)
+                    rank[members] = np.arange(len(members))
+                    rows = np.ix_(pm, sidx[members])
+                    blocks.append((pends[pm].astype(np.int64),
+                                   [out[rows] for out in outs]))
+                for si, k, j in zip(sidx.tolist(), which.tolist(),
+                                    rank.tolist()):
+                    pe, block = blocks[k]
+                    results.append((decoded[si][0], pe,
+                                    [b[:, j] for b in block]))
         for si, (tags, ts, cols) in enumerate(decoded):
             if served is not None and served[si]:
                 continue

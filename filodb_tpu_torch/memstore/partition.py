@@ -226,10 +226,14 @@ class TimeSeriesPartition:
                 lt = self.chunks[-1].info.end_time
             else:
                 lt = -1
-            running = np.maximum.accumulate(np.concatenate(([lt], ts)))[:-1]
-            keep = ts > running
-            kept = int(keep.sum())
-            dropped = n - kept
+            if int(ts[0]) > lt and (n == 1 or bool((ts[1:] > ts[:-1]).all())):
+                kept, dropped = n, 0        # a strict append drops nothing
+            else:
+                running = np.maximum.accumulate(
+                    np.concatenate(([lt], ts)))[:-1]
+                keep = ts > running
+                kept = int(keep.sum())
+                dropped = n - kept
             self.out_of_order_dropped += dropped
             if kept == 0:
                 return 0, dropped

@@ -36,6 +36,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import traceback
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
@@ -186,6 +187,10 @@ class TimeSeriesShard:
         self.downsample_publisher = None
         self.downsample_resolutions: tuple[int, ...] = ()
         self._downsamplers: dict[int, object] = {}
+        # the live rollup engine's feed (``rollup``): called after each
+        # successful flush task with {schema_hash: [(tags, chunkset)]}
+        # and the task's ingestion time.  Never fails a flush
+        self.rollup_listener = None
         # device-resident grids, one per (schema, value column)
         self.device_caches: dict = {}
         # the co-arrival batcher the grid caches offer their dispatches
@@ -219,13 +224,22 @@ class TimeSeriesShard:
             self._downsamplers[schema_hash] = ds
         return ds
 
-    def _downsample(self, pairs) -> None:
-        """Hand ``(partition, fresh chunksets)`` pairs to each schema's
-        downsampler, once each (the flush task and the eviction)."""
+    @staticmethod
+    def _by_schema(pairs) -> dict[int, list]:
+        """``(partition, fresh chunksets)`` pairs -> {schema_hash:
+        [(tags, chunkset)]}, the downsamplers' and the rollup feed's
+        shape."""
         by_schema: dict[int, list] = {}
         for part, fresh in pairs:
             by_schema.setdefault(part.schema.schema_hash, []).extend(
                 (part.tags, cs) for cs in fresh)
+        return by_schema
+
+    def _downsample(self, pairs, by_schema=None) -> None:
+        """Hand ``(partition, fresh chunksets)`` pairs to each schema's
+        downsampler, once each (the flush task and the eviction)."""
+        if by_schema is None:
+            by_schema = self._by_schema(pairs)
         for shash, tagged in by_schema.items():
             self._downsampler_for(shash).downsample_chunksets(tagged)
 
@@ -281,33 +295,50 @@ class TimeSeriesShard:
         cols_s = [c[order] for c in cols]
         counts = np.bincount(uniq_idx, minlength=n_uniq)
         starts = np.concatenate(([0], np.cumsum(counts)))
-        added_total = 0
+        added_total = dropped_total = 0
         maxint = np.iinfo(np.int64).max
-        for u in range(n_uniq):
-            s0, s1 = int(starts[u]), int(starts[u + 1])
-            if s0 == s1:
-                continue  # every record of this series was watermark-skipped
-            first = int(dec.uniq_first[u])
-            try:
-                part = self._get_or_add_partition_pk(
-                    dec.partkeys[u], schema, int(dec.part_hashes[first]),
-                    int(ts_s[s0]))
-            except SeriesQuotaExceeded:
-                # an over-quota NEW series: its rows drop, the rest of
-                # the container keeps ingesting
-                self.stats.rows_quota_dropped += s1 - s0
-                self.series_quota.note_dropped_samples(
-                    parse_partkey(dec.partkeys[u]), s1 - s0)
-                continue
-            added, dropped = self._ingest_series_block(
-                part, ts_s[s0:s1], [c[s0:s1] for c in cols_s])
-            added_total += added
-            self.stats.rows_ingested += added
-            self.stats.out_of_order_dropped += dropped
-            if self.index.end_time(part.part_id) != maxint:
-                self.index.mark_active(part.part_id)
+        # per-series scalars as Python ints, once a container
+        bounds = starts.tolist()
+        firsts = dec.uniq_first.tolist()
+        hashes = dec.part_hashes.tolist()
+        groups = groups_r.tolist()
+        dirty: dict[int, set] = {}
+        part_set, partitions = self.part_set, self.partitions
+        try:
+            for u in range(n_uniq):
+                s0, s1 = bounds[u], bounds[u + 1]
+                if s0 == s1:
+                    continue  # every record of it was watermark-skipped
+                first = firsts[u]
+                pid = part_set.get(dec.partkeys[u])
+                part = partitions.get(pid) if pid is not None else None
+                if part is None:
+                    try:
+                        part = self._get_or_add_partition_pk(
+                            dec.partkeys[u], schema, hashes[first],
+                            int(ts_s[s0]))
+                    except SeriesQuotaExceeded:
+                        # an over-quota NEW series: its rows drop, the
+                        # rest of the container keeps ingesting
+                        self.stats.rows_quota_dropped += s1 - s0
+                        self.series_quota.note_dropped_samples(
+                            parse_partkey(dec.partkeys[u]), s1 - s0)
+                        continue
+                added, dropped = self._ingest_series_block(
+                    part, ts_s[s0:s1], [c[s0:s1] for c in cols_s])
+                added_total += added
+                dropped_total += dropped
+                if self.index.end_time(part.part_id) != maxint:
+                    self.index.mark_active(part.part_id)
+                dirty.setdefault(groups[first], set()).add(part.part_id)
+        finally:
+            # what was appended counts, and is dirty, even if a later
+            # series of the container raised
+            self.stats.rows_ingested += added_total
+            self.stats.out_of_order_dropped += dropped_total
             with self._dirty_lock:
-                self._dirty_partkeys[int(groups_r[first])].add(part.part_id)
+                for g, pids in dirty.items():
+                    self._dirty_partkeys[g] |= pids
         if len(ts):
             self.latest_ingest_ts = max(self.latest_ingest_ts,
                                         int(ts.max()))
@@ -509,8 +540,12 @@ class TimeSeriesShard:
             if chunksets:
                 self.store.write_chunks(self.dataset, self.shard_num,
                                         chunksets, task.ingestion_time)
+            ds_pairs: dict[int, list] = {}
+            if collected and (self.downsample_publisher is not None
+                              or self.rollup_listener is not None):
+                ds_pairs = self._by_schema(collected)
             if self.downsample_publisher is not None and collected:
-                self._downsample(collected)
+                self._downsample(collected, ds_pairs)
             if task.dirty:
                 recs = [PartKeyRecord(self.index.partkey(pid),
                                       self.index.start_time(pid),
@@ -528,6 +563,16 @@ class TimeSeriesShard:
         # checkpoint only after chunks+partkeys persisted (reference :949-960)
         self.meta.write_checkpoint(self.dataset, self.shard_num, task.group,
                                    task.offset)
+        listener = self.rollup_listener
+        if listener is not None and ds_pairs:
+            # the fresh chunksets go to the rollup engine AFTER they are
+            # persisted and checkpointed: its restart catch-up reads the
+            # store by ingestion time, so a crash between persist and
+            # handoff replays, never loses
+            try:
+                listener(ds_pairs, task.ingestion_time)
+            except Exception:  # noqa: BLE001 — rollup never fails a flush
+                traceback.print_exc()
         self.group_watermarks[task.group] = max(
             self.group_watermarks[task.group], task.offset)
         # tasks of different groups finish on different executor threads:

@@ -41,7 +41,8 @@ from filodb_tpu_torch.query.model import (PeriodicBatch, QueryContext,
                                           to_tensor, unify)
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
                                                  PeriodicSamplesMapper,
-                                                 RangeVectorTransformer)
+                                                 RangeVectorTransformer,
+                                                 StitchRvsMapper)
 from filodb_tpu_torch.utils.observability import TRACER
 
 # the ExecContext of the scan running on THIS thread: the grid seam
@@ -643,6 +644,13 @@ class TimeScalarGeneratorExec(LeafExecPlan):
         return [ScalarResult(self.steps, _scalar_row(vals, ctx))]
 
 
+class EmptyResultExec(LeafExecPlan):
+    """A leaf that answers nothing (reference: EmptyResultExec)."""
+
+    def do_execute(self, ctx):
+        return []
+
+
 # ---------------------------------------------------------------------------
 # Non-leaves
 # ---------------------------------------------------------------------------
@@ -673,6 +681,16 @@ class DistConcatExec(NonLeafExecPlan):
 
     def compose(self, results, ctx):
         return [b for r in results for b in r.batches]
+
+
+class StitchRvsExec(NonLeafExecPlan):
+    """Concat + stitch split series (reference: StitchRvsExec.scala:61):
+    the children's batches merge onto their union step grid on the
+    ExecContext's device."""
+
+    def compose(self, results, ctx):
+        batches = [b for r in results for b in r.batches]
+        return StitchRvsMapper().apply(batches, ctx)
 
 
 def _join_key(tags: dict, on: tuple, ignoring: tuple) -> tuple:

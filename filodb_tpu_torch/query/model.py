@@ -71,6 +71,9 @@ class QueryContext:
     # every plan node, and the query batcher checks it before a query
     # waits in a co-arrival window
     deadline_ms: int = 0
+    # the admission identity (a controller's tenant and class)
+    tenant: str = ""
+    priority: str = "default"
     # the co-arrival batcher (``batching``): the live admission permit
     # while the query runs inside its admission window (the batch leader
     # re-checks ``permit.released`` at stack time), and the insights
@@ -78,6 +81,21 @@ class QueryContext:
     # are noted
     admission_permit: object = None
     batch_key: str = ""
+    # tiered-resolution serving (``rollup``):
+    # - resolution_pref: the ?resolution= knob: "" or "auto" lets the
+    #   router pick, "raw" pins the raw dataset, a duration ("1m",
+    #   "15m", "1h") pins that tier
+    # - rollup_resolution_ms: the tier the router chose, stamped at
+    #   materialize time (0 = raw)
+    # - rollup_routed: True once a RollupRouterPlanner decided for this
+    #   query, "raw" included
+    # - rollup_tiers: the storage tiers the router stitched, in the
+    #   order their legs materialized ("rolled-cold", "rolled-local",
+    #   "raw")
+    resolution_pref: str = ""
+    rollup_resolution_ms: int = 0
+    rollup_routed: bool = False
+    rollup_tiers: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -112,6 +130,9 @@ class QueryStats:
     # caused: blocks committed minus blocks freed while its ExecContext
     # was active (utils/devicewatch.LEDGER); 0 for a fully warm query
     hbm_resident_delta_bytes: int = 0
+    # storage tiers that served (part of) this query, "+"-joined in time
+    # order ("rolled-cold+rolled-local+raw"); "" = not routed
+    tiers: str = ""
 
     def merge(self, other: "QueryStats") -> None:
         self.samples_scanned += other.samples_scanned
@@ -129,6 +150,10 @@ class QueryStats:
         for k, v in other.device_programs.items():
             self.device_programs[k] = self.device_programs.get(k, 0.0) + v
         self.hbm_resident_delta_bytes += other.hbm_resident_delta_bytes
+        if other.tiers and other.tiers != self.tiers:
+            mine = self.tiers.split("+") if self.tiers else []
+            mine += [t for t in other.tiers.split("+") if t not in mine]
+            self.tiers = "+".join(mine)
 
 
 class QueryError(Exception):

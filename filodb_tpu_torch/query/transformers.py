@@ -425,6 +425,64 @@ class VectorFunctionMapper(RangeVectorTransformer):
 
 
 @dataclasses.dataclass
+class StitchRvsMapper(RangeVectorTransformer):
+    """Merge same-key series split across time (reference:
+    StitchRvsExec.scala:13,61): children may cover different sub-ranges
+    of one step grid (raw-vs-rolled routing, time splits); their values
+    go onto the UNION grid, each placed by its step offset, and a NaN
+    slot fills from a later child.  The merge runs on the ExecContext's
+    device in the children's promoted dtype; nothing is read back."""
+
+    def apply(self, batches, ctx):
+        pbs = [b for b in batches if isinstance(b, PeriodicBatch)]
+        if not pbs:
+            return []
+        step = pbs[0].steps.step
+        for b in pbs:
+            if b.steps.step != step:
+                raise ValueError(
+                    f"cannot stitch mismatched steps {b.steps.step} != {step}")
+        start = min(b.steps.start for b in pbs)
+        end = max(b.steps.end for b in pbs)
+        union = StepRange(start, end, step)
+        n = union.num_steps
+        dev = ctx_device(ctx)
+        vals = [to_tensor(b.values_t(), dev) for b in pbs]
+        dtype = value_dtype(dev)
+        for v in vals:
+            dtype = torch.promote_types(dtype, v.dtype)
+        rows: dict[tuple, int] = {}
+        order: list[tuple] = []
+        placed = []
+        for b, v in zip(pbs, vals):
+            idx = []
+            for t in b.keys:
+                k = tuple(sorted(t.items()))
+                if k not in rows:
+                    rows[k] = len(order)
+                    order.append(k)
+                idx.append(rows[k])
+            placed.append(idx)
+        merged = torch.full((len(order), n), float("nan"), dtype=dtype,
+                            device=dev)
+        for b, v, idx in zip(pbs, vals, placed):
+            off = (b.steps.start - start) // step
+            m = b.steps.num_steps
+            v = v.to(dtype)
+            if len(set(idx)) != len(idx):
+                # a key twice in one child: in order, first value wins
+                for i, r in enumerate(idx):
+                    seg = merged[r, off:off + m]
+                    merged[r, off:off + m] = torch.where(torch.isnan(seg),
+                                                         v[i], seg)
+                continue
+            ix = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+            seg = merged[ix, off:off + m]
+            merged[ix, off:off + m] = torch.where(torch.isnan(seg), v, seg)
+        return [PeriodicBatch([dict(k) for k in order], union, merged)]
+
+
+@dataclasses.dataclass
 class DownsampleMapper(RangeVectorTransformer):
     """?downsample=<pixels>: M4 visualization downsampling as the
     OUTERMOST transformer — per series, per pixel bin, keep only the

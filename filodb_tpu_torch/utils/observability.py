@@ -364,6 +364,55 @@ def watermark_metrics() -> dict:
     }
 
 
+def rollup_metrics() -> dict:
+    """Rollup-subsystem metrics (``rollup/``): tick health, tier
+    lag/stall, emission volume, routing — one place defines the names
+    so the engine and the router can never drift."""
+    return {
+        "passes": REGISTRY.counter(
+            "filodb_rollup_passes_total",
+            "rollup scheduler passes completed, per dataset"),
+        "pass_seconds": REGISTRY.histogram(
+            "filodb_rollup_pass_seconds",
+            "wall time of one rollup pass (consume + reduce + emit)"),
+        "samples": REGISTRY.counter(
+            "filodb_rollup_samples_written_total",
+            "rolled records emitted into the tier datasets, per "
+            "dataset and resolution"),
+        "lag": REGISTRY.gauge(
+            "filodb_rollup_lag_seconds",
+            "newest consumed raw sample time minus the tier's newest "
+            "emitted period stamp, per dataset/shard/resolution"),
+        "errors": REGISTRY.counter(
+            "filodb_rollup_tier_errors_total",
+            "tier emission passes that raised (retried next tick)"),
+        "deferred": REGISTRY.counter(
+            "filodb_rollup_deferred_total",
+            "rollup passes deferred by admission control (the rollup "
+            "class yielded to user traffic)"),
+        "stalled": REGISTRY.gauge(
+            "filodb_rollup_stalled",
+            "1 while a tier makes no progress past the stall window "
+            "with work pending, else 0 — the LEVEL the self-monitoring "
+            "alert rules watch (a counter's label set is born at 1, "
+            "invisible to increase())"),
+        "buffered": REGISTRY.gauge(
+            "filodb_rollup_buffered_samples",
+            "raw samples resident in rollup closure buffers, per "
+            "dataset/shard"),
+        "routed": REGISTRY.counter(
+            "filodb_rollup_queries_routed_total",
+            "queries the resolution router served from a rolled tier, "
+            "per dataset and resolution (resolution=raw counts "
+            "rollup-eligible queries that stayed raw)"),
+        "tier_served": REGISTRY.counter(
+            "filodb_rollup_tier_legs_total",
+            "stitch legs materialized per storage tier "
+            "(raw | rolled-local | rolled-cold), per dataset — a "
+            "stitched query counts once per tier it actually read"),
+    }
+
+
 class PeriodicThread:
     """Daemon loop calling ``fn`` every ``interval_s`` until stopped;
     exceptions print and the loop continues (the shared harness for

@@ -59,6 +59,15 @@ def _grid_both(jshard, tshard, jids, tids, steps0, nsteps, fn="RATE"):
     return got
 
 
+def _settle(*shards):
+    """Wait for the deferred page-cache publishes of the shards' bulk
+    page-ins: a fused page-in answers its query first and fills the page
+    cache on a side thread, so what the cache holds is read only after
+    those threads are joined."""
+    for shard in shards:
+        shard._join_materialize()
+
+
 def _paged(tmp_path, metric, n_series):
     """Both stores, every row flushed, every partition evicted, then one
     general scan that pages them all back in."""
@@ -72,6 +81,7 @@ def _paged(tmp_path, metric, n_series):
         tshard.evict_partitions(n_series) == n_series
     assert tshard.num_partitions == 0
     assert_same_batch(*scan_both(jshard, tshard, metric))
+    _settle(jshard, tshard)
     assert tshard.stats.partitions_paged == n_series
     assert_same_stats(jshard, tshard)
     return (j, jshard), (t, tshard)
@@ -316,6 +326,7 @@ def test_page_cache_below_the_working_set_refuses_the_grid(tmp_path):
     jids, tids = _ids(jshard, tshard, "uc")
     for _ in range(2):
         assert_same_batch(*scan_both(jshard, tshard, "uc"))
+        _settle(jshard, tshard)
         assert len(tshard.paged) == len(jshard.paged) < 6
         assert _grid_both(jshard, tshard, jids, tids, T0 + 120_000, 30) \
             is None
