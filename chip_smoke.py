@@ -217,7 +217,20 @@ Phases, each timed on a line of its own:
    in-memory column store), a ``RollupEngine`` at the default ladder (1
    min / 15 min / 1 h) on its flush listener, ``run_once`` after each
    hour's flush (tick seconds, the engine's stages, records emitted per
-   tier, the ``griddown.period_reduce`` ledger row); no open period
+   tier, the ``griddown.period_reduce`` ledger row), then the 15 min
+   and 1 h tier datasets' own flush; after each hour, and once more
+   with no new data, a dashboard refreshed through the result cache
+   below the router (``CacheDashboard``: RC1, ``sum by (pod)(rate(
+   req_total[1h]))`` over the R queries' range under ``auto``, and RC2,
+   ``sum by (pod)(rate(req_total[5m]))`` at the hour's last sample
+   through an instant window), each answer held to the uncached
+   router's at the same moment (bit for bit, or the cells that differ
+   shown and within rtol 2e-5), the last refresh hitting every closed
+   whole segment of its cached legs and recomputing none, its samples
+   scanned the cache's recomputed ones plus the legs it passed through,
+   every cache's byte ledger reconciled, the uncached router run twice
+   against itself, B1's launches in the refreshes equal to the kernel
+   ledger's; no open period
    emitted, each series' newest record in its last closed period and
    ``rolled_through`` the oldest of them, the first CHECK_PODS pods'
    records equal to ``BatchDownsampler``'s over the same raw chunks bit
@@ -5507,7 +5520,9 @@ ROLLUP_QUERY = "sum by (pod)(rate(req_total[1h]))"
 # under a raw retention of 1 ms: raw may serve nothing the tiers hold,
 # so the router serves the finest tier and raw only past its watermark
 ROLLUP_REPS = 1                        # warm runs of each R query
-ROLLUP_HOURS = 2                       # hours of the encoding fed
+# hours of the encoding fed: at 3 the R range holds one whole 1 h
+# segment, the result cache's unit (at 2 it holds none)
+ROLLUP_HOURS = 3
 
 
 def rollup_rows() -> int:
@@ -5665,6 +5680,280 @@ def rollup_router(ms, engine, **kw):
         rolled_through_fn=lambda r: engine.rolled_through("prom", r), **kw)
 
 
+RC_INSTANT_QUERY = "sum by (pod)(rate(req_total[5m]))"
+
+
+def values_gate(name: str, rows: dict, ref_rows: dict) -> dict:
+    """A cached answer's rows against the uncached router's at the same
+    moment: the same groups and NaN cells, and every value bit for bit;
+    where a cell differs, within RTOL_KERNEL of the uncached value (the
+    card's departure, reported: the cells and their largest relative
+    difference)."""
+    import numpy as np
+    if set(rows) != set(ref_rows):
+        odd = sorted(set(rows) ^ set(ref_rows))[:4]
+        raise AssertionError(f"{name}: groups differ from the uncached "
+                             f"answer: {odd}")
+    keys = sorted(ref_rows)
+    got = np.stack([rows[k] for k in keys]).astype(np.float64)
+    want = np.stack([ref_rows[k] for k in keys]).astype(np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{name}: NaN cells differ from the uncached "
+                             f"answer")
+    fin = np.isfinite(want)
+    if not fin.any():
+        raise AssertionError(f"{name}: no finite value")
+    diff = got[fin] != want[fin]
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]),
+                                                     np.finfo(np.float64).tiny)
+    out = {"cells": int(fin.sum()), "bit_equal": not diff.any(),
+           "cells_differing": int(diff.sum()),
+           "max_rel_diff": float(rel.max())}
+    if not out["bit_equal"] and out["max_rel_diff"] > RTOL_KERNEL:
+        raise AssertionError(f"{name}: {out['cells_differing']} cells differ "
+                             f"from the uncached answer, up to "
+                             f"{out['max_rel_diff']:.3e} relative (> "
+                             f"{RTOL_KERNEL})")
+    return out
+
+
+class CacheDashboard:
+    """RC1 and RC2, a dashboard refreshed through the result cache below
+    the rollup router: the router of ``rollup_router`` with each of its
+    planners (raw and every tier) wrapped in a ``ResultCachingPlanner``
+    over a ``ResultCache`` of its dataset at the reference's defaults
+    (64 MiB, the doorkeeper on), ``segment_ms`` the store's flush
+    interval, the routing token its dataset's ``ShardMapper``'s.  Each
+    refresh runs RC1 (ROLLUP_QUERY over rollup_span() under ``auto``)
+    and RC2 (RC_INSTANT_QUERY at a given time) through it and through
+    the uncached router, and holds the cached answer to the uncached one
+    (:func:`values_gate`)."""
+
+    def __init__(self, ms, engine, segment_ms: int):
+        from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+        from filodb_tpu_torch.downsample import ds_dataset_name
+        from filodb_tpu_torch.parallel.shardmap import ShardMapper
+        from filodb_tpu_torch.query.resultcache import (ResultCache,
+                                                        ResultCachingPlanner)
+        from filodb_tpu_torch.rollup import RollupRouterPlanner
+        from filodb_tpu_torch.rollup.config import DEFAULT_RESOLUTIONS_MS
+
+        self.ms, self.engine = ms, engine
+        self.caches: dict = {}
+        planners: dict = {}
+        for res in (0,) + tuple(DEFAULT_RESOLUTIONS_MS):
+            ds = "prom" if res == 0 else ds_dataset_name("prom", res)
+            mapper = ShardMapper(1)
+            self.caches[ds] = ResultCache(ds, enabled=True)
+            planners[res] = ResultCachingPlanner(
+                ds, SingleClusterPlanner(ds, mapper), ms, self.caches[ds],
+                segment_ms=segment_ms, routing_token_fn=mapper.routing_token)
+        self.router = RollupRouterPlanner(
+            "prom", planners.pop(0), planners,
+            rolled_through_fn=lambda r: engine.rolled_through("prom", r))
+        self.refreshes: list = []
+
+    def counters(self) -> dict:
+        return {ds: {k: c.snapshot()[k] for k in
+                     ("hits", "misses", "skips", "invalidations", "entries",
+                      "bytes")}
+                for ds, c in self.caches.items()}
+
+    def _instant(self, router, t: int):
+        from filodb_tpu_torch.promql.parser import query_to_logical_plan
+        from filodb_tpu_torch.query.exec import ExecContext
+        from filodb_tpu_torch.query.model import QueryContext
+
+        t0 = time.perf_counter()
+        qctx = QueryContext(sample_limit=2**40)
+        ep = router.materialize(query_to_logical_plan(RC_INSTANT_QUERY, t),
+                                qctx)
+        res = ep.execute(ExecContext(self.ms, qctx))
+        host = [b.np_values() for b in res.batches]
+        return res, host, (time.perf_counter() - t0) * 1e3, ep
+
+    def refresh(self, label: str, t_instant: int) -> dict:
+        """One refresh of both panels: the uncached router first, then
+        the cached one, each to host values, and the gates."""
+        import torch
+        from filodb_tpu_torch.query.resultcache import InstantWindowExec
+
+        before = self.counters()
+        uncached = rollup_router(self.ms, self.engine)
+        ures, uhost, uwall = run_routed(self.ms, uncached, "auto")[:3]
+        res, host, wall, ep, qctx = run_routed(self.ms, self.router, "auto")
+        torch.cuda.synchronize()
+        rc1 = values_gate(f"RC1 {label}", engine_rows(res, host),
+                          engine_rows(ures, uhost))
+        rc1.update(wall_ms=wall, uncached_wall_ms=uwall,
+                   tiers=list(qctx.rollup_tiers),
+                   samples_scanned=res.stats.samples_scanned,
+                   cached_samples=res.stats.resultcache_cached_samples,
+                   recomputed_samples=res.stats.resultcache_recomputed_samples,
+                   legs=self.legs(ep))
+        ires, ihost, iwall = self._instant(uncached, t_instant)[:3]
+        cres, chost, cwall, cep = self._instant(self.router, t_instant)
+        torch.cuda.synchronize()
+        rc2 = values_gate(f"RC2 {label}", engine_rows(cres, chost),
+                          engine_rows(ires, ihost))
+        # the first sight of a fingerprint passes through (the doorkeeper)
+        consumed = cep._entry.state.samples_consumed \
+            if isinstance(cep, InstantWindowExec) else None
+        prev = next((r["rc2"]["samples_consumed_total"]
+                     for r in reversed(self.refreshes)
+                     if r["rc2"]["samples_consumed_total"] is not None), 0)
+        rc2.update(t=t_instant, wall_ms=cwall, uncached_wall_ms=iwall,
+                   path=type(cep).__name__,
+                   samples_consumed_total=consumed,
+                   samples_consumed=None if consumed is None
+                   else consumed - prev,
+                   samples_scanned=cres.stats.samples_scanned,
+                   cached_samples=cres.stats.resultcache_cached_samples,
+                   recomputed_samples=(
+                       cres.stats.resultcache_recomputed_samples))
+        after = self.counters()
+        row = {"label": label, "rc1": rc1, "rc2": rc2,
+               "caches": {ds: {k: after[ds][k] - before[ds][k]
+                               for k in ("hits", "misses", "skips",
+                                         "invalidations")}
+                          for ds in after}}
+        self.refreshes.append(row)
+        self._last = (res, ep)
+        log(f"RC {label}: RC1 wall {wall:.3f} ms (uncached {uwall:.3f}), "
+            f"tiers {qctx.rollup_tiers}, legs {rc1['legs']}, samples "
+            f"scanned {rc1['samples_scanned']} (cached "
+            f"{rc1['cached_samples']}, recomputed "
+            f"{rc1['recomputed_samples']}), bit-equal {rc1['bit_equal']} "
+            f"({rc1['cells_differing']} of {rc1['cells']} cells differ, max "
+            f"rel {rc1['max_rel_diff']:.3e}); RC2 at {t_instant} via "
+            f"{rc2['path']} wall {cwall:.3f} ms (uncached {iwall:.3f}), "
+            f"samples consumed {rc2['samples_consumed']}, bit-equal "
+            f"{rc2['bit_equal']} ({rc2['cells_differing']} of {rc2['cells']}"
+            f", max rel {rc2['max_rel_diff']:.3e}); caches {row['caches']}")
+        return row
+
+    @staticmethod
+    def legs(ep) -> list:
+        """Each leg of the routed plan: the dataset its cache wraps and
+        what the cache made of it (a CachedRangeExec's hit, head and run
+        items, the storable segments the runs recompute), or the plain
+        plan it passed through."""
+        from filodb_tpu_torch.query.exec import StitchRvsExec
+        from filodb_tpu_torch.query.resultcache import (CachedRangeExec,
+                                                        InstantWindowExec)
+
+        out = []
+        for leg in (ep.children if isinstance(ep, StitchRvsExec) else [ep]):
+            if isinstance(leg, InstantWindowExec):
+                # a one-step leg: the cache's instant window state
+                out.append({"dataset": leg._planner.dataset, "cached": True,
+                            "instant": True, "storable_recomputed": 0,
+                            "hits": 0})
+            elif isinstance(leg, CachedRangeExec):
+                items = leg._items
+                out.append({
+                    "dataset": leg._planner.dataset, "cached": True,
+                    "hits": sum(1 for it in items if it[0] == "hit"),
+                    "heads": sum(1 for it in items if it[0] == "head"),
+                    "runs": sum(1 for it in items if it[0] == "run"),
+                    "storable_recomputed": sum(
+                        1 for it in items if it[0] == "run"
+                        for seg in it[2] if seg.storable)})
+            else:
+                leaf = leg
+                while getattr(leaf, "dataset", None) is None \
+                        and leaf.children:
+                    leaf = leaf.children[0]
+                out.append({"dataset": getattr(leaf, "dataset", None),
+                            "cached": False})
+        return out
+
+    def check_last(self) -> dict:
+        """The last refresh, with no new data since the one before: every
+        whole segment of its cached legs closed at that moment hit (each
+        one stored, ``snapshot()``), none recomputed; the samples it
+        scanned are the cache's recomputed ones plus those of the legs
+        the cache passed through (each run again alone); every cache's
+        byte ledger reconciles.  A stored segment the router no longer
+        asks for (the boundary moved past it) stays unrequested."""
+        from filodb_tpu_torch.query.exec import ExecContext, StitchRvsExec
+        from filodb_tpu_torch.query.model import QueryContext
+        from filodb_tpu_torch.query.resultcache import (CachedRangeExec,
+                                                        InstantWindowExec)
+
+        res, ep = self._last
+        row = self.refreshes[-1]
+        legs = ep.children if isinstance(ep, StitchRvsExec) else [ep]
+        hit_keys = [it[2].key for leg in legs
+                    if isinstance(leg, CachedRangeExec)
+                    for it in leg._items if it[0] == "hit"]
+        recomputed = sum(g["storable_recomputed"]
+                         for g in row["rc1"]["legs"] if g["cached"])
+        stored = {ds: len(c.snapshot()["segments"])
+                  for ds, c in self.caches.items()}
+        unstored = [k for k in hit_keys
+                    if not any(c.get(k) is not None
+                               for c in self.caches.values())]
+        if not hit_keys or recomputed or unstored:
+            raise AssertionError(f"the last refresh hit {len(hit_keys)} "
+                                 f"whole segments ({len(unstored)} not "
+                                 f"stored), recomputed {recomputed} closed "
+                                 f"whole ones; stored {stored}")
+        hits = len(hit_keys)
+        bypass = 0
+        for leg in legs:
+            if not isinstance(leg, (CachedRangeExec, InstantWindowExec)):
+                q = QueryContext(sample_limit=2**40)
+                bypass += leg.execute(ExecContext(self.ms, q)).stats \
+                    .samples_scanned
+        if res.stats.samples_scanned != \
+                res.stats.resultcache_recomputed_samples + bypass:
+            raise AssertionError(
+                f"samples scanned {res.stats.samples_scanned}, recomputed "
+                f"{res.stats.resultcache_recomputed_samples}, passed "
+                f"through {bypass}")
+        ledgers = {ds: c.reconcile() for ds, c in self.caches.items()}
+        if any(a != w for a, w in ledgers.values()):
+            raise AssertionError(f"byte ledgers {ledgers}")
+        out = {"whole_segments_stored": stored, "whole_segments_hit": hits,
+               "uncached_repeat": self.uncached_repeat(),
+               "samples_scanned": res.stats.samples_scanned,
+               "recomputed_samples":
+                   res.stats.resultcache_recomputed_samples,
+               "passed_through_samples": bypass,
+               "reconcile": {ds: list(v) for ds, v in ledgers.items()},
+               "snapshots": {ds: {k: v for k, v in c.snapshot().items()
+                                  if k not in ("segments",)}
+                             for ds, c in self.caches.items()}}
+        log(f"RC last refresh: {hits} closed whole segments hit (stored "
+            f"a cache: {stored}), none recomputed; samples scanned "
+            f"{out['samples_scanned']} == recomputed "
+            f"{out['recomputed_samples']} + passed through {bypass}; byte "
+            f"ledgers reconcile {out['reconcile']}; the uncached router run "
+            f"again against its own answer: {out['uncached_repeat']}")
+        return out
+
+    def uncached_repeat(self) -> dict:
+        """The uncached router's RC1 and RC2 at the last refresh's moment,
+        each run twice and held to itself: whether the card's uncached
+        path is bit-reproducible at all."""
+        import torch
+
+        t = self.refreshes[-1]["rc2"]["t"]
+        out = {}
+        uncached = rollup_router(self.ms, self.engine)
+        for name, run in (("rc1", lambda: run_routed(self.ms, uncached,
+                                                     "auto")[:2]),
+                          ("rc2", lambda: self._instant(uncached, t)[:2])):
+            a, b = run(), run()
+            torch.cuda.synchronize()
+            gate = values_gate(f"{name} uncached twice",
+                               engine_rows(*b), engine_rows(*a))
+            out[name] = {k: gate[k] for k in ("bit_equal", "cells_differing",
+                                              "max_rel_diff")}
+        return out
+
+
 def rollup_queries() -> list:
     """(name, resolution pin, router knobs) of R1-R3."""
     _start, stop = rollup_span()
@@ -5770,6 +6059,30 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
     engine = RollupEngine(node="chip-smoke")
     engine.watch("prom", ms, DEFAULT_SCHEMAS, cfg, publish_for,
                  column_store=ms.store, meta_store=ms.meta)
+    dash = CacheDashboard(ms, engine, shard.config.flush_interval_ms)
+    # the tiers the dashboard's step can route to flush each hour; the
+    # 1 min tier (about 92% of the records) stays in its write buffers
+    tier_shards = [ms.get_shard(ds_dataset_name("prom", r), 0)
+                   for r in cfg.resolutions_ms if r >= ROLLUP_STEP]
+
+    def rate_grid_launches() -> tuple:
+        """(the wrapper's count, the kernel ledger's) of B1."""
+        rows = {r["program"]: r["launches"]
+                for r in devicewatch.KERNEL_TIMER.table()}
+        return grid.rate_grid.launches, rows.get("grid.rate_grid", 0)
+
+    rc_launches = [0, 0]
+
+    def rc_refresh(label: str, rows_fed: int) -> None:
+        t_last = max(int(series[p][0][:, rows_fed - 1].max())
+                     for p in range(REQ_PODS))
+        w0, l0 = rate_grid_launches()
+        with Phase(f"rollup.rc.{label}"):
+            dash.refresh(label, t_last)
+        w1, l1 = rate_grid_launches()
+        rc_launches[0] += w1 - w0
+        rc_launches[1] += l1 - l0
+
     kernel_rows = {r["program"]: r for r in devicewatch.KERNEL_TIMER.table()}
     red0 = kernel_rows.get("griddown.period_reduce", {})
     hourly = []
@@ -5784,8 +6097,10 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
                (rollup_engine.RollupEngine, "_persist", "persist")]
     # every period reduce timed by the kernel ledger (one a tick)
     devicewatch.KERNEL_TIMER.configure(sample_1_in=1)
-    with Phase("rollup.feed"), StageClock(targets) as clock:
-        for h, nrows in enumerate(DURABLE_HOURS[:ROLLUP_HOURS]):
+    clock = StageClock(targets)
+    fed = 0
+    for h, nrows in enumerate(DURABLE_HOURS[:ROLLUP_HOURS]):
+        with Phase(f"rollup.feed.{h}"), clock:
             t0 = time.perf_counter()
             samples = 0
             for pod in range(REQ_PODS):
@@ -5799,6 +6114,12 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
                          engine._datasets["prom"].shards.values())
             engine.run_once("prom")
             t3 = time.perf_counter()
+            # the tier datasets flush on their own schedule, as any
+            # dataset does (the result cache memoizes encoded chunks)
+            # right after the tick here
+            for tsh in tier_shards:
+                tsh.flush_all(ingestion_time=1000 + h)
+            t4 = time.perf_counter()
             d = engine._datasets["prom"]
             states = [st for sr in d.shards.values()
                       for st in sr.series.values()]
@@ -5810,6 +6131,7 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
             row = {"hour": h, "rows": nrows, "samples": samples,
                    "ingest_s": t1 - t0, "flush_s": t2 - t1,
                    "flush_batches": queued, "tick_s": t3 - t2,
+                   "tier_flush_s": t4 - t3,
                    "series_states": len(states), "buffered_samples": buffered,
                    "state_bytes": state_bytes,
                    "written": dict(d.samples_written)}
@@ -5817,9 +6139,25 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
             log(f"rollup hour {h}: {samples} samples ingested in "
                 f"{row['ingest_s']:.3f} s, flushed in {row['flush_s']:.3f} s "
                 f"({queued} flush batches queued), run_once "
-                f"{row['tick_s']:.3f} s; {len(states)} series states holding "
-                f"{buffered} samples ({state_bytes / 2**20:.1f} MiB); "
+                f"{row['tick_s']:.3f} s, tiers flushed in "
+                f"{row['tier_flush_s']:.3f} s; {len(states)} series states "
+                f"holding {buffered} samples ({state_bytes / 2**20:.1f} MiB); "
                 f"records emitted so far {row['written']}")
+        fed += nrows
+        rc_refresh(f"hour{h}", fed)
+    # the last refresh: no new data since the one before
+    rc_refresh("last", fed)
+    with Phase("rollup.rc.check"):
+        last = dash.check_last()
+        if rc_launches[0] < 1 or rc_launches[0] != rc_launches[1]:
+            raise AssertionError(f"the refreshes' B1 launches: the wrapper's "
+                                 f"{rc_launches[0]}, the kernel ledger's "
+                                 f"{rc_launches[1]}")
+        out["result_cache"] = {"refreshes": dash.refreshes, "last": last,
+                               "launches": {"rate_grid": rc_launches[0],
+                                            "ledger": rc_launches[1]}}
+        log(f"RC refreshes: B1 launched {rc_launches[0]} times, the kernel "
+            f"ledger's count {rc_launches[1]}")
     devicewatch.KERNEL_TIMER.configure(sample_1_in=64)
     stages = {k: round(v, 3) for k, v in clock.seconds.items()}
     stages.update({f"publish.{r}": round(v, 3) for r, v in publish_s.items()})
@@ -5982,6 +6320,8 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
         log(f"rollup path launches {launched} (rate_grid on its direct kernel "
             f"{direct}); the card's runs' {card}, equal to the kernel "
             f"ledger's {ledger}")
+        # the path's launches: the R queries' and the refreshes'
+        launched["rate_grid"] += rc_launches[0]
     if before_timing is not None:
         before_timing()
     with Phase("rollup.kernels_at_path_shapes"):

@@ -98,6 +98,15 @@ class SingleClusterPlanner(QueryPlanner):
         return self.mapper.active_shards() or list(
             range(self.mapper.num_shards))
 
+    def plan_is_local(self, plan: lp.LogicalPlan,
+                      qctx: QueryContext) -> bool:
+        """True when every shard this plan would touch dispatches
+        in-process — the result cache (query/resultcache.py) only
+        memoizes plans whose chunk state it can probe locally.  Every
+        leaf this planner builds dispatches in process (remote dispatch
+        comes with the serving shell), so every plan is local."""
+        return True
+
     # -- materialization ----------------------------------------------------
 
     def materialize(self, plan, qctx=None) -> ExecPlan:

@@ -1,10 +1,12 @@
 """Time-range planning: split a query where its data changes home.
 
 Capability match for the reference's planner pieces the rollup router
-stands on (reference: coordinator/.../queryplanner/):
+and the result cache stand on (reference: coordinator/.../queryplanner/):
 - LogicalPlanUtils.scala:238 copyWithUpdatedTimeRange;
 - LongTimeRangePlanner.scala: route to the raw planner, the downsample
-  planner, or both stitched, at the earliest time raw serves.
+  planner, or both stitched, at the earliest time raw serves;
+- LogicalPlanParser.scala convertToQuery: a plan rendered back to
+  PromQL, the canonical text the result cache's fingerprint rests on.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from filodb_tpu_torch.coordinator.planner import QueryPlanner
+from filodb_tpu_torch.core.filters import Equals, EqualsRegex
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.exec import ExecPlan, StitchRvsExec
 from filodb_tpu_torch.query.model import QueryContext
@@ -109,3 +112,124 @@ class LongTimeRangePlanner(QueryPlanner):
         raw_plan = self.raw.materialize(
             copy_with_time_range(plan, first_raw_step, end), qctx)
         return StitchRvsExec([ds_plan, raw_plan], qctx)
+
+
+# ---------------------------------------------------------------------------
+# LogicalPlanParser: plan -> PromQL string (reference:
+# LogicalPlanParser.scala round-trip)
+# ---------------------------------------------------------------------------
+
+_FN_NAME = {
+    "RATE": "rate", "INCREASE": "increase", "DELTA": "delta",
+    "IRATE": "irate", "IDELTA": "idelta", "DERIV": "deriv",
+    "RESETS": "resets", "SUM_OVER_TIME": "sum_over_time",
+    "AVG_OVER_TIME": "avg_over_time", "MIN_OVER_TIME": "min_over_time",
+    "MAX_OVER_TIME": "max_over_time", "COUNT_OVER_TIME": "count_over_time",
+    "STDDEV_OVER_TIME": "stddev_over_time",
+    "STDVAR_OVER_TIME": "stdvar_over_time", "CHANGES": "changes",
+    "QUANTILE_OVER_TIME": "quantile_over_time",
+    "LAST_OVER_TIME": "last_over_time", "HOLT_WINTERS": "holt_winters",
+    "PREDICT_LINEAR": "predict_linear", "ZSCORE": "z_score",
+    "TIMESTAMP": "timestamp",
+}
+
+
+def _filters_to_promql(filters, metric_column: str = "_metric_") -> str:
+    metric = ""
+    matchers = []
+    for f in filters:
+        if f.column == metric_column and isinstance(f.filter, Equals):
+            metric = f.filter.value
+            continue
+        flt = f.filter
+        if isinstance(flt, Equals):
+            matchers.append(f'{f.column}="{flt.value}"')
+        elif isinstance(flt, EqualsRegex):
+            matchers.append(f'{f.column}=~"{flt.pattern}"')
+        elif type(flt).__name__ == "NotEquals":
+            matchers.append(f'{f.column}!="{flt.value}"')
+        elif type(flt).__name__ == "NotEqualsRegex":
+            matchers.append(f'{f.column}!~"{flt.pattern}"')
+    body = ("{" + ",".join(matchers) + "}") if matchers else ""
+    return f"{metric}{body}"
+
+
+def _dur(ms: int) -> str:
+    if ms % 60_000 == 0 and ms:
+        return f"{ms // 60_000}m"
+    if ms % 1000 == 0:
+        return f"{ms // 1000}s"
+    return f"{ms}ms"  # never silently truncate sub-second durations
+
+
+def logical_plan_to_promql(plan: lp.LogicalPlan) -> str:
+    """Render a LogicalPlan back to PromQL (reference: LogicalPlanParser
+    convertToQuery)."""
+    if isinstance(plan, lp.PeriodicSeries):
+        s = _filters_to_promql(plan.raw_series.filters)
+        if plan.offset_ms:
+            s += f" offset {_dur(plan.offset_ms)}"
+        return s
+    if isinstance(plan, lp.PeriodicSeriesWithWindowing):
+        fn = _FN_NAME.get(plan.function.name, plan.function.name.lower())
+        inner = _filters_to_promql(plan.series.filters)
+        window = f"[{_dur(plan.window_ms)}]"
+        offset = f" offset {_dur(plan.offset_ms)}" if plan.offset_ms else ""
+        args = "".join(f"{a}, " for a in plan.function_args)
+        return f"{fn}({args}{inner}{window}{offset})"
+    if isinstance(plan, lp.Aggregate):
+        op = plan.operator.name.lower()
+        inner = logical_plan_to_promql(plan.vectors)
+        params = ", ".join(str(p) for p in plan.params)
+        arg = f"{params}, {inner}" if params else inner
+        suffix = ""
+        if plan.by:
+            suffix = f" by ({', '.join(plan.by)})"
+        elif plan.without:
+            suffix = f" without ({', '.join(plan.without)})"
+        return f"{op}({arg}){suffix}"
+    if isinstance(plan, lp.BinaryJoin):
+        lhs = logical_plan_to_promql(plan.lhs)
+        rhs = logical_plan_to_promql(plan.rhs)
+        op = _binop_text(plan.operator)
+        mods = ""
+        if plan.on:
+            mods = f" on ({', '.join(plan.on)})"
+        elif plan.ignoring:
+            mods = f" ignoring ({', '.join(plan.ignoring)})"
+        b = " bool" if plan.bool_mode else ""
+        return f"({lhs} {op}{b}{mods} {rhs})"
+    if isinstance(plan, lp.ScalarVectorBinaryOperation):
+        vec = logical_plan_to_promql(plan.vector)
+        sc = logical_plan_to_promql(plan.scalar_arg)
+        op = _binop_text(plan.operator)
+        return f"({sc} {op} {vec})" if plan.scalar_is_lhs \
+            else f"({vec} {op} {sc})"
+    if isinstance(plan, lp.ApplyInstantFunction):
+        fn = plan.function.name.lower()
+        inner = logical_plan_to_promql(plan.vectors)
+        args = "".join(f", {a}" for a in plan.function_args)
+        return f"{fn}({inner}{args})"
+    if isinstance(plan, lp.ApplyMiscellaneousFunction):
+        fn = plan.function.name.lower()
+        inner = logical_plan_to_promql(plan.vectors)
+        args = "".join(f', "{a}"' for a in plan.string_args)
+        return f"{fn}({inner}{args})"
+    if isinstance(plan, lp.ApplySortFunction):
+        return (f"{plan.function.name.lower()}"
+                f"({logical_plan_to_promql(plan.vectors)})")
+    if isinstance(plan, lp.ApplyAbsentFunction):
+        return f"absent({logical_plan_to_promql(plan.vectors)})"
+    if isinstance(plan, lp.ScalarFixedDoublePlan):
+        return repr(plan.scalar)
+    if isinstance(plan, lp.ScalarTimeBasedPlan):
+        return f"{plan.function.name.lower()}()"
+    if isinstance(plan, lp.ScalarVaryingDoublePlan):
+        return f"scalar({logical_plan_to_promql(plan.vectors)})"
+    if isinstance(plan, lp.VectorPlan):
+        return f"vector({logical_plan_to_promql(plan.scalars)})"
+    raise ValueError(f"cannot render {type(plan).__name__} to PromQL")
+
+
+def _binop_text(op) -> str:
+    return op.value  # BinaryOperator values ARE the PromQL operator text

@@ -299,6 +299,23 @@ class TimeSeriesPartition:
                 return int(self._buf_ts[0])
             return -1
 
+    def mutable_floor(self) -> Optional[int]:
+        """Earliest MUTABLE (write-buffer / pending-encode) row
+        timestamp, or None when everything is encoded — the result
+        cache's closed-segment probe (query/resultcache.py): a result
+        computed over an interval the mutable region reaches could
+        still change without the encoded chunk set changing (encoded
+        chunks themselves are immutable, so the shard's chunk-span
+        table IS the digest of everything else)."""
+        with self._lock:
+            mt: Optional[int] = None
+            if self._pending:
+                mt = int(self._pending[0].ts[0])
+            if self._buf_n:
+                bt = int(self._buf_ts[0])
+                mt = bt if mt is None or bt < mt else mt
+            return mt
+
     def freeze_raw(self) -> bool:
         """Detach the current write buffer as a PendingBuffer in O(1) —
         the ingest-thread half of a pipelined flush (reference:

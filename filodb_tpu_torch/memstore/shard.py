@@ -199,6 +199,12 @@ class TimeSeriesShard:
         # bumped whenever new rows or chunks could change query results
         # (the grid caches' tail version)
         self.ingest_epoch = 0
+        # counts chunk FREEZES only (a strict subset of ingest_epoch
+        # bumps): the encoded chunk set changes exactly on a freeze or a
+        # removal, which is what the result cache's span table keys on
+        self.freeze_epoch = 0
+        self._span_table: Optional[tuple] = None     # (key, arrays)
+        self._mutable_floor: Optional[tuple] = None  # (ingest_epoch, ts)
 
     def enable_downsampling(self, publisher, resolutions_ms) -> None:
         """Downsample every flushed chunkset at ``resolutions_ms`` into
@@ -716,6 +722,61 @@ class TimeSeriesShard:
         self._lookup_cache[key] = result
         return result
 
+    def chunk_span_table(self):
+        """Flat ``(pid, chunk_id, start_time, end_time)`` int64 arrays
+        over every in-memory partition's encoded chunks — the result
+        cache's immutability digest source (query/resultcache.py).
+        Cached per (freeze_epoch, removal_epoch, index version,
+        partition count): the encoded chunk set changes exactly on
+        freeze/removal, so live per-row ingest never rebuilds it.  The
+        key is taken BEFORE the walk: a freeze landing mid-walk bumps
+        the epoch, so the next call rebuilds instead of trusting a
+        table that may have missed the chunk."""
+        key = (self.freeze_epoch, self.removal_epoch, self.index.version,
+               len(self.partitions))
+        tbl = self._span_table
+        if tbl is not None and tbl[0] == key:
+            return tbl[1]
+        pid_l: list = []
+        cid_l: list = []
+        cs_l: list = []
+        ce_l: list = []
+        for pid, part in list(self.partitions.items()):
+            with part._lock:
+                for cs in part.chunks:
+                    pid_l.append(pid)
+                    cid_l.append(cs.info.chunk_id)
+                    cs_l.append(cs.info.start_time)
+                    ce_l.append(cs.info.end_time)
+        arrs = (np.asarray(pid_l, np.int64), np.asarray(cid_l, np.int64),
+                np.asarray(cs_l, np.int64), np.asarray(ce_l, np.int64))
+        self._span_table = (key, arrs)
+        return arrs
+
+    def mutable_floor(self) -> Optional[int]:
+        """Earliest mutable (write-buffer / pending-encode) row
+        timestamp across ALL partitions, or None when everything is
+        encoded — the result cache's closed-segment probe, cached per
+        ingest epoch so a burst of queries between ingest batches pays
+        one partition walk.  Deliberately filter-independent: an
+        unmatched partition's buffer marking a segment open only costs
+        a cache miss, never staleness."""
+        # capture the epoch BEFORE the walk (chunk_span_table does the
+        # same): a row ingested mid-walk bumps the epoch and must force
+        # a recompute — caching the walk under the post-bump epoch
+        # would hide that row until the NEXT ingest
+        epoch = self.ingest_epoch
+        mf = self._mutable_floor
+        if mf is not None and mf[0] == epoch:
+            return mf[1]
+        lo: Optional[int] = None
+        for part in list(self.partitions.values()):
+            mt = part.mutable_floor()
+            if mt is not None and (lo is None or mt < lo):
+                lo = mt
+        self._mutable_floor = (epoch, lo)
+        return lo
+
     def _partition_for_scan(self, part_id: int
                             ) -> Optional[TimeSeriesPartition]:
         """Resolve a part id for ``scan_batch``; the paging shard also
@@ -731,6 +792,7 @@ class TimeSeriesShard:
 
     def _on_chunk_freeze(self, cs) -> None:
         self.ingest_epoch += 1
+        self.freeze_epoch += 1
         for (shash, _cid), cache in self.device_caches.items():
             if shash == cs.schema_hash or cs.schema_hash == 0:
                 cache.note_freeze(cs)

@@ -239,7 +239,8 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 def _extrapolate(nf, t1, t2, v1, v2, steps0: int, q: GridQuery):
     """Prometheus extrapolatedRate on [T, L] tiles (reference:
-    RateFunctions.scala:37-80)."""
+    RateFunctions.scala:37-80): the window geometry from the first and
+    last finite samples' timestamps, then :func:`_extrapolate_geometry`."""
     dt = v1.dtype
     window = q.kbuckets * q.gstep_ms
     # divisors are tensors: torch divides by a Python scalar on CUDA as a
@@ -251,9 +252,18 @@ def _extrapolate(nf, t1, t2, v1, v2, steps0: int, q: GridQuery):
     lo = hi - _scalar(window, v1)
     t1f = t1.to(dt)
     t2f = t2.to(dt)
-    dur_start = (t1f - lo) / ms_per_s
-    dur_end = (hi - t2f) / ms_per_s
-    sampled = (t2f - t1f) / ms_per_s
+    return _extrapolate_geometry(nf, (t1f - lo) / ms_per_s,
+                                 (hi - t2f) / ms_per_s,
+                                 (t2f - t1f) / ms_per_s, v1, v2, q)
+
+
+def _extrapolate_geometry(nf, dur_start, dur_end, sampled, v1, v2,
+                          q: GridQuery):
+    """The extrapolation from a window's geometry in seconds: the gaps
+    from the window's start to its first sample and from its last
+    sample to its end, and the sampled interval between them."""
+    window = q.kbuckets * q.gstep_ms
+    ms_per_s = _scalar(1000.0, v1)
     avg_dur = sampled / torch.clamp(nf - 1.0, min=1.0)
     delta = v2 - v1
     one = torch.ones_like(delta)
@@ -275,30 +285,32 @@ def _extrapolate(nf, t1, t2, v1, v2, steps0: int, q: GridQuery):
 def _phase_block(phase_row, vals, q: GridQuery):
     """rate/increase/delta under dense + uniform phase: every live lane
     is scraped at a constant offset ``phase in (0, gstep]`` within its
-    bucket, so the extrapolation geometry is a per-lane constant and the
-    Prometheus formula collapses to a divide-free form.  Liveness is
-    row 0's."""
+    bucket, so every window's geometry is a per-lane constant: the first
+    sample lies ``phase`` after the window's start, the last ``gstep -
+    phase`` before its end, ``(K-1)*gstep`` apart, and the window holds
+    K samples.  The kernel collapses the formula to a divide-free form.
+    For rate and increase the plain version computes the ts path's own
+    formula (:func:`_extrapolate_geometry`) on that geometry, so a
+    window answers the same bits on the CPU whichever plan mode serves
+    it (the geometry is exact: whole milliseconds, divided once); delta,
+    which reads no correction prefix, keeps the kernel's form
+    ``delta * K/(K-1)``, bit for bit the kernel's.  Liveness is row
+    0's."""
     dt = vals.dtype
     K, g = q.kbuckets, q.gstep_ms
     live_row = torch.isfinite(vals[0:1])
-    src = vals if q.op == "delta" else _correct(vals, dense=True)
-    v1 = _win(src, 0, q)
-    delta = _win(src, K - 1, q) - v1
     if q.op == "delta":
-        out = delta * _scalar(K / (K - 1), vals)
+        v1 = _win(vals, 0, q)
+        out = (_win(vals, K - 1, q) - v1) * _scalar(K / (K - 1), vals)
     else:
-        sampled = _scalar((K - 1) * g * 1e-3, vals)
-        phase_s = phase_row.to(dt) * _scalar(1e-3, vals)
-        g_s = _scalar(g * 1e-3, vals)
-        is_rate = q.op == "rate" and q.is_rate
-        scale = (_scalar(1e3 / (K * g), vals) if is_rate
-                 else _scalar(1.0, vals)) / sampled
-        end_sc = (sampled + g_s - phase_s) * scale
-        sv1 = sampled * v1
-        pd = phase_s * delta
-        clamp = (sv1 < pd) & (v1 >= 0)
-        start_num = torch.where(clamp, sv1, pd)
-        out = delta * end_sc + start_num * scale
+        src = _correct(vals, dense=True)
+        ms_per_s = _scalar(1000.0, vals)
+        ph = phase_row.to(dt)
+        nf = torch.full_like(ph, float(K))
+        out = _extrapolate_geometry(nf, ph / ms_per_s,
+                                    (_scalar(g, vals) - ph) / ms_per_s,
+                                    _scalar((K - 1) * g, vals) / ms_per_s,
+                                    _win(src, 0, q), _win(src, K - 1, q), q)
     return torch.where(live_row, out, torch.full_like(out, float("nan")))
 
 

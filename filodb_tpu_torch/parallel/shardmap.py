@@ -4,9 +4,9 @@ The part of the reference's ShardMapper the query planner reads
 (reference: coordinator/src/main/scala/filodb.coordinator/ShardMapper.scala:
 26-46 — shard = f(shardKeyHash upper bits, partitionHash lower bits,
 spread); queryShards returns the 2^spread shards holding one shard key)
-plus the per-shard status the planner prunes on (ShardStatus.scala:54-94).
-Replicas, resharding topologies and node assignment stay with the serving
-shell.
+plus the per-shard status the planner prunes on (ShardStatus.scala:54-94)
+and the routing token the result cache keys validity on.  Replicas,
+resharding topologies and node assignment stay with the serving shell.
 """
 
 from __future__ import annotations
@@ -64,3 +64,13 @@ class ShardMapper:
         rng = range(self.num_shards) if shards is None else shards
         return [s for s in rng
                 if 0 <= s < self.num_shards and self._status[s].queryable]
+
+    def routing_token(self) -> int:
+        """Cheap hash of the routing state: the shard count and every
+        shard's status.  Any status transition (a shard going to
+        recovery, down, back to active) changes it, so consumers that
+        memoize answers computed under one routing view
+        (query/resultcache.py) can key validity on it without
+        subscribing to shard events."""
+        return hash((self.num_shards,
+                     tuple(s.value for s in self._status)))

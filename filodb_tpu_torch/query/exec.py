@@ -133,6 +133,55 @@ class ExecContext:
         selection vs pixel-exact points kept."""
         self._add(ds_in=points_in, ds_out=points_out)
 
+    def note_resultcache(self, cached: int = 0, recomputed: int = 0) -> None:
+        """Result-cache accounting (query/resultcache.py): result
+        samples served from memoized partials vs samples re-scanned on
+        the fresh/miss path."""
+        self._add(rc_cached=cached, rc_recomputed=recomputed)
+
+    def note_cold(self, chunks: int = 0, bytes_: int = 0) -> None:
+        """Cold-tier accounting: chunks/bytes this query pulled from the
+        object bucket."""
+        self._add(cold_chunks=chunks, cold_bytes=bytes_)
+
+    def counter(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def absorb_stats_from(self, other: "ExecContext") -> None:
+        """Fold a nested sub-context's accumulated accounting into this
+        one (the result cache runs fresh segments / delta fetches with
+        their own ctx so per-segment volumes are exact)."""
+        st = QueryStats()
+        other.fold_into(st)
+        st.corrupt_chunks_excluded = other.corrupt_excluded()
+        self.absorb_stats(st)
+
+    def absorb_stats(self, stats: QueryStats) -> None:
+        """Fold a child's returned stats into this query's accounting
+        (children that share this ctx need no absorb)."""
+        self.note_counts(samples=stats.samples_scanned,
+                         chunks=stats.chunks_scanned,
+                         bytes_=stats.bytes_scanned, pages=stats.pages_in,
+                         hbm_dense=stats.hbm_read_bytes.get("dense", 0),
+                         hbm_compressed=stats.hbm_read_bytes.get(
+                             "compressed", 0),
+                         hbm_hist=stats.hbm_read_bytes.get(
+                             "compressed-hist", 0),
+                         hbm_delta=stats.hbm_resident_delta_bytes)
+        self.note_resultcache(cached=stats.resultcache_cached_samples,
+                              recomputed=stats.resultcache_recomputed_samples)
+        self.note_cold(chunks=stats.cold_chunks_paged,
+                       bytes_=stats.cold_bytes_read)
+        self.note_downsample(points_in=stats.downsample_points_in,
+                             points_out=stats.downsample_points_out)
+        if stats.corrupt_chunks_excluded:
+            self.note_corrupt_excluded(stats.corrupt_chunks_excluded)
+        for k, v in stats.timings.items():
+            self.note_timing(k, v)
+        for k, v in stats.device_programs.items():
+            self.note_device_program(k, v)
+
     def fold_into(self, stats: QueryStats) -> None:
         """Write the accumulated totals into an outgoing QueryResult's
         stats (overwrite: the ctx holds running totals)."""
@@ -152,6 +201,10 @@ class ExecContext:
                 if c.get(ck)}
             stats.device_programs = dict(self._device_programs)
             stats.hbm_resident_delta_bytes = c.get("hbm_delta", 0)
+            stats.resultcache_cached_samples = c.get("rc_cached", 0)
+            stats.resultcache_recomputed_samples = c.get("rc_recomputed", 0)
+            stats.cold_chunks_paged = c.get("cold_chunks", 0)
+            stats.cold_bytes_read = c.get("cold_bytes", 0)
 
 
 class PlanDispatcher:

@@ -133,6 +133,16 @@ class QueryStats:
     # storage tiers that served (part of) this query, "+"-joined in time
     # order ("rolled-cold+rolled-local+raw"); "" = not routed
     tiers: str = ""
+    # query-frontend result cache (query/resultcache.py): result
+    # samples served from memoized immutable-chunk partials vs samples
+    # re-scanned fresh this evaluation
+    resultcache_cached_samples: int = 0
+    resultcache_recomputed_samples: int = 0
+    # cold tier: chunks/bytes this query pulled from the object bucket
+    # (0 on a bucket-miss-free query), so a slow cold panel is tellable
+    # from a warm one
+    cold_chunks_paged: int = 0
+    cold_bytes_read: int = 0
 
     def merge(self, other: "QueryStats") -> None:
         self.samples_scanned += other.samples_scanned
@@ -150,6 +160,11 @@ class QueryStats:
         for k, v in other.device_programs.items():
             self.device_programs[k] = self.device_programs.get(k, 0.0) + v
         self.hbm_resident_delta_bytes += other.hbm_resident_delta_bytes
+        self.resultcache_cached_samples += other.resultcache_cached_samples
+        self.resultcache_recomputed_samples += \
+            other.resultcache_recomputed_samples
+        self.cold_chunks_paged += other.cold_chunks_paged
+        self.cold_bytes_read += other.cold_bytes_read
         if other.tiers and other.tiers != self.tiers:
             mine = self.tiers.split("+") if self.tiers else []
             mine += [t for t in other.tiers.split("+") if t not in mine]

@@ -64,6 +64,14 @@ _HIST = {
 }
 
 
+def supported(func: Optional[F], hist: bool) -> bool:
+    """Whether :func:`apply_range_function` serves ``func`` over a
+    scalar (``hist=False``) or a histogram batch."""
+    if hist:
+        return func in _HIST
+    return func is None or func in _PREFIX or func in _GATHER
+
+
 def apply_range_function(batch: ChunkBatch, steps: StepRange,
                          window_ms: int, func: Optional[F],
                          args: tuple = (), device="cuda") -> torch.Tensor:

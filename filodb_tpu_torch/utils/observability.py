@@ -7,8 +7,9 @@ reporters; Kamon.spanBuilder in ExecPlan.execute ExecPlan.scala:99-126).
 This package keeps the part its query, flush and integrity paths call:
 counters, gauges and histograms in a process-wide registry
 (``downsample_metrics``, ``integrity_metrics``, ``query_metrics``,
-``flush_metrics``) and a thread-local span stack with pluggable
-reporters (:data:`TRACER`).  Everything is stdlib.
+``flush_metrics``, ``resultcache_metrics`` and the families below) and
+a thread-local span stack with pluggable reporters (:data:`TRACER`).
+Everything is stdlib.
 """
 
 from __future__ import annotations
@@ -410,6 +411,47 @@ def rollup_metrics() -> dict:
             "stitch legs materialized per storage tier "
             "(raw | rolled-local | rolled-cold), per dataset — a "
             "stitched query counts once per tier it actually read"),
+    }
+
+
+def resultcache_metrics() -> dict:
+    """Query-frontend result-cache metrics (query/resultcache.py):
+    hit/miss traffic, resident bytes, LRU evictions, and epoch/digest
+    invalidations — one place defines the names so the cache and its
+    readers can never drift."""
+    return {
+        "hits": REGISTRY.counter(
+            "filodb_resultcache_hits_total",
+            "queries (or query segments) served from memoized partials, "
+            "per dataset and kind (range segment | instant window)"),
+        "misses": REGISTRY.counter(
+            "filodb_resultcache_misses_total",
+            "cacheable segments/windows that had to be computed fresh, "
+            "per dataset and kind"),
+        "skipped": REGISTRY.counter(
+            "filodb_resultcache_skipped_total",
+            "queries that bypassed the cache, per dataset and reason "
+            "(shape|remote|range|open|instant-*)"),
+        "bytes": REGISTRY.gauge(
+            "filodb_resultcache_bytes",
+            "resident bytes of memoized partials + instant window "
+            "state, per dataset (reconciles exactly with a walk of the "
+            "live entries)"),
+        "evictions": REGISTRY.counter(
+            "filodb_resultcache_evictions_total",
+            "entries dropped to stay under the byte budget, per "
+            "dataset and reason"),
+        "invalidations": REGISTRY.counter(
+            "filodb_resultcache_invalidations_total",
+            "entries discarded / window states reset because their "
+            "validity inputs changed, per dataset and reason "
+            "(chunks|quarantine|routing|series|regressed)"),
+        "bypass": REGISTRY.counter(
+            "filodb_result_cache_bypass_total",
+            "range/instant queries that bypassed the result cache "
+            "entirely, per dataset and reason (remote = plan spans "
+            "non-local shards; disabled = cache switched off; "
+            "unfingerprintable = shape has no canonical fingerprint)"),
     }
 
 

@@ -318,14 +318,17 @@ B1_WIDTHS = (100, 130)
 B1_ROWS = 64
 
 
-def launch_b1(ts, vals, q, phase, plan):
+def launch_b1(ts, vals, q, phase, plan, steps0=None):
     """One call of rate_grid's launcher at ``plan``: on the staged B1
-    kernel, or the direct one where the plan stages nothing."""
+    kernel, or the direct one where the plan stages nothing; the first
+    window ends at ``steps0`` (K steps past row 0 by default)."""
     fn, real = grid.rate_grid, grid.series_staged_plan
     grid.series_staged_plan = lambda *a, **k: plan
     d0 = fn.direct
+    if steps0 is None:
+        steps0 = q.kbuckets * cs.STEP
     try:
-        out = grid._series_launch(ts, vals, q.kbuckets * cs.STEP, q, phase)
+        out = grid._series_launch(ts, vals, steps0, q, phase)
     finally:
         grid.series_staged_plan = real
     assert fn.direct - d0 == int(not plan.staged), "not the plan's kernel"
@@ -433,11 +436,73 @@ def main_b1_batch() -> int:
     return 0
 
 
+def _differing(a, b) -> int:
+    """Cells whose bits differ (NaN cells equal)."""
+    nan = torch.isnan(a) & torch.isnan(b)
+    return int((~((a.view(torch.int32) == b.view(torch.int32)) | nan)).sum())
+
+
+def main_b1_split() -> int:
+    """What a result cache's segment split does to B1's bits on the card:
+    the staged rate_grid (its plan at each width) over dense
+    uniform-phase counter planes (a lane resetting at row 1) at rate and
+    increase, stride 1, K 5, launched
+    (a) over all B1_ROWS rows in phase mode, the unsplit query;
+    (b) over the rows from R0 on, the later steps alone, in phase mode,
+    a segment's run: each step it shares with (a) must have (a)'s bits;
+    (c) over all rows in ts mode, the mode a launch over a tail block
+    takes: its cells against (a)'s.
+    Prints the differing cells of (b) and (c); exits 1 when (b) differs
+    (a split would change the bits a step answers)."""
+    emulate(build.build(os.path.join(build.REPO, "filodb_tpu_torch",
+                                     "_build", "emu")))
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(17)
+    r0 = 16
+    split_cells = mode_cells = total = 0
+    for width in B1_WIDTHS:
+        ts, vals, ph = (a[..., :width].copy()
+                        for a in cs.b1_planes(rng, B1_ROWS, width + 512,
+                                              False))
+        vals[0, 12] = vals[1, 12]      # dense: the phase proof's lanes
+        ts, vals, ph = (torch.as_tensor(a) for a in (ts, vals, ph))
+        for op in ("rate", "increase"):
+            full = cs.sweep_query(op, True, 1, B1_ROWS - cs.K + 1)
+            sub = cs.sweep_query(op, True, 1, B1_ROWS - r0 - cs.K + 1)
+            steps0 = cs.K * cs.STEP
+
+            def run(q, rows, mode_phase, st0):
+                plan = grid.series_staged_plan(
+                    width, q.nsteps, q.kbuckets, q.stride,
+                    grid._mode_for(q, mode_phase), q.op)
+                return launch_b1(ts[rows], vals[rows], q, mode_phase,
+                                 plan, st0)
+            a = run(full, slice(0, None), ph, steps0)
+            b = run(sub, slice(r0, None), ph, steps0 + r0 * cs.STEP)
+            c = run(full, slice(0, None), None, steps0)
+            d_split = _differing(b, a[r0:])
+            d_mode = _differing(c, a)
+            cs.compare(c, a, op, cs.RTOL_KERNEL)
+            split_cells += d_split
+            mode_cells += d_mode
+            total += a.numel()
+            print(f"S={width} {op}: a segment's later run differs from the "
+                  f"unsplit launch in {d_split} of {b.numel()} cells; ts "
+                  f"mode from phase mode in {d_mode} of {a.numel()}",
+                  flush=True)
+    print(f"B1 split: {split_cells} cells differ; B1 ts mode against phase "
+          f"mode: {mode_cells} of {total} cells differ (within rtol "
+          f"{cs.RTOL_KERNEL})")
+    return 1 if split_cells else 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["b1_batch"]:
         sys.exit(main_b1_batch())
     if sys.argv[1:] == ["b1"]:
         sys.exit(main_b1())
+    if sys.argv[1:] == ["b1_split"]:
+        sys.exit(main_b1_split())
     if sys.argv[1:] == ["b4"]:
         sys.exit(main_b4())
     if sys.argv[1:] == ["b2"]:
