@@ -224,13 +224,18 @@ Phases, each timed on a line of its own:
    req_total[1h]))`` over the R queries' range under ``auto``, and RC2,
    ``sum by (pod)(rate(req_total[5m]))`` at the hour's last sample
    through an instant window), each answer held to the uncached
-   router's at the same moment (bit for bit, or the cells that differ
-   shown and within rtol 2e-5), the last refresh hitting every closed
+   router's at the same moment (RC1 bit for bit; RC2, whose window
+   state sums on the general path where the uncached answer takes B1
+   and the grid's f64 reduce, within rtol 2e-5 with the cells that
+   differ shown), the last refresh hitting every closed
    whole segment of its cached legs and recomputing none, its samples
    scanned the cache's recomputed ones plus the legs it passed through,
    every cache's byte ledger reconciled, the uncached router run twice
-   against itself, B1's launches in the refreshes equal to the kernel
-   ledger's; no open period
+   against itself bit for bit (RC1 and RC2), B1's launches in the
+   refreshes equal to the kernel ledger's, the RC walls cached and
+   uncached; the fixed-order group sum timed against ``index_add_`` on
+   the 15 min tier leg's own inputs, repeating its bits and equal to the
+   CPU's; no open period
    emitted, each series' newest record in its last closed period and
    ``rolled_through`` the oldest of them, the first CHECK_PODS pods'
    records equal to ``BatchDownsampler``'s over the same raw chunks bit
@@ -5683,12 +5688,46 @@ def rollup_router(ms, engine, **kw):
 RC_INSTANT_QUERY = "sum by (pod)(rate(req_total[5m]))"
 
 
-def values_gate(name: str, rows: dict, ref_rows: dict) -> dict:
+def leaf_plan(leg):
+    """The leaf under a plan: down its first children to the first plan
+    that names a dataset."""
+    while getattr(leg, "dataset", None) is None and leg.children:
+        leg = leg.children[0]
+    return leg
+
+
+def columns(rows: dict, cols: list) -> dict:
+    """``rows`` cut to the step columns ``cols``."""
+    return {k: v[cols] for k, v in rows.items()}
+
+
+class general_path:
+    """Within it the engine refuses the device grid: every leaf scans its
+    batch and runs its window function and group sum on the general
+    path, as an instant window state does."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.query.exec import MultiSchemaPartitionsExec
+        self._real = MultiSchemaPartitionsExec._try_device_grid
+        MultiSchemaPartitionsExec._try_device_grid = \
+            lambda *_a, **_k: None
+        return self
+
+    def __exit__(self, *exc):
+        from filodb_tpu_torch.query.exec import MultiSchemaPartitionsExec
+        MultiSchemaPartitionsExec._try_device_grid = self._real
+        return False
+
+
+def values_gate(name: str, rows: dict, ref_rows: dict,
+                exact: bool = True) -> dict:
     """A cached answer's rows against the uncached router's at the same
-    moment: the same groups and NaN cells, and every value bit for bit;
-    where a cell differs, within RTOL_KERNEL of the uncached value (the
-    card's departure, reported: the cells and their largest relative
-    difference)."""
+    moment: the same groups and NaN cells, and every value bit for bit.
+    With ``exact`` off a differing cell passes within RTOL_KERNEL of the
+    uncached value (the cells and their largest relative difference
+    reported): for two computations that round otherwise, as RC2's
+    instant window state on the general path against B1 and the grid's
+    f64 reduce."""
     import numpy as np
     if set(rows) != set(ref_rows):
         odd = sorted(set(rows) ^ set(ref_rows))[:4]
@@ -5709,11 +5748,12 @@ def values_gate(name: str, rows: dict, ref_rows: dict) -> dict:
     out = {"cells": int(fin.sum()), "bit_equal": not diff.any(),
            "cells_differing": int(diff.sum()),
            "max_rel_diff": float(rel.max())}
-    if not out["bit_equal"] and out["max_rel_diff"] > RTOL_KERNEL:
+    if not out["bit_equal"] and (exact or out["max_rel_diff"] > RTOL_KERNEL):
         raise AssertionError(f"{name}: {out['cells_differing']} cells differ "
                              f"from the uncached answer, up to "
-                             f"{out['max_rel_diff']:.3e} relative (> "
-                             f"{RTOL_KERNEL})")
+                             f"{out['max_rel_diff']:.3e} relative ("
+                             + ("bit for bit required" if exact else
+                                f"> {RTOL_KERNEL}") + ")")
     return out
 
 
@@ -5774,7 +5814,13 @@ class CacheDashboard:
 
     def refresh(self, label: str, t_instant: int) -> dict:
         """One refresh of both panels: the uncached router first, then
-        the cached one, each to host values, and the gates."""
+        the cached one, each to host values, and the gates: a cell a
+        cached range leg (or a leg the cache passed through) answers
+        equals the uncached router's bit for bit; a cell an instant
+        window state answers (RC2, and RC1's one-step raw leg at the
+        live edge) equals the uncached router's run on the general path
+        bit for bit, and the uncached router's (B1 and the grid's f64
+        reduce) within RTOL_KERNEL, its differing cells reported."""
         import torch
         from filodb_tpu_torch.query.resultcache import InstantWindowExec
 
@@ -5783,8 +5829,25 @@ class CacheDashboard:
         ures, uhost, uwall = run_routed(self.ms, uncached, "auto")[:3]
         res, host, wall, ep, qctx = run_routed(self.ms, self.router, "auto")
         torch.cuda.synchronize()
-        rc1 = values_gate(f"RC1 {label}", engine_rows(res, host),
-                          engine_rows(ures, uhost))
+        rows, urows = engine_rows(res, host), engine_rows(ures, uhost)
+        start = rollup_span()[0]
+        window_cols = [(leg.eval_ms - start) // ROLLUP_STEP
+                       for leg in self.leg_plans(ep)
+                       if isinstance(leg, InstantWindowExec)]
+        range_cols = [c for c in range(len(next(iter(urows.values()))))
+                      if c not in window_cols]
+        rc1 = values_gate(f"RC1 {label}", columns(rows, range_cols),
+                          columns(urows, range_cols))
+        if window_cols:
+            with general_path():
+                gres, ghost = run_routed(self.ms, uncached, "auto")[:2]
+            values_gate(f"RC1 {label} window leg, general path",
+                        columns(rows, window_cols),
+                        columns(engine_rows(gres, ghost), window_cols))
+            rc1["window_leg"] = values_gate(
+                f"RC1 {label} window leg", columns(rows, window_cols),
+                columns(urows, window_cols), exact=False)
+        rc1.update(window_cols=window_cols)
         rc1.update(wall_ms=wall, uncached_wall_ms=uwall,
                    tiers=list(qctx.rollup_tiers),
                    samples_scanned=res.stats.samples_scanned,
@@ -5794,8 +5857,14 @@ class CacheDashboard:
         ires, ihost, iwall = self._instant(uncached, t_instant)[:3]
         cres, chost, cwall, cep = self._instant(self.router, t_instant)
         torch.cuda.synchronize()
-        rc2 = values_gate(f"RC2 {label}", engine_rows(cres, chost),
-                          engine_rows(ires, ihost))
+        crows, irows = engine_rows(cres, chost), engine_rows(ires, ihost)
+        if isinstance(cep, InstantWindowExec):
+            with general_path():
+                gres, ghost = self._instant(uncached, t_instant)[:2]
+            values_gate(f"RC2 {label}, general path", crows,
+                        engine_rows(gres, ghost))
+        rc2 = values_gate(f"RC2 {label}", crows, irows,
+                          exact=not isinstance(cep, InstantWindowExec))
         # the first sight of a fingerprint passes through (the doorkeeper)
         consumed = cep._entry.state.samples_consumed \
             if isinstance(cep, InstantWindowExec) else None
@@ -5823,14 +5892,28 @@ class CacheDashboard:
             f"tiers {qctx.rollup_tiers}, legs {rc1['legs']}, samples "
             f"scanned {rc1['samples_scanned']} (cached "
             f"{rc1['cached_samples']}, recomputed "
-            f"{rc1['recomputed_samples']}), bit-equal {rc1['bit_equal']} "
-            f"({rc1['cells_differing']} of {rc1['cells']} cells differ, max "
-            f"rel {rc1['max_rel_diff']:.3e}); RC2 at {t_instant} via "
+            f"{rc1['recomputed_samples']}), {rc1['cells']} cells of range "
+            f"legs bit-equal to the uncached answer"
+            + (f"; the window leg's columns {window_cols} bit-equal to the "
+               f"general path, against the uncached answer "
+               f"{rc1['window_leg']['cells_differing']} of "
+               f"{rc1['window_leg']['cells']} cells differ, max rel "
+               f"{rc1['window_leg']['max_rel_diff']:.3e}" if window_cols
+               else "") +
+            f"; RC2 at {t_instant} via "
             f"{rc2['path']} wall {cwall:.3f} ms (uncached {iwall:.3f}), "
             f"samples consumed {rc2['samples_consumed']}, bit-equal "
             f"{rc2['bit_equal']} ({rc2['cells_differing']} of {rc2['cells']}"
-            f", max rel {rc2['max_rel_diff']:.3e}); caches {row['caches']}")
+            f", max rel {rc2['max_rel_diff']:.3e}"
+            + (", bit-equal to the general path"
+               if rc2["path"] == "InstantWindowExec" else "")
+            + f"); caches {row['caches']}; {nvidia_smi()}")
         return row
+
+    @staticmethod
+    def leg_plans(ep) -> list:
+        from filodb_tpu_torch.query.exec import StitchRvsExec
+        return list(ep.children) if isinstance(ep, StitchRvsExec) else [ep]
 
     @staticmethod
     def legs(ep) -> list:
@@ -5838,12 +5921,11 @@ class CacheDashboard:
         what the cache made of it (a CachedRangeExec's hit, head and run
         items, the storable segments the runs recompute), or the plain
         plan it passed through."""
-        from filodb_tpu_torch.query.exec import StitchRvsExec
         from filodb_tpu_torch.query.resultcache import (CachedRangeExec,
                                                         InstantWindowExec)
 
         out = []
-        for leg in (ep.children if isinstance(ep, StitchRvsExec) else [ep]):
+        for leg in CacheDashboard.leg_plans(ep):
             if isinstance(leg, InstantWindowExec):
                 # a one-step leg: the cache's instant window state
                 out.append({"dataset": leg._planner.dataset, "cached": True,
@@ -5860,11 +5942,8 @@ class CacheDashboard:
                         1 for it in items if it[0] == "run"
                         for seg in it[2] if seg.storable)})
             else:
-                leaf = leg
-                while getattr(leaf, "dataset", None) is None \
-                        and leaf.children:
-                    leaf = leaf.children[0]
-                out.append({"dataset": getattr(leaf, "dataset", None),
+                out.append({"dataset": getattr(leaf_plan(leg), "dataset",
+                                               None),
                             "cached": False})
         return out
 
@@ -5876,14 +5955,14 @@ class CacheDashboard:
         the cache passed through (each run again alone); every cache's
         byte ledger reconciles.  A stored segment the router no longer
         asks for (the boundary moved past it) stays unrequested."""
-        from filodb_tpu_torch.query.exec import ExecContext, StitchRvsExec
+        from filodb_tpu_torch.query.exec import ExecContext
         from filodb_tpu_torch.query.model import QueryContext
         from filodb_tpu_torch.query.resultcache import (CachedRangeExec,
                                                         InstantWindowExec)
 
         res, ep = self._last
         row = self.refreshes[-1]
-        legs = ep.children if isinstance(ep, StitchRvsExec) else [ep]
+        legs = self.leg_plans(ep)
         hit_keys = [it[2].key for leg in legs
                     if isinstance(leg, CachedRangeExec)
                     for it in leg._items if it[0] == "hit"]
@@ -5935,8 +6014,9 @@ class CacheDashboard:
 
     def uncached_repeat(self) -> dict:
         """The uncached router's RC1 and RC2 at the last refresh's moment,
-        each run twice and held to itself: whether the card's uncached
-        path is bit-reproducible at all."""
+        each run twice and held to itself bit for bit: the card's
+        uncached path is reproducible (its group sums in a fixed
+        order)."""
         import torch
 
         t = self.refreshes[-1]["rc2"]["t"]
@@ -5952,6 +6032,98 @@ class CacheDashboard:
             out[name] = {k: gate[k] for k in ("bit_equal", "cells_differing",
                                               "max_rel_diff")}
         return out
+
+    def tier_sum_inputs(self, res_ms: int) -> tuple:
+        """The first group sum of the uncached RC1's leg over the
+        ``res_ms`` tier, run alone at the last refresh's moment: clones
+        of ``segment_sum``'s (vals, ids, num_groups) there."""
+        from filodb_tpu_torch.downsample import ds_dataset_name
+        from filodb_tpu_torch.ops import aggregate
+        from filodb_tpu_torch.promql.parser import query_range_to_logical_plan
+        from filodb_tpu_torch.query.exec import ExecContext
+        from filodb_tpu_torch.query.model import QueryContext
+
+        start, stop = rollup_span()
+        qctx = QueryContext(sample_limit=2**40, resolution_pref="auto")
+        ep = rollup_router(self.ms, self.engine).materialize(
+            query_range_to_logical_plan(ROLLUP_QUERY, start, ROLLUP_STEP,
+                                        stop), qctx)
+        want = ds_dataset_name("prom", res_ms)
+        for leg in self.leg_plans(ep):
+            if leaf_plan(leg).dataset == want:
+                break
+        else:
+            raise AssertionError(f"RC1 has no leg over {want}")
+        seen: list = []
+        real = aggregate.segment_sum
+
+        def recording(vals, ids, num_groups):
+            if not seen:
+                seen.append((vals.clone(), ids.clone(), num_groups))
+            return real(vals, ids, num_groups)
+
+        aggregate.segment_sum = recording
+        try:
+            leg.execute(ExecContext(self.ms, QueryContext(
+                sample_limit=2**40)))
+        finally:
+            aggregate.segment_sum = real
+        if not seen:
+            raise AssertionError(f"RC1's {want} leg ran no group sum")
+        return seen[0]
+
+
+def segment_sum_times(inputs: tuple, reps: int, runs: int = 5) -> dict:
+    """The fixed-order ``segment_sum`` beside the ``index_add_`` it
+    replaced, on the inputs of ``CacheDashboard.tier_sum_inputs``: each
+    one's median device ms (``cuda_ms``), and ``runs`` runs of each
+    against its first: the fixed-order sum must repeat its bits and equal
+    the CPU's on the same inputs; the cells where ``index_add_`` gave
+    other bits are counted."""
+    import torch
+    from filodb_tpu_torch.ops import aggregate
+
+    vals, ids, G = inputs
+
+    def index_add():
+        out = torch.zeros((G,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                          device=vals.device)
+        return out.index_add_(0, ids.to(torch.int64), vals)
+
+    def fixed():
+        return aggregate.segment_sum(vals, ids, G)
+
+    def bits(t):
+        t = t.cpu()
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+        return t.contiguous().view(torch.int32 if t.dtype == torch.float32
+                                   else torch.int64)
+
+    first = bits(fixed())
+    cpu = bits(aggregate.segment_sum(vals.cpu(), ids.cpu(), G))
+    if not torch.equal(first, cpu):
+        raise AssertionError("segment_sum on the card differs from the CPU's "
+                             f"in {int((first != cpu).sum())} cells")
+    for _ in range(runs - 1):
+        again = bits(fixed())
+        if not torch.equal(again, first):
+            raise AssertionError(f"segment_sum repeated with other bits in "
+                                 f"{int((again != first).sum())} cells")
+    ref = bits(index_add())
+    differ = max(int((bits(index_add()) != ref).sum())
+                 for _ in range(runs - 1))
+    out = {"shape": list(vals.shape), "dtype": str(vals.dtype).split(".")[-1],
+           "groups": G, "cells": int(first.numel()),
+           "segment_sum_ms": cuda_ms(fixed, reps),
+           "index_add_ms": cuda_ms(index_add, reps),
+           "index_add_cells_differing": differ}
+    log(f"segment_sum at the 15 min tier leg's shape {out['shape']} "
+        f"{out['dtype']} into {G} groups: fixed order {out['segment_sum_ms']:.4f}"
+        f" ms against index_add_ {out['index_add_ms']:.4f} ms (CUDA events, "
+        f"median of {reps}); {runs} runs bit-equal to each other and to the "
+        f"CPU's; index_add_ run {runs} times differed from its first in up "
+        f"to {differ} of {out['cells']} cells; {nvidia_smi()}")
+    return out
 
 
 def rollup_queries() -> list:
@@ -5995,9 +6167,7 @@ def leg_paths(ep, hits: dict) -> list:
     legs = list(ep.children) if isinstance(ep, StitchRvsExec) else [ep]
     out = []
     for leg in legs:
-        leaf = leg
-        while getattr(leaf, "dataset", None) is None and leaf.children:
-            leaf = leaf.children[0]
+        leaf = leaf_plan(leg)
         out.append({"dataset": leaf.dataset, "start": leaf.start_ms,
                     "end": leaf.end_ms, "grid_hits": hits[leaf.dataset],
                     "path": "grid" if hits[leaf.dataset] else "general"})
@@ -6153,11 +6323,19 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
             raise AssertionError(f"the refreshes' B1 launches: the wrapper's "
                                  f"{rc_launches[0]}, the kernel ledger's "
                                  f"{rc_launches[1]}")
+        tier_sum = dash.tier_sum_inputs(ROLLUP_STEP)
+        walls = {r["label"]: {k: round(r[p][w], 3) for p in ("rc1", "rc2")
+                              for k, w in ((f"{p}_ms", "wall_ms"),
+                                           (f"{p}_uncached_ms",
+                                            "uncached_wall_ms"))}
+                 for r in dash.refreshes}
         out["result_cache"] = {"refreshes": dash.refreshes, "last": last,
+                               "walls_ms": walls,
                                "launches": {"rate_grid": rc_launches[0],
                                             "ledger": rc_launches[1]}}
         log(f"RC refreshes: B1 launched {rc_launches[0]} times, the kernel "
-            f"ledger's count {rc_launches[1]}")
+            f"ledger's count {rc_launches[1]}; walls (ms, cached and "
+            f"uncached) {walls}; {nvidia_smi()}")
     devicewatch.KERNEL_TIMER.configure(sample_1_in=64)
     stages = {k: round(v, 3) for k, v in clock.seconds.items()}
     stages.update({f"publish.{r}": round(v, 3) for r, v in publish_s.items()})
@@ -6331,6 +6509,8 @@ def rollup_phase(device, seed: int, reps: int, hours: dict, report: dict,
         rows = [plan_kernel_times(f"rollup {q} {ds}", plan, reps, flush)[1]
                 for (q, ds), plan in sorted(plans.items())
                 if (q, ds) == ("R2", "prom") or ds != "prom"]
+        out["segment_sum"] = segment_sum_times(tier_sum, reps)
+    del tier_sum
     engine.stop()
     ms.reset()
     twin.reset()

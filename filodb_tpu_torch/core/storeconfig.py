@@ -15,6 +15,9 @@ class StoreConfig:
     flush_task_parallelism: int = 2           # flush executor workers
     max_chunks_size: int = 400                # max rows per chunk
     groups_per_shard: int = 60
+    # local-tier retention: chunk rows older than this age out to the
+    # cold tier's bucket (coldstore/ageout.py)
+    disk_ttl_seconds: int = 3 * 24 * 3600
     # on-demand paging: over a persistent column store the shard pages
     # partitions absent from memory (evicted, or index-only after a
     # restart) back from disk at query time (reference:

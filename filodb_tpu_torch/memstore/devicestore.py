@@ -203,8 +203,8 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str,
     into ``[G, T]`` partials, on the device.  ``garr`` maps lane -> group
     (``num_groups`` = the drop bucket for unrequested and padding lanes).
     sum/avg/count at modest G are a one-hot matmul; beyond
-    ``_ONEHOT_MAX_G`` an index_add.  ``exact`` accumulates the sums in
-    f64 and rounds them to the output's dtype once: a group's f32 values
+    ``_ONEHOT_MAX_G`` the fixed-order ``segment_sum``.  ``exact``
+    accumulates the sums in f64 and rounds them to the output's dtype once: a group's f32 values
     then sum exactly, or within f64's rounding, which the final f32
     rounding hides but for values within 1e-16 of an f32 tie, so the
     answer does not depend on the order the library sums in, and a
@@ -229,11 +229,8 @@ def _grouped_reduce_impl(stepped, garr, num_groups: int, op: str,
             outs = [segops.f32_matmul(p.T.to(acc), onehot).T.to(v.dtype)
                     for p in planes]
         else:
-            idx = garr.to(torch.int64)
-            outs = [torch.zeros((G + 1, v.shape[1]), dtype=acc,
-                                device=v.device).index_add_(
-                                    0, idx, p.to(acc))[:G].to(v.dtype)
-                    for p in planes]
+            outs = [segops.segment_sum(p.to(acc), garr, G + 1)[:G]
+                    .to(v.dtype) for p in planes]
         return torch.stack(outs)
     if op == "min":
         return segops.seg_min(v, garr, G + 1)[:G]

@@ -17,6 +17,7 @@ NaN.
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Hashable, Sequence
 
@@ -59,10 +60,24 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
                 num_groups: int) -> torch.Tensor:
-    """Plain per-group sum of the rows of ``vals`` (``[S, ...]``)."""
-    out = torch.zeros((num_groups,) + tuple(vals.shape[1:]),
-                      dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids.to(torch.int64), vals)
+    """Per-group sum of the rows of ``vals`` (``[S, ...]``), ``ids`` in
+    ``[0, num_groups)``, each group's rows added in ascending row order
+    from 0.0, on every device: the same inputs give the same bits on
+    every run (CUDA's ``index_add_`` adds with atomics in any order),
+    and on the CPU the bits of ``index_add_``, which adds in row order
+    too.  A stable sort groups the rows, then ``segment_reduce`` sums
+    each segment serially (its CUDA kernel runs one thread an output
+    cell over a 2-D operand, so the trailing dims are flattened)."""
+    ids = ids.to(torch.int64)
+    sids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        sids, torch.arange(num_groups + 1, dtype=torch.int64,
+                           device=ids.device))
+    inner = tuple(vals.shape[1:])
+    rows = vals.reshape(vals.shape[0], math.prod(inner))[order]
+    out = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                               unsafe=True)
+    return out.reshape((num_groups,) + inner)
 
 
 def _seg_extreme(vals: torch.Tensor, ids: torch.Tensor, num_groups: int,

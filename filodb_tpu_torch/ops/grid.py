@@ -1659,8 +1659,8 @@ def event_topk_grid_packed(packed: dict, steps0: int, q: GridQuery, k: int,
       (``num_groups`` drops a lane).  Or ``group_width`` (and ``garr``
       None) when group g is the contiguous packed lanes ``[g*W, (g+1)*W)``:
       the reduce is then a reshape-sum.  A ``garr`` reduces by a one-hot
-      f32 matmul up to :data:`TOPK_ONEHOT_MAX_G` groups and by
-      ``index_add_`` past it.
+      f32 matmul up to :data:`TOPK_ONEHOT_MAX_G` groups and by the
+      fixed-order ``aggregate.segment_sum`` past it.
     - ``filt_packed``/``filt_op``/``filt_thresh``: keep only lanes whose
       filter-column window value (``filt_q``, default ``q``) satisfies
       ``filt_op(v, thresh)`` (gt/ge/lt/le/eq/ne); ``filt_pos`` maps the

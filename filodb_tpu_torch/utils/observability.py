@@ -455,6 +455,46 @@ def resultcache_metrics() -> dict:
     }
 
 
+def coldstore_metrics() -> dict:
+    """Cold-tier metrics (coldstore/): bucket fetch traffic and its
+    failure classes, age-out volume, and the per-shard watermark — one
+    place defines the names so the store and the age-out pass can never
+    drift."""
+    return {
+        "fetches": REGISTRY.counter(
+            "filodb_coldstore_fetches_total",
+            "objects fetched from the cold bucket (cache-miss reads; "
+            "prefetched objects count once, at prefetch time)"),
+        "fetch_bytes": REGISTRY.counter(
+            "filodb_coldstore_fetch_bytes_total",
+            "object bytes fetched from the cold bucket"),
+        "fetch_corrupt": REGISTRY.counter(
+            "filodb_coldstore_fetch_corrupt_total",
+            "fetched objects failing their key CRC (truncated or "
+            "bit-rotted in the bucket) — quarantined, never served, "
+            "per dataset"),
+        "fetch_timeouts": REGISTRY.counter(
+            "filodb_coldstore_fetch_timeouts_total",
+            "fetches refused because the deadline-derived timeout "
+            "expired (stalled backend or exhausted query budget)"),
+        "fetch_missing": REGISTRY.counter(
+            "filodb_coldstore_fetch_missing_total",
+            "fetches of objects deleted between listing and get "
+            "(served as absent rows, not errors)"),
+        "aged_chunks": REGISTRY.counter(
+            "filodb_coldstore_aged_chunks_total",
+            "chunk rows migrated local -> cold by age-out passes, "
+            "per dataset"),
+        "aged_bytes": REGISTRY.counter(
+            "filodb_coldstore_aged_bytes_total",
+            "blob bytes migrated local -> cold, per dataset"),
+        "watermark": REGISTRY.gauge(
+            "filodb_coldstore_ageout_watermark_ms",
+            "cutoff (epoch ms) of the last completed age-out pass, per "
+            "dataset/shard — chunks ending before it are archived"),
+    }
+
+
 class PeriodicThread:
     """Daemon loop calling ``fn`` every ``interval_s`` until stopped;
     exceptions print and the loop continues (the shared harness for

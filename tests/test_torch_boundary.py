@@ -24,6 +24,7 @@ from filodb_tpu_torch.core.storeconfig import StoreConfig
 from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
 from filodb_tpu_torch.query.logical import RangeFunctionId as F
 from filodb_tpu_torch.batching import QueryBatcher
+from filodb_tpu_torch.coldstore import AgeOutManager, TieredColumnStore
 from filodb_tpu_torch.query.model import QueryContext
 from filodb_tpu_torch.workload import deadline
 
@@ -78,6 +79,12 @@ def test_sources_cover_the_batcher_and_deadlines():
     assert {os.path.join("batching", "batcher.py"),
             os.path.join("batching", "__init__.py"),
             os.path.join("workload", "deadline.py")} <= rel
+
+
+def test_sources_cover_the_cold_tier():
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {os.path.join("coldstore", "store.py"),
+            os.path.join("coldstore", "ageout.py")} <= rel
 
 
 def _forbidden(name: str) -> bool:
